@@ -1,0 +1,83 @@
+"""Gaussian scale-space pyramid (visualslam_tpu/models/pyramid.py).
+
+Batched over frames natively: every product is [B, levels, H_o, W_o].
+Per octave: all levels blurred from the octave base at absolute sigma
+base_sigma * k^l in one banded-matmul pass (ops/blur.py), DoG as adjacent
+level differences, gradients of the levels the SIFT path reads, and the
+next octave's base as the stride-2 downsample of level s.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import torch
+
+from visualslam_tpu_torch.ops.blur import BlurBands, blur_stack_matmul
+from visualslam_tpu_torch.ops.gradients import gradients
+from visualslam_tpu_torch.ops.resize import downsample2x_nearest
+from visualslam_tpu_torch.utils.config import PyramidConfig
+
+
+class ScaleSpace(NamedTuple):
+    """Per-octave stacks. Each field is a tuple (len = num_octaves) of
+    tensors [B, levels, H_o, W_o]; dog stacks have levels - 1 levels and
+    the gradient stacks levels 1..s ("interior") or all levels ("all")."""
+
+    gauss: Tuple[torch.Tensor, ...]
+    dog: Tuple[torch.Tensor, ...]
+    grad_x: Tuple[torch.Tensor, ...]
+    grad_y: Tuple[torch.Tensor, ...]
+    grad_mag: Tuple[torch.Tensor, ...]
+    grad_ori: Tuple[torch.Tensor, ...]
+
+    @property
+    def grad_level_offset(self) -> int:
+        """Gauss level of grad stack index 0: 0 when grad_levels="all",
+        1 when "interior"."""
+        return 0 if self.grad_mag[0].shape[1] == self.gauss[0].shape[1] else 1
+
+
+def level_sigmas(cfg: PyramidConfig) -> Tuple[float, ...]:
+    """Within-octave absolute sigmas (octave-base pixel units)."""
+    return tuple(cfg.base_sigma * cfg.k_factor ** l
+                 for l in range(cfg.levels_per_octave))
+
+
+def build_pyramid(img: torch.Tensor, cfg: PyramidConfig,
+                  bands: BlurBands | None = None) -> ScaleSpace:
+    """Scale space of [B, H, W] frames. `bands` holds the blur's band
+    matrices across calls (frontend.SiftFrontend owns one); without it
+    they are built for this call."""
+    if img.ndim != 3:
+        raise ValueError(f"build_pyramid expects [B, H, W], got {tuple(img.shape)}")
+    if cfg.initial_upsample:
+        raise NotImplementedError(
+            "initial_upsample (the DEFAULT profile) is not ported yet; "
+            "see ROADMAP.md A.8")
+    if cfg.blur_mode != "matmul":
+        raise NotImplementedError(
+            f"blur_mode={cfg.blur_mode!r} is not ported yet; see ROADMAP.md "
+            "A.8 and B.4")
+    img = img.to(getattr(torch, cfg.dtype))
+    sigmas = level_sigmas(cfg)
+    if bands is None:
+        bands = BlurBands(sigmas, cfg.truncate)
+    elif bands.sigmas != tuple(float(s) for s in sigmas):
+        raise ValueError("bands were built for another sigma set")
+    s = cfg.scale_samples
+    base = img
+    gauss, dog, gx, gy, gm, go = [], [], [], [], [], []
+    for _ in range(cfg.num_octaves):
+        stack = blur_stack_matmul(base, bands)                  # [B, L, H, W]
+        gauss.append(stack)
+        dog.append(stack[:, 1:] - stack[:, :-1])                # [B, L-1, H, W]
+        grad_src = stack if cfg.grad_levels == "all" else stack[:, 1:1 + s]
+        dx, dy, mag, ori = gradients(grad_src)
+        gx.append(dx)
+        gy.append(dy)
+        gm.append(mag)
+        go.append(ori)
+        base = downsample2x_nearest(stack[:, s])                # next octave base
+    return ScaleSpace(tuple(gauss), tuple(dog), tuple(gx), tuple(gy),
+                      tuple(gm), tuple(go))
