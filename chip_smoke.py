@@ -1,24 +1,41 @@
-"""Drive the PyTorch + CUDA port's frontend slice once on an NVIDIA GPU.
+"""Drive the PyTorch + CUDA port's slices once on an NVIDIA GPU.
 
     python3 chip_smoke.py        # from the repository root, one CUDA device
 
-The slice is the first half of the benchmark's main path at its own shapes:
-a batch of 16 uint8 frames of 376x1248 from the synthetic sequence through
-the batched SIFT frontend (FAST_CONFIG, 3 octaves), then each consecutive
-pair of frames matched. Phases, each printing its own lines:
+The benchmark's main path at its own shapes: batches of 16 uint8 frames of
+376x1248 from the synthetic sequence. Two paths run, each with the launch
+counters reset just before it and read just after:
+
+  - the frontend slice: the batched SIFT frontend (FAST_CONFIG, 3 octaves)
+    and each consecutive pair of frames matched;
+  - the tracking slice: the frontend under TRACK_CONFIG (FAST_CONFIG with
+    blur_mode="pallas" and match.impl="pallas", the two switches that put
+    the blur and the streaming 2-NN kernels on the path), a ground-truth
+    bootstrap of two keyframes, track_batch over the batch, one keyframe
+    promotion with triangulation, and the window BA.
+
+Phases, each printing its own lines:
 
   1. device    the card's name and power limit, CUDA version; TF32 off
-  2. build     nvcc-compiles the kernels from csrc/ (timed, with the
-               compiler's register / spill report)
+  2. build     nvcc-compiles the kernels from csrc/, one process per
+               source, all at once (timed, with the compiler's register /
+               spill report)
   3. kernels   each kernel against its plain version on the card at the
-               octave-0 shapes: the extrema winners and the candidates
+               main path's shapes: the extrema winners and the candidates
                that follow bit for bit, the orientation histogram and the
-               descriptor within 1e-4 * (1 + max |plain|); median times
-  4. slice     the frontend + matching through the public entry points,
-               with the launch counters reset just before and read just
-               after; the plain path on the same batch as the reference;
-               keypoint and match floors; frames/s of both paths
-  5. result    one JSON line of per-kernel numbers, then the last line
+               descriptor within 1e-4 * (1 + max |plain|), the blur within
+               1e-5 * (1 + max |plain|), the 2-NN within
+               1e-5 * (1 + max |plain|) on valid rows; median times
+  4. slice     the frontend + matching through the public entry points;
+               the plain path on the same batch as the reference; keypoint
+               and match floors; frames/s of both paths
+  5. track     the tracking slice, kernel path and plain path: launch
+               counts, tracking accepted on every frame, PnP inlier floor,
+               pose error against ground truth, BA cost, kernel path
+               against plain path; ms per tracked frame, keyframe_step and
+               run_ba; frontend frames/s TRACK_CONFIG vs FAST_CONFIG; the
+               host syncs inside track_batch
+  6. result    one JSON line of per-kernel numbers, then the last line
                {"ok": true, "device": {...}}
 
 Any failed check raises, so the run exits non-zero and prints no result.
@@ -31,15 +48,18 @@ import json
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
 
+from visualslam_tpu_torch.backend.ba import run_ba
 from visualslam_tpu_torch.frontend import SiftFrontend
 from visualslam_tpu_torch.io.synthetic import SyntheticSequence
 from visualslam_tpu_torch.models.matching import match_features
 from visualslam_tpu_torch.models.pyramid import build_pyramid
 from visualslam_tpu_torch.models.types import Features, Keypoints
+from visualslam_tpu_torch.ops.blur import blur_stack_matmul
 from visualslam_tpu_torch.ops.cuda import (
     KERNELS,
     PLAIN,
@@ -50,12 +70,34 @@ from visualslam_tpu_torch.ops.cuda import (
 from visualslam_tpu_torch.ops.extrema import detect_extrema, extrema_candidates
 from visualslam_tpu_torch.ops.histograms import histogram_peaks
 from visualslam_tpu_torch.ops.patches import crop_patches
+from visualslam_tpu_torch.slam.track_step import keyframe_step, track_batch
+from visualslam_tpu_torch.slam.window import (
+    port_ops,
+    run_window,
+    world_to_camera,
+)
 from visualslam_tpu_torch.utils.config import FAST_CONFIG
 
 H, W, BATCH = 376, 1248, 16
 KERNEL_TOL = 1e-4           # x (1 + max |plain|): summation order only
+BLUR_TOL = 1e-5             # x (1 + max |plain|): same taps, same order
+NN_TOL = 1e-5               # x (1 + max |plain|) on valid rows: a.b order
 MIN_KEYPOINTS = 800         # per frame
 MIN_MATCHES = 250           # per consecutive pair
+TRACK_CONFIG = FAST_CONFIG.replace(
+    pyramid=FAST_CONFIG.pyramid.replace(blur_mode="pallas"),
+    match=FAST_CONFIG.match.replace(impl="pallas"))
+# tracking of frames 5..15 after the ground-truth bootstrap of frames 0 and
+# 4: half the JAX package's smallest inlier count and twice its largest
+# errors, with the same driver on the same frames (PERF.md, CPU rehearsal:
+# inliers >= 35, rotation <= 0.2062 deg, position <= 0.1968)
+MIN_INLIERS = 17
+MAX_ROT_DEG = 0.4124
+MAX_POS_ERR = 0.3936        # sequence units; one frame step is 0.4
+PATH_ROT_DEG = 0.05         # kernel path vs plain path, per frame
+PATH_POS_FRAC = 1e-3        # x the frame 0..15 baseline
+PATH_INLIER_FRAC = 0.05
+FRONTEND_KERNELS = ("extrema_winners", "orient_hist", "descriptor")
 SOURCES = {
     "extrema_winners": ("visualslam_tpu_torch/csrc/extrema.cu",
                         "visualslam_tpu/ops/pallas/extrema.py:256"),
@@ -63,6 +105,10 @@ SOURCES = {
                     "visualslam_tpu/ops/pallas/descriptor.py:180"),
     "descriptor": ("visualslam_tpu_torch/csrc/descriptor.cu",
                    "visualslam_tpu/ops/pallas/descriptor.py:212"),
+    "blur_stack": ("visualslam_tpu_torch/csrc/blur.cu",
+                   "visualslam_tpu/ops/pallas/blur.py:115"),
+    "l2_2nn": ("visualslam_tpu_torch/csrc/distance.cu",
+               "visualslam_tpu/ops/pallas/distance.py:79"),
 }
 
 
@@ -88,15 +134,31 @@ def time_ms(fn, reps: int) -> float:
     return float(np.median(times))
 
 
+def wall_ms(fn, reps: int) -> float:
+    """Median host-clock ms of fn() + synchronize over `reps` runs after
+    one warmup (for calls that read back to the host themselves)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(times))
+
+
+def frames_of(f: Features, sl: slice) -> Features:
+    return Features(Keypoints(*(t[sl] for t in f.keypoints)),
+                    f.descriptors[sl])
+
+
 def frame_pairs(f: Features):
     """(frames 0..B-2, frames 1..B-1) of a batched Features."""
-    return (Features(Keypoints(*(t[:-1] for t in f.keypoints)),
-                     f.descriptors[:-1]),
-            Features(Keypoints(*(t[1:] for t in f.keypoints)),
-                     f.descriptors[1:]))
+    return frames_of(f, slice(None, -1)), frames_of(f, slice(1, None))
 
 
-def phase_device() -> torch.device:
+def phase_device():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device "
                          "(torch.cuda.is_available() is False)")
@@ -104,41 +166,115 @@ def phase_device() -> torch.device:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
-    print(f"device: {smi.stdout.strip().splitlines()[0]}")
+    card = smi.stdout.strip().splitlines()[0]
+    print(f"device: {card}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.device_count()} device(s), using "
           f"{torch.cuda.get_device_name(0)}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    return torch.device("cuda:0")
+    return torch.device("cuda:0"), card
 
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    for name in ("extrema", "descriptor"):
+    build.build_all()
+    for name in build.SOURCES:
         build.load_library(name)
-    print(f"build: {time.perf_counter() - t0:.1f} s (nvcc "
+    print(f"build: {time.perf_counter() - t0:.1f} s for "
+          f"{len(build.SOURCES)} sources in parallel (nvcc "
           f"{' '.join(build.NVCC_FLAGS[:2])})")
-    for name in ("extrema", "descriptor"):
+    for name in build.SOURCES:
         for line in build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}.cu: {line.strip()}")
 
 
-def render_frames() -> np.ndarray:
+def render_frames():
     """The benchmark's frames: 24 of the 376x1248 synthetic sequence, as
-    uint8 (as bench.py ships them)."""
+    uint8 (as bench.py ships them), and the sequence (poses, intrinsics)."""
     t0 = time.perf_counter()
     seq = SyntheticSequence(num_frames=24, h=H, w=W, n_dots=8000, step=0.4)
     frames = np.stack([seq.frame(k) for k in range(len(seq))])
     frames = np.clip(frames * 255.0, 0, 255).astype(np.uint8)
     print(f"frames: {frames.shape} uint8 rendered in "
           f"{time.perf_counter() - t0:.1f} s")
-    return frames
+    return frames, seq
 
 
-def phase_kernels(batch: torch.Tensor, frontend: SiftFrontend) -> dict:
-    """Each kernel against its plain version at the octave-0 shapes."""
+def _masked_descriptors(f: Features, frames: slice, dev) -> tuple:
+    """Descriptors of `frames` as match_features hands them to the 2-NN:
+    invalid rows and a seeded ~10% of the valid ones set to 1e3. Returns
+    (descriptors [P, K, D], valid rows [P, K])."""
+    d = f.descriptors[frames]
+    g = torch.Generator().manual_seed(0)
+    keep = (torch.rand(d.shape[:2], generator=g) > 0.1).to(dev)
+    valid = f.keypoints.valid[frames] & keep
+    return (torch.where(valid[..., None], d,
+                        torch.full((), 1e3, device=dev)).contiguous(),
+            valid)
+
+
+def kernel_2nn(feats: Features, dev) -> tuple:
+    """l2_2nn against its plain version on a tracked frame's problem:
+    [1, 2048, 128] x [1, 2048, 128] from the slice's descriptors."""
+    a, va = _masked_descriptors(feats, slice(0, 1), dev)
+    b, _ = _masked_descriptors(feats, slice(1, 2), dev)
+    got = KERNELS.l2_2nn(a, b)
+    want = PLAIN.l2_2nn(a, b)
+    rows = va
+    ref = torch.cat([want[0][rows], want[1][rows]])
+    bound = NN_TOL * (1.0 + ref.abs().max().item())
+    err = max((got[0] - want[0])[rows].abs().max().item(),
+              (got[1] - want[1])[rows].abs().max().item())
+    near = rows & ((want[1] - want[0]).abs() <= bound)
+    wrong = rows & ~near & (got[2] != want[2])
+    print(f"kernel l2_2nn: a {tuple(a.shape)} b {tuple(b.shape)}, "
+          f"{int(rows.sum())} valid rows, max |kernel - plain| = {err:.3e} "
+          f"(bound {bound:.3e}), {int(near.sum())} near-ties, "
+          f"{int(wrong.sum())} other index mismatches")
+    check(err <= bound, f"l2_2nn within {NN_TOL} x (1 + max|plain|)")
+    check(int(wrong.sum()) == 0, "l2_2nn indices equal off near-ties")
+    ms = time_ms(lambda: KERNELS.l2_2nn(a, b), 20)
+    plain_ms = time_ms(lambda: PLAIN.l2_2nn(a, b), 20)
+    a15, _ = _masked_descriptors(feats, slice(0, BATCH - 1), dev)
+    b15, _ = _masked_descriptors(feats, slice(1, BATCH), dev)
+    got15, want15 = KERNELS.l2_2nn(a15, b15), PLAIN.l2_2nn(a15, b15)
+    check(bool(torch.isfinite(got15[0]).all()), "15-pair 2-NN is finite")
+    print(f"time l2_2nn 15 pairs {tuple(a15.shape)}: kernel "
+          f"{time_ms(lambda: KERNELS.l2_2nn(a15, b15), 10):.4f} ms, plain "
+          f"{time_ms(lambda: PLAIN.l2_2nn(a15, b15), 10):.4f} ms "
+          f"(max |kernel - plain| of best "
+          f"{(got15[0] - want15[0]).abs().max().item():.3e} over all rows)")
+    return err, ms, plain_ms
+
+
+def kernel_blur(batch: torch.Tensor, frontend: SiftFrontend, dev) -> tuple:
+    """blur_stack against its plain version at octave 0 of a batch, timed
+    beside the port's banded-matmul blur on the same input."""
+    img = batch.float() * (1.0 / 255.0)                 # [16, 376, 1248]
+    taps = frontend.bands.taps(dev)
+    got = KERNELS.blur_stack(img, taps)
+    want = PLAIN.blur_stack(img, taps)
+    check(bool(torch.isfinite(got).all()), "blur_stack output is finite")
+    err = (got - want).abs().max().item()
+    bound = BLUR_TOL * (1.0 + want.abs().max().item())
+    mm = blur_stack_matmul(img, frontend.bands)
+    print(f"kernel blur_stack: img {tuple(img.shape)}, taps "
+          f"{tuple(taps.shape)}, max |kernel - plain| = {err:.3e} (bound "
+          f"{bound:.3e}), max |kernel - matmul blur| = "
+          f"{(got - mm).abs().max().item():.3e}")
+    check(err <= bound, f"blur_stack within {BLUR_TOL} x (1 + max|plain|)")
+    ms = time_ms(lambda: KERNELS.blur_stack(img, taps), 20)
+    plain_ms = time_ms(lambda: PLAIN.blur_stack(img, taps), 5)
+    mm_ms = time_ms(lambda: blur_stack_matmul(img, frontend.bands), 20)
+    print(f"time blur at octave 0: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+          f"ms, blur_stack_matmul {mm_ms:.4f} ms")
+    return err, ms, plain_ms
+
+
+def phase_kernels(batch: torch.Tensor, frontend: SiftFrontend, dev) -> dict:
+    """Each kernel against its plain version at the main path's shapes."""
     cfg = FAST_CONFIG
     thr = cfg.sift.contrast_threshold
     cap = cfg.sift.octave_capacity(0)
@@ -190,6 +326,10 @@ def phase_kernels(batch: torch.Tensor, frontend: SiftFrontend) -> dict:
         check(err <= bound, f"{name} within {KERNEL_TOL} x (1 + max|plain|)")
         out[name] = (err, time_ms(lambda: kfn(*args), 20),
                      time_ms(lambda: pfn(*args), 5))
+    del ss, dog, patches, mag_ori, hist_p
+
+    out["blur_stack"] = kernel_blur(batch, frontend, dev)
+    out["l2_2nn"] = kernel_2nn(frontend(batch), dev)
     for name, (err, ms, plain_ms) in out.items():
         print(f"time {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
     return out
@@ -230,9 +370,12 @@ def phase_slice(frames_dev: torch.Tensor, frontend: SiftFrontend,
     torch.cuda.synchronize()
     launches = launch_counts()
     print(f"slice launches: {launches}")
-    for name, n in launches.items():
-        check(n == cfg.pyramid.num_octaves,
-              f"{name} launched once per octave on the main path")
+    for name in FRONTEND_KERNELS:
+        check(launches[name] == cfg.pyramid.num_octaves,
+              f"{name} launched once per octave on the frontend path")
+    for name in ("blur_stack", "l2_2nn"):
+        check(launches[name] == 0, f"{name} not launched under FAST_CONFIG "
+              "(matmul blur, dense matcher)")
 
     K = cfg.sift.max_keypoints
     check(tuple(feats.descriptors.shape) == (BATCH, K, 128)
@@ -270,17 +413,161 @@ def phase_slice(frames_dev: torch.Tensor, frontend: SiftFrontend,
     return launches
 
 
+def rot_deg(Ra: np.ndarray, Rb: np.ndarray) -> np.ndarray:
+    """Angle between rotations in degrees, from |Ra - Rb|_F =
+    2 sqrt(2) sin(angle / 2) in float64 (arccos of the trace loses ~0.02
+    degrees to float32 rounding near 0)."""
+    d = np.linalg.norm((Ra.astype(np.float64) - Rb).reshape(len(Ra), 9),
+                       axis=1)
+    return np.degrees(2.0 * np.arcsin(np.clip(d / (2.0 * np.sqrt(2.0)),
+                                              0.0, 1.0)))
+
+
+def centres(R: np.ndarray, t: np.ndarray) -> np.ndarray:
+    return -np.einsum("fji,fj->fi", R, t)
+
+
+def count_syncs(fn) -> int:
+    """Host syncs torch reports while fn() runs (sync debug mode)."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    # the mode also emits a one-off notice that it is a prototype
+    return sum("called a synchronizing" in str(w.message) for w in caught)
+
+
+def phase_track(frames_dev: torch.Tensor, seq: SyntheticSequence,
+                fast_frontend: SiftFrontend, card: str, dev) -> dict:
+    """The tracking slice under TRACK_CONFIG on frames 0..15, kernel path
+    and plain path; returns the kernel path's launch counts."""
+    cfg = TRACK_CONFIG
+    print(f"track: {card}")
+    batch = frames_dev[:BATCH]
+    R_gt, t_gt = world_to_camera(seq.gt_poses[:BATCH])
+    intr = torch.tensor(seq.intrinsics, device=dev)
+    n_kf_steps = 3      # bootstrap depth probe, bootstrap, promotion
+    runs = {}
+    for name, kernels in (("kernel", KERNELS), ("plain", PLAIN)):
+        fe = SiftFrontend(cfg, kernels).to(dev)
+        # the main path, through the entry points a user calls; run_window's
+        # ground-truth bootstrap stands in for the two-view init (A.7)
+        reset_launch_counts()
+        feats = fe(batch)
+        run = run_window(port_ops(dev, kernels), feats, R_gt, t_gt, intr, cfg)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        print(f"track {name} path launches: {counts}")
+        if kernels is KERNELS:
+            want = dict.fromkeys(FRONTEND_KERNELS, cfg.pyramid.num_octaves)
+            want.update(blur_stack=cfg.pyramid.num_octaves,
+                        l2_2nn=2 * (BATCH + n_kf_steps))
+            check(counts == want, f"kernel path launches {want}")
+        else:
+            check(not any(counts.values()), "plain path launches no kernel")
+        tracked = np.arange(BATCH) >= 5
+        rerr = rot_deg(run.R, R_gt)[tracked]
+        perr = np.linalg.norm(centres(run.R, run.t) - centres(R_gt, t_gt),
+                              axis=1)[tracked]
+        inl = run.inliers[tracked]
+        print(f"track {name}: ok {run.ok.astype(int).tolist()}, inliers "
+              f"{inl.astype(int).tolist()}")
+        print(f"track {name}: rotation error deg max {rerr.max():.4f} "
+              f"(per frame {np.round(rerr, 4).tolist()}), position error "
+              f"max {perr.max():.4f} (sequence units)")
+        print(f"track {name}: new landmarks {run.new_landmarks}, max_depth "
+              f"{run.max_depth:.2f}, BA cameras/landmarks/observations "
+              f"{run.ba_sizes}, cost {run.ba_cost[0]:.6e} -> "
+              f"{run.ba_cost[1]:.6e}")
+        check(bool(run.ok[tracked].all()), f"{name}: every frame tracked")
+        check(inl.min() >= MIN_INLIERS, f"{name}: >= {MIN_INLIERS} inliers")
+        check(rerr.max() <= MAX_ROT_DEG, f"{name}: rotation <= {MAX_ROT_DEG}")
+        check(perr.max() <= MAX_POS_ERR, f"{name}: position <= {MAX_POS_ERR}")
+        init, final = run.ba_cost
+        check(np.isfinite(final) and final <= init, f"{name}: BA cost falls")
+        runs[name] = (fe, feats, run, counts)
+
+    k, p = runs["kernel"][2], runs["plain"][2]
+    base = np.linalg.norm(centres(R_gt, t_gt)[-1] - centres(R_gt, t_gt)[0])
+    dr = rot_deg(k.R, p.R)[5:]
+    dp = np.linalg.norm(centres(k.R, k.t) - centres(p.R, p.t), axis=1)[5:]
+    di = np.abs(k.inliers - p.inliers)[5:] / np.maximum(p.inliers[5:], 1)
+    print(f"track kernel vs plain: rotation max {dr.max():.5f} deg, "
+          f"position max {dp.max():.3e} (baseline {base:.3f}), inliers max "
+          f"{di.max():.3f} relative")
+    check(dr.max() <= PATH_ROT_DEG, "paths agree in rotation")
+    check(dp.max() <= PATH_POS_FRAC * base, "paths agree in position")
+    check(di.max() <= PATH_INLIER_FRAC, "paths agree in inlier counts")
+
+    # timings, kernel path
+    fe, feats, run, counts = runs["kernel"]
+    c = run.calls
+    sub = frames_of(feats, slice(5, BATCH))               # the 11 frames
+
+    def track():
+        return track_batch(c["lmap"], sub, 0, c["state"], intr, cfg,
+                           c["ok_min"])
+
+    def promote():
+        return keyframe_step(c["kf_ref"], c["feats"], c["lite"], intr, cfg,
+                             run.max_depth)
+
+    reset_launch_counts()
+    track()
+    check(launch_counts()["l2_2nn"] == 2 * (BATCH - 5),
+          "l2_2nn launched twice per tracked frame")
+    reset_launch_counts()
+    promote()
+    check(launch_counts()["l2_2nn"] == 2,
+          "l2_2nn launched twice per keyframe_step")
+    per_frame = wall_ms(track, 5) / (BATCH - 5)
+    kf_ms = wall_ms(promote, 5)
+    ba_ms = wall_ms(lambda: run_ba(c["problem"], cfg.ba), 5)
+    syncs = count_syncs(track)
+    kf_syncs = count_syncs(promote)
+    print(f"track times ({card}): {per_frame:.3f} ms per tracked frame "
+          f"(track_batch over {BATCH - 5} frames, median of 5), "
+          f"keyframe_step {kf_ms:.3f} ms, run_ba {ba_ms:.3f} ms "
+          f"({cfg.ba.iters} iterations, C={cfg.ba.max_cameras}, "
+          f"L={cfg.ba.max_landmarks}, O={cfg.ba.max_observations})")
+    print(f"track host syncs: {syncs} inside track_batch over "
+          f"{BATCH - 5} frames, {kf_syncs} inside keyframe_step")
+
+    fps = {"TRACK_CONFIG": [], "FAST_CONFIG": []}
+    for i in range(8):
+        imgs = frames_dev[i:i + BATCH]
+        for name, f in (("TRACK_CONFIG", fe), ("FAST_CONFIG", fast_frontend)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            f(imgs)
+            torch.cuda.synchronize()
+            fps[name].append(BATCH / (time.perf_counter() - t0))
+    med = {n: float(np.median(v)) for n, v in fps.items()}
+    print(f"frontend frames/s, kernel path (median of 8 batches of {BATCH}, "
+          f"in turns): TRACK_CONFIG {med['TRACK_CONFIG']:.1f}, FAST_CONFIG "
+          f"{med['FAST_CONFIG']:.1f}")
+    return counts
+
+
 def main() -> None:
-    dev = phase_device()
+    dev, card = phase_device()
     phase_build()
-    frames_dev = torch.from_numpy(render_frames()).to(dev)
+    frames, seq = render_frames()
+    frames_dev = torch.from_numpy(frames).to(dev)
     frontend = SiftFrontend(FAST_CONFIG).to(dev)
     plain = SiftFrontend(FAST_CONFIG, PLAIN).to(dev)
     # warm both paths (allocator, band buffers, cuBLAS handles)
     frontend(frames_dev[:BATCH])
     plain(frames_dev[:BATCH])
-    timings = phase_kernels(frames_dev[8:8 + BATCH], frontend)
-    launches = phase_slice(frames_dev, frontend, plain)
+    timings = phase_kernels(frames_dev[8:8 + BATCH], frontend, dev)
+    phase_slice(frames_dev, frontend, plain)
+    launches = phase_track(frames_dev, seq, frontend, card, dev)
+    check(all(launches[name] > 0 for name in SOURCES),
+          "every kernel launched on the tracking path")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1], "launches": launches[name],

@@ -1,0 +1,187 @@
+"""The streaming 2-NN's plain version against the Pallas kernel (interpret
+mode on CPU), and the matcher's impl="pallas" path against the JAX
+matcher, on one numpy input fed to both."""
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from visualslam_tpu.models.matching import match_features as jax_match
+from visualslam_tpu.models.types import Features as JFeatures
+from visualslam_tpu.models.types import Keypoints as JKeypoints
+from visualslam_tpu.ops.pallas.distance import pallas_l2_2nn
+from visualslam_tpu.utils.config import MatchConfig as JMatchConfig
+from visualslam_tpu_torch.models.matching import match_features
+from visualslam_tpu_torch.models.types import Features, Keypoints
+from visualslam_tpu_torch.ops.cuda import KERNELS, PLAIN, launch_counts
+from visualslam_tpu_torch.ops.cuda.distance import l2_2nn, l2_2nn_ref
+from visualslam_tpu_torch.utils.config import MatchConfig
+
+# float32 |a|^2 + |b|^2 - 2 a.b summed in another order than XLA's: a few
+# ulps of the largest distance in the set
+REL = 1e-5
+
+
+def _pallas(a, b, tile):
+    best, second, idx = pallas_l2_2nn(jnp.asarray(a), jnp.asarray(b), tile,
+                                      tile)
+    return np.asarray(best), np.asarray(second), np.asarray(idx)
+
+
+def _check_against_pallas(a, b, tile, valid=None):
+    best, second, idx = (x[0].numpy() for x in l2_2nn_ref(
+        torch.from_numpy(a)[None], torch.from_numpy(b)[None]))
+    pb, ps, pi = _pallas(a, b, tile)
+    rows = np.ones(len(a), bool) if valid is None else valid
+    tol = REL * (1.0 + np.abs(pb[rows]).max())
+    np.testing.assert_allclose(best[rows], pb[rows], rtol=0, atol=tol)
+    np.testing.assert_allclose(second[rows], ps[rows], rtol=0, atol=tol)
+    # the index may differ only where best and second are a near-tie
+    tie = np.abs(ps - pb) <= 2 * tol
+    np.testing.assert_array_equal(idx[rows & ~tie], pi[rows & ~tie])
+    return best, second, idx
+
+
+@pytest.mark.parametrize("Ka,Kb,tile", [(256, 384, 128), (128, 128, 128),
+                                        (384, 256, 128)])
+def test_2nn_ref_matches_pallas_several_tiles(rng, Ka, Kb, tile):
+    a = rng.standard_normal((Ka, 128)).astype(np.float32)
+    b = rng.standard_normal((Kb, 128)).astype(np.float32)
+    _check_against_pallas(a, b, tile)
+
+
+def test_2nn_ref_matches_pallas_with_masked_rows(rng):
+    """Invalid rows carry the matcher's constant 1e3 descriptor; compare on
+    the valid A rows (a masked row's distances are ~1.3e8, where one f32
+    ulp is 8)."""
+    d = rng.standard_normal((256, 128)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    va = rng.random(256) > 0.1
+    vb = rng.random(256) > 0.1
+    a = np.where(va[:, None], d, 1e3).astype(np.float32)
+    b = np.where(vb[:, None], d[rng.permutation(256)], 1e3).astype(np.float32)
+    best, _, idx = _check_against_pallas(a, b, 128, valid=va)
+    assert (best[va] < 1e6).all() and vb[idx[va]].all()
+
+
+def test_2nn_ties_go_to_the_lower_index(rng):
+    """Exact duplicates: descriptors on a 1/4 grid make every distance
+    exact in float32, so duplicated B rows tie exactly. Both versions
+    report the lower index, and a second best equal to the best."""
+    b = rng.integers(0, 4, (256, 128)).astype(np.float32) / 4.0
+    b[200:] = b[:56]                                   # rows 0..55 repeated
+    a = b[rng.integers(0, 256, 128)]
+    best, second, idx = _check_against_pallas(a, b, 128)
+    first = np.array([np.nonzero((b == r).all(1))[0][0] for r in a])
+    np.testing.assert_array_equal(idx, first)
+    np.testing.assert_array_equal(_pallas(a, b, 128)[2], first)
+    dup = (b[None] == a[:, None]).all(-1).sum(1) > 1
+    assert dup.any()
+    np.testing.assert_array_equal(second[dup], best[dup])
+    np.testing.assert_array_equal(best, 0.0)
+
+
+def test_2nn_wrapper_runs_the_plain_version_on_cpu(rng):
+    a = torch.from_numpy(rng.standard_normal((2, 64, 128)).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal((2, 96, 128)).astype(np.float32))
+    before = launch_counts()["l2_2nn"]
+    for got, want in zip(l2_2nn(a, b), l2_2nn_ref(a, b)):
+        assert torch.equal(got, want)
+    assert launch_counts()["l2_2nn"] == before       # no kernel launched
+    assert KERNELS.l2_2nn is l2_2nn and PLAIN.l2_2nn is l2_2nn_ref
+
+
+def _features(desc, valid):
+    K = len(valid)
+    kps = JKeypoints(yx=np.zeros((K, 2), np.float32),
+                     yx_oct=np.zeros((K, 2), np.float32),
+                     octave=np.zeros(K, np.int32), level=np.zeros(K, np.int32),
+                     sigma=np.zeros(K, np.float32),
+                     orientation=np.zeros(K, np.float32),
+                     response=np.zeros(K, np.float32), valid=valid)
+    return JFeatures(kps, desc.astype(np.float32))
+
+
+def _pair(rng, K=256, keep=0.9, noise=0.05):
+    d = rng.standard_normal((K, 128)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    perm = rng.permutation(K)
+    db = d[perm] + noise * rng.standard_normal((K, 128)).astype(np.float32)
+    db /= np.linalg.norm(db, axis=1, keepdims=True)
+    return (_features(d, rng.random(K) < keep),
+            _features(db, rng.random(K) < keep))
+
+
+def _to_torch(f):
+    return Features(Keypoints(*(torch.tensor(np.asarray(a))
+                                for a in f.keypoints)),
+                    torch.tensor(np.asarray(f.descriptors)))
+
+
+def _stack(fs):
+    return jax.tree_util.tree_map(lambda *a: np.stack(a), *fs)
+
+
+@pytest.mark.parametrize("mutual", [True, False])
+def test_match_pallas_path_equals_jax_one_pair(rng, mutual):
+    fa, fb = _pair(rng)
+    jcfg = JMatchConfig(max_matches=128, impl="pallas", tile=128,
+                        mutual=mutual)
+    want = jax_match(fa, fb, jcfg)
+    got = match_features(_to_torch(fa), _to_torch(fb),
+                         MatchConfig(**vars(jcfg)))
+    assert int(want.count()) > 50
+    for field in ("idx_a", "idx_b", "valid"):
+        np.testing.assert_array_equal(getattr(got, field).numpy(),
+                                      np.asarray(getattr(want, field)))
+    np.testing.assert_allclose(got.distance.numpy(), np.asarray(want.distance),
+                               atol=1e-5)
+
+
+def test_match_pallas_path_equals_jax_batched_pairs(rng):
+    pairs = [_pair(rng) for _ in range(3)]
+    jcfg = JMatchConfig(max_matches=128, impl="pallas", tile=128)
+    got = match_features(_to_torch(_stack([p[0] for p in pairs])),
+                         _to_torch(_stack([p[1] for p in pairs])),
+                         MatchConfig(**vars(jcfg)))
+    assert got.idx_a.shape == (3, 128)
+    for i, (fa, fb) in enumerate(pairs):
+        want = jax_match(fa, fb, jcfg)
+        for field in ("idx_a", "idx_b", "valid"):
+            np.testing.assert_array_equal(getattr(got, field)[i].numpy(),
+                                          np.asarray(getattr(want, field)))
+
+
+def test_match_pallas_path_equals_dense_path(rng):
+    """The reference's two paths agree on well-separated matches; so do the
+    port's (PLAIN and KERNELS are the same on CPU tensors)."""
+    fa, fb = _pair(rng)
+    ta, tb = _to_torch(fa), _to_torch(fb)
+    cfg = MatchConfig(max_matches=256, tile=128)
+    dense = match_features(ta, tb, cfg)
+    for kernels in (KERNELS, PLAIN):
+        twonn = match_features(ta, tb, cfg.replace(impl="pallas"), kernels)
+        for field in ("idx_a", "idx_b", "valid"):
+            assert torch.equal(getattr(twonn, field), getattr(dense, field))
+
+
+def test_match_falls_to_dense_path_off_tile():
+    """The JAX dispatch condition: capacities not divisible by the tile run
+    the dense path (no 2-NN call), as in the reference."""
+    calls = []
+
+    def spy(a, b):
+        calls.append(a.shape)
+        return l2_2nn_ref(a, b)
+
+    r = np.random.default_rng(1)
+    fa, fb = _pair(r, K=192)
+    cfg = MatchConfig(max_matches=64, impl="pallas", tile=128)
+    match_features(_to_torch(fa), _to_torch(fb), cfg,
+                   PLAIN._replace(l2_2nn=spy))
+    assert calls == []
+    match_features(_to_torch(fa), _to_torch(fb), cfg.replace(tile=64),
+                   PLAIN._replace(l2_2nn=spy))
+    assert len(calls) == 2                           # forward + mutual

@@ -146,6 +146,9 @@ def test_synthetic_sequence_equals_jax_copy():
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     code = ("import sys, visualslam_tpu_torch, visualslam_tpu_torch.frontend\n"
+            "import visualslam_tpu_torch.slam.window\n"
+            "import visualslam_tpu_torch.geometry.camera\n"
+            "import visualslam_tpu_torch.utils.convert\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'visualslam_tpu' or "
             "m.startswith('visualslam_tpu.')]\n"

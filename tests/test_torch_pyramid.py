@@ -101,6 +101,7 @@ def test_build_pyramid_rejects_unported_options():
     img = torch.zeros(1, 32, 32)
     with pytest.raises(NotImplementedError):
         tpyr.build_pyramid(img, tcfg.DEFAULT_CONFIG.pyramid)
-    with pytest.raises(NotImplementedError):
-        tpyr.build_pyramid(img, tcfg.FAST_CONFIG.pyramid.replace(
-            blur_mode="pallas"))
+    for mode in ("conv", "incremental"):
+        with pytest.raises(NotImplementedError):
+            tpyr.build_pyramid(img, tcfg.FAST_CONFIG.pyramid.replace(
+                blur_mode=mode))

@@ -19,6 +19,7 @@ from visualslam_tpu_torch.models.types import Features
 from visualslam_tpu_torch.ops.blur import BlurBands
 from visualslam_tpu_torch.ops.cuda import KERNELS, Kernels
 from visualslam_tpu_torch.utils.config import FAST_CONFIG, SlamConfig
+from visualslam_tpu_torch.utils.precision import f32_matmul
 
 
 def detect_and_describe(imgs: torch.Tensor, cfg: SlamConfig,
@@ -32,8 +33,7 @@ def detect_and_describe(imgs: torch.Tensor, cfg: SlamConfig,
     this turns TF32 off for CUDA matmuls and cuDNN (process-wide settings:
     torch.backends.cuda.matmul.allow_tf32 and
     torch.backends.cudnn.allow_tf32 become False)."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    f32_matmul()
     if imgs.dtype == torch.uint8:
         imgs = imgs.float() * (1.0 / 255.0)
     if cfg.frontend == "sift":

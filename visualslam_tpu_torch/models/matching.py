@@ -1,8 +1,12 @@
 """Descriptor matching: ratio test + mutual-best check
-(visualslam_tpu/models/matching.py, the dense-distance path).
+(visualslam_tpu/models/matching.py).
 
 Batches over any leading axes: matching features [B, Ka, ...] against
-[B, Kb, ...] matches B frame pairs at once.
+[B, Kb, ...] matches B frame pairs at once. `cfg.impl` picks the path as
+the JAX package does: "pallas" runs the streaming 2-NN kernel
+(`kernels.l2_2nn`) when the metric is l2, both capacities are multiples of
+`cfg.tile` and the descriptor width of 128; otherwise the dense distance
+matrix.
 """
 
 from __future__ import annotations
@@ -10,42 +14,67 @@ from __future__ import annotations
 import torch
 
 from visualslam_tpu_torch.models.types import Features, Matches
+from visualslam_tpu_torch.ops.cuda import KERNELS, Kernels
 from visualslam_tpu_torch.ops.distance import l2sq_distance_matrix
 from visualslam_tpu_torch.utils.config import MatchConfig
 from visualslam_tpu_torch.utils.masked import top_k_select
 
 _BIG = 1e12
+_MASKED = 1e3       # descriptor value of invalid rows on the 2-NN path
 
 
-def match_features(fa: Features, fb: Features, cfg: MatchConfig) -> Matches:
+def _l2_2nn(kernels: Kernels, a: torch.Tensor, b: torch.Tensor):
+    """kernels.l2_2nn over any leading axes: [..., Ka, D] x [..., Kb, D]."""
+    lead = a.shape[:-2]
+    best, second, nn = kernels.l2_2nn(a.reshape(-1, *a.shape[-2:]),
+                                      b.reshape(-1, *b.shape[-2:]))
+    return (best.reshape(*lead, -1), second.reshape(*lead, -1),
+            nn.reshape(*lead, -1).long())
+
+
+def match_features(fa: Features, fb: Features, cfg: MatchConfig,
+                   kernels: Kernels = KERNELS) -> Matches:
     """Match two fixed-capacity Feature sets -> Matches[..., cfg.max_matches].
 
     Lowe ratio test on squared distances (hence ratio^2), optional
     mutual-best check; matches ranked by distance, best first (ties to the
-    lower index)."""
-    if cfg.impl != "xla":
-        raise NotImplementedError(
-            f"MatchConfig.impl={cfg.impl!r} (the streaming 2-NN kernel) is "
-            "not ported yet; see ROADMAP.md B.5")
+    lower index). `kernels`: ops.cuda.KERNELS (default) or ops.cuda.PLAIN,
+    for the 2-NN path."""
     if cfg.metric != "l2":
         raise NotImplementedError(
             f"metric {cfg.metric!r} comes with the ORB frontend; see "
             "ROADMAP.md A.8")
     va = fa.keypoints.valid
     vb = fb.keypoints.valid
-    dist = l2sq_distance_matrix(fa.descriptors, fb.descriptors)
-    big = torch.full_like(dist, _BIG)
-    dist = torch.where(va[..., :, None] & vb[..., None, :], dist, big)
-
-    best = dist.amin(dim=-1)
-    nn = dist.argmin(dim=-1)                                   # first minimum
-    cols = torch.arange(dist.shape[-1], device=dist.device)
-    second = torch.where(cols == nn[..., None], big, dist).amin(dim=-1)
-    ok = va & (best < _BIG) & (best < cfg.ratio ** 2 * second)
-    if cfg.mutual:
-        col_best = dist.argmin(dim=-2)                         # [..., Kb]
-        rows = torch.arange(dist.shape[-2], device=dist.device)
-        ok &= col_best.gather(-1, nn) == rows
+    use_2nn = (cfg.impl == "pallas" and fa.capacity % cfg.tile == 0
+               and fb.capacity % cfg.tile == 0
+               and fa.descriptors.shape[-1] % 128 == 0)
+    if use_2nn:
+        # invalid rows get a large constant descriptor so their distances
+        # can never win the streaming 2-NN reduction
+        da = torch.where(va[..., None], fa.descriptors.float(), _MASKED)
+        db = torch.where(vb[..., None], fb.descriptors.float(), _MASKED)
+        best, second, nn = _l2_2nn(kernels, da, db)
+        # distances involving a masked row are >= ~1e6 >> any real match
+        best = torch.where(va & (best < 1e6), best, _BIG)
+        ok = va & (best < _BIG) & (best < cfg.ratio ** 2 * second)
+        if cfg.mutual:
+            _, _, col_nn = _l2_2nn(kernels, db, da)
+            rows = torch.arange(fa.capacity, device=va.device)
+            ok &= col_nn.gather(-1, nn) == rows
+    else:
+        dist = l2sq_distance_matrix(fa.descriptors, fb.descriptors)
+        big = torch.full_like(dist, _BIG)
+        dist = torch.where(va[..., :, None] & vb[..., None, :], dist, big)
+        best = dist.amin(dim=-1)
+        nn = dist.argmin(dim=-1)                               # first minimum
+        cols = torch.arange(dist.shape[-1], device=dist.device)
+        second = torch.where(cols == nn[..., None], big, dist).amin(dim=-1)
+        ok = va & (best < _BIG) & (best < cfg.ratio ** 2 * second)
+        if cfg.mutual:
+            col_best = dist.argmin(dim=-2)                     # [..., Kb]
+            rows = torch.arange(dist.shape[-2], device=dist.device)
+            ok &= col_best.gather(-1, nn) == rows
 
     idx, mask = top_k_select(-best, ok, cfg.max_matches)
     zero = torch.zeros_like(idx)

@@ -2,9 +2,11 @@
 
 Batched over frames natively: every product is [B, levels, H_o, W_o].
 Per octave: all levels blurred from the octave base at absolute sigma
-base_sigma * k^l in one banded-matmul pass (ops/blur.py), DoG as adjacent
-level differences, gradients of the levels the SIFT path reads, and the
-next octave's base as the stride-2 downsample of level s.
+base_sigma * k^l in one pass (blur_mode="matmul": banded products,
+ops/blur.py; blur_mode="pallas": the separable-convolution kernel,
+`kernels.blur_stack`), DoG as adjacent level differences, gradients of
+the levels the SIFT path reads, and the next octave's base as the
+stride-2 downsample of level s.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from visualslam_tpu_torch.ops.blur import BlurBands, blur_stack_matmul
+from visualslam_tpu_torch.ops.cuda import KERNELS, Kernels
 from visualslam_tpu_torch.ops.gradients import gradients
 from visualslam_tpu_torch.ops.resize import downsample2x_nearest
 from visualslam_tpu_torch.utils.config import PyramidConfig
@@ -45,20 +48,22 @@ def level_sigmas(cfg: PyramidConfig) -> Tuple[float, ...]:
 
 
 def build_pyramid(img: torch.Tensor, cfg: PyramidConfig,
-                  bands: BlurBands | None = None) -> ScaleSpace:
-    """Scale space of [B, H, W] frames. `bands` holds the blur's band
-    matrices across calls (frontend.SiftFrontend owns one); without it
-    they are built for this call."""
+                  bands: BlurBands | None = None,
+                  kernels: Kernels = KERNELS) -> ScaleSpace:
+    """Scale space of [B, H, W] frames. `bands` holds the blur's constants
+    across calls (frontend.SiftFrontend owns one); without it they are
+    built for this call. `kernels` supplies `blur_stack` for
+    blur_mode="pallas" (ops.cuda.KERNELS or ops.cuda.PLAIN)."""
     if img.ndim != 3:
         raise ValueError(f"build_pyramid expects [B, H, W], got {tuple(img.shape)}")
     if cfg.initial_upsample:
         raise NotImplementedError(
             "initial_upsample (the DEFAULT profile) is not ported yet; "
             "see ROADMAP.md A.8")
-    if cfg.blur_mode != "matmul":
+    if cfg.blur_mode not in ("matmul", "pallas"):
         raise NotImplementedError(
             f"blur_mode={cfg.blur_mode!r} is not ported yet; see ROADMAP.md "
-            "A.8 and B.4")
+            "A.8")
     img = img.to(getattr(torch, cfg.dtype))
     sigmas = level_sigmas(cfg)
     if bands is None:
@@ -69,7 +74,11 @@ def build_pyramid(img: torch.Tensor, cfg: PyramidConfig,
     base = img
     gauss, dog, gx, gy, gm, go = [], [], [], [], [], []
     for _ in range(cfg.num_octaves):
-        stack = blur_stack_matmul(base, bands)                  # [B, L, H, W]
+        if cfg.blur_mode == "pallas":
+            stack = kernels.blur_stack(base.contiguous(),
+                                       bands.taps(base.device))
+        else:
+            stack = blur_stack_matmul(base, bands)              # [B, L, H, W]
         gauss.append(stack)
         dog.append(stack[:, 1:] - stack[:, :-1])                # [B, L-1, H, W]
         grad_src = stack if cfg.grad_levels == "all" else stack[:, 1:1 + s]

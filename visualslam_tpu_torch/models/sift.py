@@ -128,7 +128,7 @@ def detect_and_describe_sift(img: torch.Tensor, pyr_cfg: PyramidConfig,
     if cfg.descriptor_norm != "l2":
         raise NotImplementedError(
             f"descriptor_norm={cfg.descriptor_norm!r} is not ported yet")
-    ss = build_pyramid(img, pyr_cfg, bands)
+    ss = build_pyramid(img, pyr_cfg, bands, kernels)
     patch_dtype = torch.bfloat16 if cfg.hist_compute == "bf16" else None
     # 32 rows for bf16 patches, 28 for f32; both cover the rotated window
     # radius win/2*sqrt(2)+0.5

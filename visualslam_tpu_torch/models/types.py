@@ -33,6 +33,17 @@ class Keypoints(NamedTuple):
         """Valid keypoints per frame ([...] int64)."""
         return self.valid.sum(dim=-1)
 
+    @staticmethod
+    def empty(k: int, device=None) -> "Keypoints":
+        """k invalid, zeroed slots."""
+        f = torch.zeros(k, device=device)
+        i = torch.zeros(k, dtype=torch.int32, device=device)
+        return Keypoints(yx=torch.zeros(k, 2, device=device),
+                         yx_oct=torch.zeros(k, 2, device=device),
+                         octave=i, level=i, sigma=f, orientation=f,
+                         response=f,
+                         valid=torch.zeros(k, dtype=torch.bool, device=device))
+
 
 class Features(NamedTuple):
     """Keypoints plus their descriptors ([..., K, D] float32)."""

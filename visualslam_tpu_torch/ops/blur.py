@@ -1,5 +1,7 @@
 """Multi-sigma Gaussian blur as banded-Toeplitz matrix products
-(visualslam_tpu/ops/blur.py, `blur_mode="matmul"`).
+(visualslam_tpu/ops/blur.py, `blur_mode="matmul"`), and the blur's
+constants. `blur_mode="pallas"` runs the separable-convolution kernel of
+ops/cuda/blur.py on the tap table `BlurBands.taps` holds.
 
 One image blurred to S sigmas at once: a symmetric-padded x pass and a
 symmetric-padded y pass, each one dense product against [S, n + 2R, n]
@@ -65,9 +67,20 @@ def pad_symmetric(x: torch.Tensor, dim: int, r: int) -> torch.Tensor:
     return x.index_select(dim, idx)
 
 
+def taps_table(key: tuple, radius: int) -> np.ndarray:
+    """[S, 2R + 1] float32: each sigma's taps centred and zero-padded to the
+    largest radius (the table `pallas_blur_stack` builds)."""
+    T = np.zeros((len(key), 2 * radius + 1), np.float32)
+    for s_i, t in enumerate(key):
+        r = (len(t) - 1) // 2
+        T[s_i, radius - r: radius + r + 1] = t
+    return T
+
+
 class BlurBands(nn.Module):
-    """The band matrices of one sigma set, as non-persistent buffers named
-    `band_<n>`, one per axis length n, built on first use."""
+    """The blur constants of one sigma set, as non-persistent buffers built
+    on first use: the band matrices `band_<n>`, one per axis length n
+    (blur_mode="matmul"), and the tap table `tap_table` (blur_mode="pallas")."""
 
     def __init__(self, sigmas: Sequence[float], truncate: float = 4.0):
         super().__init__()
@@ -75,14 +88,22 @@ class BlurBands(nn.Module):
         self.key = taps_key(self.sigmas, truncate)
         self.radius = max((len(t) - 1) // 2 for t in self.key)
 
-    def get(self, n: int, device: torch.device) -> torch.Tensor:
-        """[S, n + 2R, n] float32 band matrices on `device`."""
-        name = f"band_{n}"
+    def _buffer(self, name: str, device, make) -> torch.Tensor:
         t = self._buffers.get(name)
         if t is None or t.device != torch.device(device):
-            t = torch.from_numpy(_band_matrices(n, self.key, self.radius))
-            self.register_buffer(name, t.to(device), persistent=False)
+            self.register_buffer(name, torch.from_numpy(make()).to(device),
+                                 persistent=False)
         return self._buffers[name]
+
+    def get(self, n: int, device: torch.device) -> torch.Tensor:
+        """[S, n + 2R, n] float32 band matrices on `device`."""
+        return self._buffer(f"band_{n}", device,
+                            lambda: _band_matrices(n, self.key, self.radius))
+
+    def taps(self, device: torch.device) -> torch.Tensor:
+        """[S, 2R + 1] float32 tap table on `device`."""
+        return self._buffer("tap_table", device,
+                            lambda: taps_table(self.key, self.radius))
 
 
 def blur_stack_matmul(img: torch.Tensor, bands: BlurBands) -> torch.Tensor:

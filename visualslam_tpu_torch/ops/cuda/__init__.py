@@ -6,29 +6,32 @@ version itself, and a launch counter (`<wrapper>.launches`, a plain integer
 that only a kernel launch increments). Nothing GPU-related happens at
 import.
 
-`KERNELS` is the set the frontend calls by default. `PLAIN` is the same
-set of plain versions: passing it to the frontend runs the plain path on
-any device, which is how a run on the card compares the kernel path with
-the plain path.
+`KERNELS` is the set the frontend, the matcher and tracking call by
+default. `PLAIN` is the same set of plain versions: passing it runs the
+plain path on any device, which is how a run on the card compares the
+kernel path with the plain path.
 """
 
 from __future__ import annotations
 
 from typing import Callable, NamedTuple
 
-from visualslam_tpu_torch.ops.cuda import descriptor, extrema
+from visualslam_tpu_torch.ops.cuda import blur, descriptor, distance, extrema
 
 
 class Kernels(NamedTuple):
     extrema_winners: Callable
     orient_hist: Callable
     descriptor: Callable
+    blur_stack: Callable
+    l2_2nn: Callable
 
 
 KERNELS = Kernels(extrema.extrema_winners, descriptor.orient_hist,
-                  descriptor.descriptor)
+                  descriptor.descriptor, blur.blur_stack, distance.l2_2nn)
 PLAIN = Kernels(extrema.extrema_winners_ref, descriptor.orient_hist_ref,
-                descriptor.descriptor_ref)
+                descriptor.descriptor_ref, blur.blur_stack_ref,
+                distance.l2_2nn_ref)
 
 
 def launch_counts() -> dict:

@@ -65,6 +65,18 @@ def build(name: str) -> Path:
     return out
 
 
+SOURCES = ("extrema", "descriptor", "blur", "distance")
+
+
+def build_all(names=SOURCES) -> list[Path]:
+    """Compile several sources at once, one nvcc process each (nvcc is
+    single-threaded; the builds overlap). Returns the library paths."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        return list(pool.map(build, names))
+
+
 def build_log(name: str) -> str:
     """The compiler's report for the current source of csrc/<name>.cu."""
     return Path(str(library_path(name)) + ".log").read_text()

@@ -70,9 +70,9 @@ class PyramidConfig(_Base):
     grad_levels: str = "interior"       # "interior": gradients of levels 1..s
     #                                     only (all the SIFT path reads);
     #                                     "all": every level
-    blur_mode: str = "matmul"           # "matmul": banded-Toeplitz products
-    #                                     (the port's only mode so far);
-    #                                     "conv" | "incremental" | "pallas"
+    blur_mode: str = "matmul"           # "matmul": banded-Toeplitz products;
+    #                                     "pallas": the separable blur kernel;
+    #                                     "conv" | "incremental" (not ported)
 
     @property
     def levels_per_octave(self) -> int:
@@ -176,8 +176,8 @@ class MatchConfig(_Base):
     metric: str = "l2"                  # "l2" | "hamming"
     max_matches: int = 512
     tile: int = 256                     # tile of the streaming 2-NN kernel
-    impl: str = "xla"                   # "xla" (dense distance matrix, the
-    #                                     port's only mode so far) | "pallas"
+    impl: str = "xla"                   # "xla": dense distance matrix;
+    #                                     "pallas": the streaming 2-NN kernel
 
 
 @dataclass(frozen=True)
