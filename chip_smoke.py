@@ -3,7 +3,7 @@
     python3 chip_smoke.py        # from the repository root, one CUDA device
 
 The benchmark's main path at its own shapes: batches of 16 uint8 frames of
-376x1248 from the synthetic sequence. Two paths run, each with the launch
+376x1248 from the synthetic sequence. Three paths run, each with the launch
 counters reset just before it and read just after:
 
   - the frontend slice: the batched SIFT frontend (FAST_CONFIG, 3 octaves)
@@ -12,7 +12,12 @@ counters reset just before it and read just after:
     blur_mode="pallas" and match.impl="pallas", the two switches that put
     the blur and the streaming 2-NN kernels on the path), a ground-truth
     bootstrap of two keyframes, track_batch over the batch, one keyframe
-    promotion with triangulation, and the window BA.
+    promotion with triangulation, and the window BA;
+  - the engine slice: the frontend under ENGINE_CONFIG (TRACK_CONFIG with
+    extrema_impl="pallas", the switch that puts the score-map kernel on the
+    path) on frames 0-47 as three batches, the ground-truth bootstrap, and
+    run_engine_batch over the three batches (tracking, in-batch promotions
+    with window BA, loop-database append, retrieval and verification).
 
 Phases, each printing its own lines:
 
@@ -25,7 +30,10 @@ Phases, each printing its own lines:
                that follow bit for bit, the orientation histogram and the
                descriptor within 1e-4 * (1 + max |plain|), the blur within
                1e-5 * (1 + max |plain|), the 2-NN within
-               1e-5 * (1 + max |plain|) on valid rows; median times
+               1e-5 * (1 + max |plain|) on valid rows, the score map bit
+               for bit; median times beside each kernel's bound and, where
+               one PyTorch call computes the same function, that call's
+               time
   4. slice     the frontend + matching through the public entry points;
                the plain path on the same batch as the reference; keypoint
                and match floors; frames/s of both paths
@@ -35,8 +43,20 @@ Phases, each printing its own lines:
                against plain path; ms per tracked frame, keyframe_step and
                run_ba; frontend frames/s TRACK_CONFIG vs FAST_CONFIG; the
                host syncs inside track_batch
-  6. result    one JSON line of per-kernel numbers, then the last line
+  6. engine    the engine slice, kernel path and plain path: launch
+               counts, every active frame tracked, promotions per batch,
+               the loop database's size, window-BA costs, pose errors and
+               ATE against ground truth, kernel path against plain path;
+               ms per run_engine_batch, per promotion and per tracked
+               frame, host syncs and launches per batch, device busy share,
+               frames/s of frontend + engine
+  7. result    one JSON line of per-kernel numbers, then the last line
                {"ok": true, "device": {...}}
+
+    python3 chip_smoke.py --save-features engine_feats.npz
+
+also writes the engine phase's kernel-path features (numpy), for running
+the JAX package's engine on the same features elsewhere.
 
 Any failed check raises, so the run exits non-zero and prints no result.
 Without a CUDA device it exits non-zero before doing anything.
@@ -52,6 +72,7 @@ import warnings
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from visualslam_tpu_torch.backend.ba import run_ba
 from visualslam_tpu_torch.frontend import SiftFrontend
@@ -59,7 +80,7 @@ from visualslam_tpu_torch.io.synthetic import SyntheticSequence
 from visualslam_tpu_torch.models.matching import match_features
 from visualslam_tpu_torch.models.pyramid import build_pyramid
 from visualslam_tpu_torch.models.types import Features, Keypoints
-from visualslam_tpu_torch.ops.blur import blur_stack_matmul
+from visualslam_tpu_torch.ops.blur import blur_stack_matmul, pad_symmetric
 from visualslam_tpu_torch.ops.cuda import (
     KERNELS,
     PLAIN,
@@ -70,9 +91,13 @@ from visualslam_tpu_torch.ops.cuda import (
 from visualslam_tpu_torch.ops.extrema import detect_extrema, extrema_candidates
 from visualslam_tpu_torch.ops.histograms import histogram_peaks
 from visualslam_tpu_torch.ops.patches import crop_patches
+from visualslam_tpu_torch.slam import engine
+from visualslam_tpu_torch.slam.engine import run_engine_batch
+from visualslam_tpu_torch.slam.evaluation import ate_rmse
 from visualslam_tpu_torch.slam.track_step import keyframe_step, track_batch
 from visualslam_tpu_torch.slam.window import (
     port_ops,
+    run_engine,
     run_window,
     world_to_camera,
 )
@@ -98,6 +123,27 @@ PATH_ROT_DEG = 0.05         # kernel path vs plain path, per frame
 PATH_POS_FRAC = 1e-3        # x the frame 0..15 baseline
 PATH_INLIER_FRAC = 0.05
 FRONTEND_KERNELS = ("extrema_winners", "orient_hist", "descriptor")
+ENGINE_CONFIG = TRACK_CONFIG.replace(
+    sift=TRACK_CONFIG.sift.replace(extrema_impl="pallas"))
+ENGINE_BATCHES = 3          # frames 0..47
+ENGINE_START = 5            # first tracked frame of batch 0
+# engine slice over frames 5..47 after the ground-truth bootstrap of frames
+# 0 and 4: half the JAX package's smallest inlier count and twice its
+# largest errors, with the same driver on the same features (PERF.md, CPU
+# rehearsal of the JAX package's run_engine_batch: inliers >= 21, rotation
+# <= 0.2339 deg, position <= 1.4567, ATE 0.1344 after a Sim(3) alignment;
+# the position error is the monocular scale drift the alignment removes)
+ENGINE_MIN_INLIERS = 10
+ENGINE_ROT_DEG = 0.4678
+ENGINE_POS_ERR = 2.9134     # sequence units; one frame step is 0.4
+ENGINE_ATE = 0.2688
+ENGINE_PATH_ROT_DEG = 0.05  # kernel path vs plain path, per frame
+ENGINE_PATH_POS_FRAC = 1e-3  # x the frame 0..47 baseline
+# published H100 SXM peaks (NVIDIA's data sheet): the least time a kernel's
+# work could take is the larger of its bytes over the memory rate and its
+# operations over the f32 (non-tensor-core) rate
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_S = 67e12
 SOURCES = {
     "extrema_winners": ("visualslam_tpu_torch/csrc/extrema.cu",
                         "visualslam_tpu/ops/pallas/extrema.py:256"),
@@ -109,7 +155,28 @@ SOURCES = {
                    "visualslam_tpu/ops/pallas/blur.py:115"),
     "l2_2nn": ("visualslam_tpu_torch/csrc/distance.cu",
                "visualslam_tpu/ops/pallas/distance.py:79"),
+    "extrema_score": ("visualslam_tpu_torch/csrc/extrema.cu",
+                      "visualslam_tpu/ops/pallas/extrema.py:157"),
 }
+
+
+def nbytes(*tensors) -> int:
+    """Bytes of the tensors among the arguments (nested tuples too)."""
+    n = 0
+    for t in tensors:
+        if isinstance(t, (tuple, list)):
+            n += nbytes(*t)
+        elif isinstance(t, torch.Tensor):
+            n += t.numel() * t.element_size()
+    return n
+
+
+def least_ms(io_bytes: int, ops: float) -> tuple:
+    """(least ms the card could take, "bytes" or "operations"): each input
+    read once and each output written once at PEAK_BYTES_S, the operations
+    at PEAK_F32_S."""
+    tb, to = io_bytes / PEAK_BYTES_S, ops / PEAK_F32_S
+    return 1e3 * max(tb, to), ("bytes" if tb >= to else "operations")
 
 
 def check(ok: bool, what: str) -> None:
@@ -191,10 +258,13 @@ def phase_build() -> None:
 
 
 def render_frames():
-    """The benchmark's frames: 24 of the 376x1248 synthetic sequence, as
-    uint8 (as bench.py ships them), and the sequence (poses, intrinsics)."""
+    """The benchmark's frames: 48 of the 376x1248 synthetic sequence, as
+    uint8 (as bench.py ships them), and the sequence (poses, intrinsics).
+    The dolly path's pose k depends on k alone, so frames 0..23 are those
+    of a 24-frame sequence."""
     t0 = time.perf_counter()
-    seq = SyntheticSequence(num_frames=24, h=H, w=W, n_dots=8000, step=0.4)
+    seq = SyntheticSequence(num_frames=BATCH * ENGINE_BATCHES, h=H, w=W,
+                            n_dots=8000, step=0.4)
     frames = np.stack([seq.frame(k) for k in range(len(seq))])
     frames = np.clip(frames * 255.0, 0, 255).astype(np.uint8)
     print(f"frames: {frames.shape} uint8 rendered in "
@@ -237,16 +307,21 @@ def kernel_2nn(feats: Features, dev) -> tuple:
     check(int(wrong.sum()) == 0, "l2_2nn indices equal off near-ties")
     ms = time_ms(lambda: KERNELS.l2_2nn(a, b), 20)
     plain_ms = time_ms(lambda: PLAIN.l2_2nn(a, b), 20)
+    P, Ka, D = a.shape
+    bms, by = least_ms(nbytes(a, b, got), 2.0 * P * Ka * b.shape[1] * D)
     a15, _ = _masked_descriptors(feats, slice(0, BATCH - 1), dev)
     b15, _ = _masked_descriptors(feats, slice(1, BATCH), dev)
     got15, want15 = KERNELS.l2_2nn(a15, b15), PLAIN.l2_2nn(a15, b15)
     check(bool(torch.isfinite(got15[0]).all()), "15-pair 2-NN is finite")
+    b15ms, _ = least_ms(nbytes(a15, b15, got15),
+                     2.0 * a15.shape[0] * Ka * b15.shape[1] * D)
     print(f"time l2_2nn 15 pairs {tuple(a15.shape)}: kernel "
           f"{time_ms(lambda: KERNELS.l2_2nn(a15, b15), 10):.4f} ms, plain "
-          f"{time_ms(lambda: PLAIN.l2_2nn(a15, b15), 10):.4f} ms "
-          f"(max |kernel - plain| of best "
+          f"{time_ms(lambda: PLAIN.l2_2nn(a15, b15), 10):.4f} ms, bound "
+          f"{b15ms:.4f} ms (max |kernel - plain| of best "
           f"{(got15[0] - want15[0]).abs().max().item():.3e} over all rows)")
-    return err, ms, plain_ms
+    return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, library_ms=None)
 
 
 def kernel_blur(batch: torch.Tensor, frontend: SiftFrontend, dev) -> tuple:
@@ -268,9 +343,24 @@ def kernel_blur(batch: torch.Tensor, frontend: SiftFrontend, dev) -> tuple:
     ms = time_ms(lambda: KERNELS.blur_stack(img, taps), 20)
     plain_ms = time_ms(lambda: PLAIN.blur_stack(img, taps), 5)
     mm_ms = time_ms(lambda: blur_stack_matmul(img, frontend.bands), 20)
+    # the library yardstick: one cuDNN convolution (TF32 off) of the
+    # symmetric-padded frames with each sigma's 2-D outer-product kernel
+    S, K = taps.shape
+    R = (K - 1) // 2
+    padded = pad_symmetric(pad_symmetric(img[:, None], 2, R), 3, R)
+    kern2d = (taps[:, :, None] * taps[:, None, :])[:, None].contiguous()
+    lib = F.conv2d(padded, kern2d)
+    lib_err = (lib - want).abs().max().item()
+    lib_ms = time_ms(lambda: F.conv2d(padded, kern2d), 5)
+    # the work: a multiply and an add per non-zero tap, per sigma, per
+    # pass, per pixel; each input read once, the output written once
+    ops = 2.0 * 2.0 * int((taps != 0).sum()) * img.numel()
+    bms, by = least_ms(nbytes(img, taps, got), ops)
     print(f"time blur at octave 0: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-          f"ms, blur_stack_matmul {mm_ms:.4f} ms")
-    return err, ms, plain_ms
+          f"ms, blur_stack_matmul {mm_ms:.4f} ms, F.conv2d {lib_ms:.4f} ms "
+          f"(max |conv2d - plain| {lib_err:.3e}), bound {bms:.4f} ms ({by})")
+    return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, library_ms=lib_ms)
 
 
 def phase_kernels(batch: torch.Tensor, frontend: SiftFrontend, dev) -> dict:
@@ -293,11 +383,32 @@ def phase_kernels(batch: torch.Tensor, frontend: SiftFrontend, dev) -> dict:
         check(torch.equal(cand_k[i], cand_p[i]),
               f"extrema candidates' {name} equal bit for bit")
     err = (got[0] - want[0]).abs().max().item()
-    out["extrema_winners"] = (err, time_ms(
-        lambda: KERNELS.extrema_winners(dog, thr), 20), time_ms(
-        lambda: PLAIN.extrema_winners(dog, thr), 5))
+    B, D, Hd, Wd = dog.shape
+    # ~28 operations (26 compares, |.|, the pre-filter) per interior position
+    scan_ops = 28.0 * B * (D - 2) * Hd * Wd
+    out["extrema_winners"] = dict(
+        err=err, ms=time_ms(lambda: KERNELS.extrema_winners(dog, thr), 20),
+        plain_ms=time_ms(lambda: PLAIN.extrema_winners(dog, thr), 5),
+        library_ms=None)
+    out["extrema_winners"].update(zip(("bound_ms", "bound_by"),
+                                      least_ms(nbytes(dog, got), scan_ops)))
     print(f"kernel extrema_winners: dog {tuple(dog.shape)}, winners and "
           f"{int(cand_k[4].sum())} candidates bit-exact")
+
+    got = KERNELS.extrema_score(dog, thr)
+    want = PLAIN.extrema_score(dog, thr)
+    check(torch.equal(got, want),
+          "extrema score map equals its plain version bit for bit")
+    out["extrema_score"] = dict(
+        err=(got - want).abs().max().item(),
+        ms=time_ms(lambda: KERNELS.extrema_score(dog, thr), 20),
+        plain_ms=time_ms(lambda: PLAIN.extrema_score(dog, thr), 5),
+        library_ms=None)
+    out["extrema_score"].update(zip(("bound_ms", "bound_by"),
+                                    least_ms(nbytes(dog, got), scan_ops)))
+    print(f"kernel extrema_score: dog {tuple(dog.shape)}, score map "
+          f"bit-exact, {int((got > -1e29).sum())} extrema")
+    del got, want
 
     # the frontend's octave-0 patches: bf16, 32 rows, K = 16 * 1024
     lvl, y, x, offset, _, _ = detect_extrema(dog, cfg.sift, cap, KERNELS)
@@ -319,19 +430,29 @@ def phase_kernels(batch: torch.Tensor, frontend: SiftFrontend, dev) -> dict:
         got, want = kfn(*args), pfn(*args)
         check(bool(torch.isfinite(got).all()), f"{name} output is finite")
         err = (got - want).abs().max().item()
-        bound = KERNEL_TOL * (1.0 + want.abs().max().item())
+        tol = KERNEL_TOL * (1.0 + want.abs().max().item())
         print(f"kernel {name}: patches {tuple(patches.shape)} "
               f"{patches.dtype}, max |kernel - plain| = {err:.3e} "
-              f"(bound {bound:.3e})")
-        check(err <= bound, f"{name} within {KERNEL_TOL} x (1 + max|plain|)")
-        out[name] = (err, time_ms(lambda: kfn(*args), 20),
-                     time_ms(lambda: pfn(*args), 5))
+              f"(bound {tol:.3e})")
+        check(err <= tol, f"{name} within {KERNEL_TOL} x (1 + max|plain|)")
+        # operations per patch sample, estimated: weight, bin and add
+        # (histogram); rotation, trilinear weights and 8 adds (descriptor)
+        per = 8.0 if name == "orient_hist" else 16.0
+        out[name] = dict(err=err, ms=time_ms(lambda: kfn(*args), 20),
+                         plain_ms=time_ms(lambda: pfn(*args), 5),
+                         library_ms=None)
+        out[name].update(zip(("bound_ms", "bound_by"), least_ms(
+            nbytes(args, got), per * patches[:, 0].numel())))
     del ss, dog, patches, mag_ori, hist_p
 
     out["blur_stack"] = kernel_blur(batch, frontend, dev)
     out["l2_2nn"] = kernel_2nn(frontend(batch), dev)
-    for name, (err, ms, plain_ms) in out.items():
-        print(f"time {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    for name, r in out.items():
+        lib = ("none" if r["library_ms"] is None
+               else f"{r['library_ms']:.4f} ms")
+        print(f"time {name}: kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}), library call {lib}")
     return out
 
 
@@ -373,9 +494,9 @@ def phase_slice(frames_dev: torch.Tensor, frontend: SiftFrontend,
     for name in FRONTEND_KERNELS:
         check(launches[name] == cfg.pyramid.num_octaves,
               f"{name} launched once per octave on the frontend path")
-    for name in ("blur_stack", "l2_2nn"):
+    for name in ("blur_stack", "l2_2nn", "extrema_score"):
         check(launches[name] == 0, f"{name} not launched under FAST_CONFIG "
-              "(matmul blur, dense matcher)")
+              "(matmul blur, dense matcher, fused extrema)")
 
     K = cfg.sift.max_keypoints
     check(tuple(feats.descriptors.shape) == (BATCH, K, 128)
@@ -465,7 +586,7 @@ def phase_track(frames_dev: torch.Tensor, seq: SyntheticSequence,
         if kernels is KERNELS:
             want = dict.fromkeys(FRONTEND_KERNELS, cfg.pyramid.num_octaves)
             want.update(blur_stack=cfg.pyramid.num_octaves,
-                        l2_2nn=2 * (BATCH + n_kf_steps))
+                        l2_2nn=2 * (BATCH + n_kf_steps), extrema_score=0)
             check(counts == want, f"kernel path launches {want}")
         else:
             check(not any(counts.values()), "plain path launches no kernel")
@@ -553,7 +674,235 @@ def phase_track(frames_dev: torch.Tensor, seq: SyntheticSequence,
     return counts
 
 
+def profile_call(fn) -> tuple:
+    """(device kernel launches, device busy ms, profiled wall ms) of one
+    fn() under torch.profiler; busy is the summed time of the device
+    events, which run on one stream here. (None, None, wall) if the
+    profiler saw no device event."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    dev_events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not dev_events:
+        return None, None, wall
+    kernels = [e for e in dev_events
+               if not e.name.startswith(("Memcpy", "Memset"))]
+    busy = sum(e.time_range.elapsed_us() for e in dev_events) / 1e3
+    return len(kernels), busy, wall
+
+
+ENGINE_PARTS = ("track_step_lite", "_window_ba", "refine_pose",
+                "keyframe_step", "_verify_candidate")
+
+
+def time_parts(module, names, fn, reps: int) -> dict:
+    """{name: (median host-clock ms per call, calls per fn())} of the
+    module-level functions `names` of `module` while fn() runs `reps`
+    times, each call wrapped in synchronize (which serializes the launch
+    queue, so the sum exceeds fn()'s own time)."""
+    times = {n: [] for n in names}
+    orig = {n: getattr(module, n) for n in names}
+
+    def timed(name):
+        def call(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = orig[name](*args, **kw)
+            torch.cuda.synchronize()
+            times[name].append(1e3 * (time.perf_counter() - t0))
+            return out
+        return call
+
+    for n in names:
+        setattr(module, n, timed(n))
+    try:
+        for _ in range(reps):
+            fn()
+    finally:
+        for n, f in orig.items():
+            setattr(module, n, f)
+    return {n: (float(np.median(v)) if v else 0.0, len(v) / reps)
+            for n, v in times.items()}
+
+
+def phase_engine(frames_dev: torch.Tensor, seq: SyntheticSequence, card: str,
+                 dev, save_features: str | None) -> dict:
+    """The engine slice under ENGINE_CONFIG on frames 0..47, kernel path
+    and plain path; returns the kernel path's launch counts."""
+    cfg = ENGINE_CONFIG
+    print(f"engine: {card}")
+    nb = ENGINE_BATCHES
+    n_frames = BATCH * nb
+    R_gt, t_gt = world_to_camera(seq.gt_poses[:n_frames])
+    intr = torch.tensor(seq.intrinsics, device=dev)
+    active = np.arange(n_frames) >= ENGINE_START
+    runs = {}
+
+    def drive(fe, kernels):
+        feats = [fe(frames_dev[BATCH * b:BATCH * (b + 1)]) for b in range(nb)]
+        return feats, run_engine(port_ops(dev, kernels), feats, R_gt, t_gt,
+                                 intr, cfg, ENGINE_START)
+
+    for name, kernels in (("kernel", KERNELS), ("plain", PLAIN)):
+        fe = SiftFrontend(cfg, kernels).to(dev)
+        # the main path, through the entry points a user calls; the
+        # ground-truth bootstrap stands in for the two-view init (A.7)
+        reset_launch_counts()
+        feats, run = drive(fe, kernels)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        n_prom = [len(p) for p in run.proms]
+        print(f"engine {name} path launches: {counts}")
+        rerr = rot_deg(run.R, R_gt)[active]
+        perr = np.linalg.norm(centres(run.R, run.t) - centres(R_gt, t_gt),
+                              axis=1)[active]
+        ate = ate_rmse(centres(run.R, run.t)[active],
+                       centres(R_gt, t_gt)[active])
+        inl = run.inliers[active]
+        loops = [sum(int((r.loop[:, 1] > -2.0).sum()) for r in p)
+                 for p in run.proms]
+        print(f"engine {name}: promoted frames "
+              f"{np.nonzero(run.promoted)[0].tolist()}, promotions per "
+              f"batch {n_prom}, loop verifications with an eligible "
+              f"candidate per batch {loops} (of {[3 * n for n in n_prom]}), "
+              f"db_n after each batch {run.db_n}")
+        print(f"engine {name}: inliers {inl.astype(int).tolist()} (ok_min "
+              f"{run.ok_min}), max_depth {run.max_depth:.2f}")
+        print(f"engine {name}: rotation error deg max {rerr.max():.4f}, "
+              f"position error max {perr.max():.4f} (sequence units), ATE "
+              f"{ate:.4f} over frames {ENGINE_START}..{n_frames - 1}")
+        print(f"engine {name}: window-BA cost after each batch "
+              f"{[t.ba_cost for t in run.tails]}")
+        if kernels is KERNELS:
+            per_batch = cfg.pyramid.num_octaves * nb
+            want = dict.fromkeys(("extrema_score", "blur_stack",
+                                  "orient_hist", "descriptor"), per_batch)
+            # 2 per tracked frame, 2 per promotion (keyframe_step), 4 in the
+            # bootstrap (depth probe + keyframe_step); loop verification runs
+            # the dense matcher, as the reference's _sub_match_cfg
+            want.update(extrema_winners=0,
+                        l2_2nn=2 * int(active.sum()) + 2 * sum(n_prom) + 4)
+            check(counts == want, f"kernel path launches {want}")
+            if save_features:
+                np.savez(save_features, intrinsics=seq.intrinsics,
+                         R_gt=R_gt, t_gt=t_gt, **{
+                             f"b{b}_{k}": v.cpu().numpy()
+                             for b, f in enumerate(feats)
+                             for k, v in zip(Keypoints._fields + (
+                                 "descriptors",), tuple(f.keypoints) + (
+                                 f.descriptors,))})
+                print(f"engine: features saved to {save_features}")
+        else:
+            check(not any(counts.values()), "plain path launches no kernel")
+        check(bool((inl >= run.ok_min).all()),
+              f"{name}: every active frame tracked")
+        check(inl.min() >= ENGINE_MIN_INLIERS,
+              f"{name}: >= {ENGINE_MIN_INLIERS} inliers")
+        check(min(n_prom) >= 1, f"{name}: a promotion in every batch")
+        check(run.db_n == np.cumsum(n_prom).tolist(),
+              f"{name}: db_n counts the promotions")
+        for b, (recs, tail) in enumerate(zip(run.proms, run.tails)):
+            flagged = np.nonzero(run.promoted[BATCH * b:BATCH * (b + 1)])[0]
+            check([r.frame for r in recs] == flagged.tolist(),
+                  f"{name}: batch {b}'s records are its promoted frames")
+            if recs:
+                check(np.isfinite(tail.ba_cost) and tail.ba_cost >= 0,
+                      f"{name}: batch {b}'s window-BA cost")
+        check(rerr.max() <= ENGINE_ROT_DEG,
+              f"{name}: rotation <= {ENGINE_ROT_DEG}")
+        check(perr.max() <= ENGINE_POS_ERR,
+              f"{name}: position <= {ENGINE_POS_ERR}")
+        check(ate <= ENGINE_ATE, f"{name}: ATE <= {ENGINE_ATE}")
+        runs[name] = (fe, feats, run, counts)
+
+    k, p = runs["kernel"][2], runs["plain"][2]
+    base = np.linalg.norm(centres(R_gt, t_gt)[-1] - centres(R_gt, t_gt)[0])
+    dr = rot_deg(k.R, p.R)[active]
+    dp = np.linalg.norm(centres(k.R, k.t) - centres(p.R, p.t), axis=1)[active]
+    print(f"engine kernel vs plain: rotation max {dr.max():.5f} deg, "
+          f"position max {dp.max():.3e} (baseline {base:.3f}), promoted "
+          f"frames equal {bool((k.promoted == p.promoted).all())}, db_n "
+          f"{k.db_n} vs {p.db_n}")
+    check(bool((k.promoted == p.promoted).all()), "paths promote alike")
+    check(k.db_n == p.db_n, "paths' loop databases agree in size")
+    check(dr.max() <= ENGINE_PATH_ROT_DEG, "paths agree in rotation")
+    check(dp.max() <= ENGINE_PATH_POS_FRAC * base, "paths agree in position")
+
+    # timings, kernel path: batch 1 re-run from the persist after batch 0
+    fe, feats, run, counts = runs["kernel"]
+    persist, dyn = run.calls[1]
+    n1 = len(run.proms[1])
+
+    def batch1(c=cfg):
+        return run_engine_batch(persist, dyn, feats[1], intr, c, run.ok_min,
+                                run.max_depth)
+
+    # the same batch with promotions switched off: tracking alone
+    no_kf = cfg.replace(keyframe_min_inliers=0, keyframe_max_gap=10 ** 6)
+    batch_ms = wall_ms(batch1, 5)
+    track_ms = wall_ms(lambda: batch1(no_kf), 5) / BATCH
+    syncs = count_syncs(batch1)
+    launches, busy, pwall = profile_call(batch1)
+    print(f"engine times ({card}): run_engine_batch {batch_ms:.3f} ms "
+          f"(batch 1 from the persist after batch 0, {n1} promotions, "
+          f"median of 5); {track_ms:.3f} ms per tracked frame (the same "
+          f"batch with promotions off); "
+          f"{(batch_ms - BATCH * track_ms) / max(n1, 1):.3f} ms per "
+          f"promotion (the difference)")
+    print(f"engine host syncs per batch: {syncs} (batch 1: {BATCH} need_kf "
+          f"reads + {n1} in keyframe_step's eigh expected)")
+    check(syncs == BATCH + n1, "engine batch syncs only on need_kf and eigh")
+    if launches is None:
+        print("engine profile: the profiler saw no device events; launches "
+              "and busy share not measured")
+    else:
+        print(f"engine profile of batch 1: {launches} kernel launches, "
+              f"device busy {busy:.3f} of {pwall:.3f} ms profiled "
+              f"({100 * busy / pwall:.1f}%)")
+    parts = time_parts(engine, ENGINE_PARTS, batch1, 3)
+    print("engine time by part of batch 1 (host clock, synchronize around "
+          "each call, median ms x calls per batch; refine_pose counts the "
+          "re-refine and verification's four solves, which "
+          "_verify_candidate includes): " + ", ".join(
+              f"{n} {ms:.3f} x {k:g}" for n, (ms, k) in parts.items()))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    drive(fe, KERNELS)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    print(f"engine frames/s, frontend + bootstrap + engine over {n_frames} "
+          f"frames (kernel path): {n_frames / dt:.1f} ({1e3 * dt:.1f} ms)")
+
+    # the score map + full-map top-k against the fused winners
+    fps = {"ENGINE_CONFIG": [], "TRACK_CONFIG": []}
+    track_fe = SiftFrontend(TRACK_CONFIG).to(dev)
+    track_fe(frames_dev[:BATCH])
+    for i in range(8):
+        imgs = frames_dev[i:i + BATCH]
+        for name, f in (("ENGINE_CONFIG", fe), ("TRACK_CONFIG", track_fe)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            f(imgs)
+            torch.cuda.synchronize()
+            fps[name].append(BATCH / (time.perf_counter() - t0))
+    med = {n: float(np.median(v)) for n, v in fps.items()}
+    print(f"frontend frames/s, kernel path (median of 8 batches of {BATCH}, "
+          f"in turns): ENGINE_CONFIG {med['ENGINE_CONFIG']:.1f}, "
+          f"TRACK_CONFIG {med['TRACK_CONFIG']:.1f}")
+    return counts
+
+
 def main() -> None:
+    save = None
+    if sys.argv[1:2] == ["--save-features"]:
+        save = sys.argv[2]
     dev, card = phase_device()
     phase_build()
     frames, seq = render_frames()
@@ -565,14 +914,21 @@ def main() -> None:
     plain(frames_dev[:BATCH])
     timings = phase_kernels(frames_dev[8:8 + BATCH], frontend, dev)
     phase_slice(frames_dev, frontend, plain)
-    launches = phase_track(frames_dev, seq, frontend, card, dev)
+    track = phase_track(frames_dev, seq, frontend, card, dev)
+    engine_counts = phase_engine(frames_dev, seq, card, dev, save)
+    # each kernel's launches on the path that runs it: the fused extrema on
+    # the tracking path, every other kernel on the engine path
+    launches = dict(engine_counts, extrema_winners=track["extrema_winners"])
     check(all(launches[name] > 0 for name in SOURCES),
-          "every kernel launched on the tracking path")
+          "every kernel launched on the tracking or the engine path")
+    print(f"device: {card}")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1], "launches": launches[name],
-         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
-        for name, (err, ms, plain_ms) in timings.items()]}))
+         "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+         "library_ms": r["library_ms"]}
+        for name, r in timings.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -36,7 +36,8 @@ def _problems(rng, pad=False, **kw):
     jp, R_gt, t_gt, X_gt = make_ba_problem(rng, **kw)
     if pad:
         jp = jax.tree_util.tree_map(jnp.asarray, _pad(jp))
-    tp = from_numpy(tba.BAProblem, jax.tree_util.tree_map(np.asarray, jp))
+    tp = from_numpy(tba.BAProblem, jax.tree_util.tree_map(np.asarray, jp),
+                    device="cpu")
     return jp, tp, (R_gt, t_gt, X_gt)
 
 

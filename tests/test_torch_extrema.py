@@ -1,6 +1,7 @@
 """Parity of the port's extrema stage with the JAX package: the winner
-planes of the fused extrema kernel's plain version against the Pallas kernel
-(interpret mode on CPU), the candidate selection, and localization."""
+planes of the fused extrema kernel's plain version and the score map of the
+score kernel's plain version against the Pallas kernels (interpret mode on
+CPU), the candidate selection under each extrema_impl, and localization."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -11,6 +12,7 @@ from visualslam_tpu.ops.extrema import detect_extrema as jax_detect_extrema
 from visualslam_tpu.ops.pallas.extrema import (
     _winners_batched,
     pallas_extrema_candidates,
+    pallas_extrema_score,
 )
 from visualslam_tpu.utils import config as jcfg
 from visualslam_tpu.utils import masked as jmasked
@@ -90,12 +92,69 @@ def test_detect_extrema_matches_jax(H, W):
     assert n_valid > 0
 
 
-def test_detect_extrema_rejects_unported_impls():
+# H not a multiple of 8 (the Pallas tile), W not a multiple of 128
+ODD_SHAPES = [(37, 90), (61, 200), (20, 130)]
+
+
+@pytest.mark.parametrize("H,W", ODD_SHAPES)
+def test_score_ref_equals_pallas_kernel(H, W):
+    dog = _dog(7 * H + W, 2, H, W)
+    got = kext.extrema_score_ref(torch.from_numpy(dog), THR)
+    assert got.shape == dog.shape and got.dtype == torch.float32
+    for b in range(2):
+        want = np.asarray(pallas_extrema_score(jnp.asarray(dog[b]), THR))
+        # compares and |.| on both sides: the same bits
+        np.testing.assert_array_equal(got[b].numpy(), want)
+    assert (got > -1e29).sum() > 20            # the test has extrema in it
+
+
+def test_score_wrapper_runs_plain_version_on_cpu():
+    dog = torch.from_numpy(_dog(2, 2, 30, 50))
+    before = kext.extrema_score.launches
+    got = kext.extrema_score(dog, THR)
+    assert torch.equal(got, kext.extrema_score_ref(dog, THR))
+    assert kext.extrema_score.launches == before
+
+
+@pytest.mark.parametrize("impl", ["pallas", "xla"])
+@pytest.mark.parametrize("H,W", ODD_SHAPES[:2])
+def test_detect_extrema_impls_match_jax(impl, H, W):
+    dog = _dog(5 * H + W, 2, H, W)
+    dog = (dog + np.roll(dog, 1, axis=3) * 0.5).astype(np.float32)
+    cfg = tcfg.FAST_CONFIG.sift.replace(extrema_impl=impl)
+    got = textrema.detect_extrema(torch.from_numpy(dog), cfg, capacity=96)
+    lvl, y, x, off, score, valid = (t.numpy() for t in got)
+    jcfg_impl = jcfg.FAST_CONFIG.sift.replace(extrema_impl=impl)
+    n_valid = 0
+    for b in range(2):
+        want = [np.asarray(t) for t in jax_detect_extrema(
+            jnp.asarray(dog[b]), jcfg_impl, capacity=96)]
+        for g, w in zip((lvl[b], y[b], x[b], valid[b]), (want[0], want[1],
+                                                         want[2], want[5])):
+            np.testing.assert_array_equal(g, w)
+        # the same cubes through the same closed-form fit in two libraries
+        np.testing.assert_allclose(off[b], want[3], rtol=0, atol=1e-5)
+        np.testing.assert_allclose(score[b], want[4], rtol=0, atol=1e-5)
+        n_valid += int(valid[b].sum())
+    assert n_valid > 0
+
+
+def test_detect_extrema_pallas_and_xla_impls_agree():
+    """The score kernel's plain version and the plain torch map select the
+    same candidates."""
+    dog = torch.from_numpy(_dog(9, 2, 45, 70))
+    cfg = tcfg.FAST_CONFIG.sift
+    a, b = (textrema.detect_extrema(dog, cfg.replace(extrema_impl=impl), 64)
+            for impl in ("pallas", "xla"))
+    for g, w in zip(a, b):
+        assert torch.equal(g, w)
+
+
+def test_detect_extrema_rejects_unknown_impl():
     dog = torch.zeros(1, 5, 20, 20)
-    for impl in ("xla", "pallas"):
-        with pytest.raises(NotImplementedError):
-            textrema.detect_extrema(
-                dog, tcfg.FAST_CONFIG.sift.replace(extrema_impl=impl))
+    with pytest.raises(ValueError):
+        textrema.detect_extrema(
+            dog, tcfg.FAST_CONFIG.sift.replace(extrema_impl="scan"))
 
 
 def test_top_k_select_ties_match_jax():

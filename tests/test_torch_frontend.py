@@ -149,6 +149,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "import visualslam_tpu_torch.slam.window\n"
             "import visualslam_tpu_torch.geometry.camera\n"
             "import visualslam_tpu_torch.utils.convert\n"
+            "import visualslam_tpu_torch.slam.evaluation\n"
+            "import chip_smoke\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'visualslam_tpu' or "
             "m.startswith('visualslam_tpu.')]\n"

@@ -92,7 +92,7 @@ class Scene:
 def _both(kps, desc):
     return (JFeatures(JKeypoints(*(jnp.asarray(a) for a in kps)),
                       jnp.asarray(desc)),
-            from_numpy(Features, (kps, desc)))
+            from_numpy(Features, (kps, desc), device="cpu"))
 
 
 def _np(tree):
@@ -143,8 +143,8 @@ def test_track_step_lite_matches_jax(scene):
         jts.LocalMap(*(jnp.asarray(a) for a in lm)), jf,
         jts.TrackState(*(jnp.asarray(a) for a in st)), jnp.asarray(INTR),
         JCFG, OK_MIN)
-    got = tts.track_step_lite(from_numpy(tts.LocalMap, lm), tf,
-                              from_numpy(tts.TrackState, st),
+    got = tts.track_step_lite(from_numpy(tts.LocalMap, lm, device="cpu"), tf,
+                              from_numpy(tts.TrackState, st, device="cpu"),
                               torch.tensor(INTR), CFG, OK_MIN)
     want = _np(want)
     assert bool(want.ok) and want.stats[1] > 100
@@ -182,8 +182,8 @@ def test_keyframe_step_matches_jax(scene):
     want = _np(jts.keyframe_step(jts.KeyframeRef(*(jnp.asarray(a)
                                                    for a in ref)),
                                  jf, lite, jnp.asarray(INTR), JCFG, 200.0))
-    got = tts.keyframe_step(from_numpy(tts.KeyframeRef, ref), tf,
-                            from_numpy(tts.TrackLite, _np(lite)),
+    got = tts.keyframe_step(from_numpy(tts.KeyframeRef, ref, device="cpu"), tf,
+                            from_numpy(tts.TrackLite, _np(lite), device="cpu"),
                             torch.tensor(INTR), CFG, 200.0)
     np.testing.assert_array_equal(got.assoc_i.numpy(), want.assoc_i)
     good = (want.assoc_i[:, 5] & 2) > 0
@@ -201,9 +201,10 @@ def test_keyframe_step_matches_jax(scene):
 def test_track_step_is_lite_then_keyframe(scene):
     kps, desc, _ = scene.features(6)
     _, tf = _both(kps, desc)
-    args = (from_numpy(tts.LocalMap, scene.local_map()), tf,
-            from_numpy(tts.TrackState, _state(scene, 6)), torch.tensor(INTR))
-    ref = from_numpy(tts.KeyframeRef, _kf_ref(scene, 2))
+    args = (from_numpy(tts.LocalMap, scene.local_map(), device="cpu"), tf,
+            from_numpy(tts.TrackState, _state(scene, 6), device="cpu"),
+            torch.tensor(INTR))
+    ref = from_numpy(tts.KeyframeRef, _kf_ref(scene, 2), device="cpu")
     full = tts.track_step(ref, *args, CFG, OK_MIN, 200.0)
     lite = tts.track_step_lite(*args, CFG, OK_MIN)
     want = tts.keyframe_step(ref, tf, lite, args[3], CFG, 200.0)
@@ -224,8 +225,9 @@ def test_track_batch_matches_jax(scene):
         jts.LocalMap(*(jnp.asarray(a) for a in lm)), jf, jnp.int32(2),
         jts.TrackState(*(jnp.asarray(a) for a in st)), jnp.asarray(INTR),
         JCFG, OK_MIN)
-    tst, got = tts.track_batch(from_numpy(tts.LocalMap, lm), tf, 2,
-                               from_numpy(tts.TrackState, st),
+    tst, got = tts.track_batch(from_numpy(tts.LocalMap, lm, device="cpu"),
+                               tf, 2,
+                               from_numpy(tts.TrackState, st, device="cpu"),
                                torch.tensor(INTR), CFG, OK_MIN)
     want = _np(want)
     np.testing.assert_array_equal(got.ok.numpy(), [0, 0, 1, 1, 1])
@@ -244,9 +246,9 @@ def test_track_batch_matches_jax(scene):
     lite = tts.lite_at(got, 3)
     assert torch.equal(lite.R, got.R[3]) and bool(lite.ok)
     # a 0-d tensor start takes the same path
-    _, again = tts.track_batch(from_numpy(tts.LocalMap, lm), tf,
+    _, again = tts.track_batch(from_numpy(tts.LocalMap, lm, device="cpu"), tf,
                                torch.tensor(2),
-                               from_numpy(tts.TrackState, st),
+                               from_numpy(tts.TrackState, st, device="cpu"),
                                torch.tensor(INTR), CFG, OK_MIN)
     assert torch.equal(again.R, got.R)
 
@@ -254,9 +256,11 @@ def test_track_batch_matches_jax(scene):
 def test_pack_unpack_keyframe_products_round_trip(scene):
     kps, desc, _ = scene.features(6)
     jf, tf = _both(kps, desc)
-    args = (from_numpy(tts.LocalMap, scene.local_map()), tf,
-            from_numpy(tts.TrackState, _state(scene, 6)), torch.tensor(INTR))
-    out = tts.track_step(from_numpy(tts.KeyframeRef, _kf_ref(scene, 2)),
+    args = (from_numpy(tts.LocalMap, scene.local_map(), device="cpu"), tf,
+            from_numpy(tts.TrackState, _state(scene, 6), device="cpu"),
+            torch.tensor(INTR))
+    out = tts.track_step(from_numpy(tts.KeyframeRef, _kf_ref(scene, 2),
+                                    device="cpu"),
                          *args, CFG, OK_MIN, 200.0)
     packed = tts.pack_keyframe_products(out, tf)
     M = CFG.match.max_matches
@@ -304,7 +308,8 @@ def test_map_copy_and_local_map_equal_jax(scene):
     for a, b in zip(jm.build_ba_arrays(400), tm.build_ba_arrays(400)):
         np.testing.assert_array_equal(a, b)
     want, jids = jts.build_local_map(jm, K, 128, np.float32)
-    got, ids = tts.build_local_map(tm, K, 128, np.float32)
+    got, ids = tts.build_local_map(tm, K, 128, np.float32,
+                                    device="cpu")
     np.testing.assert_array_equal(ids, jids)
     assert (ids >= 0).sum() > 40
     for name in ("desc", "X", "valid"):

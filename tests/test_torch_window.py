@@ -17,6 +17,7 @@ from visualslam_tpu.backend import ba as jba
 from visualslam_tpu.geometry import se3 as jse3
 from visualslam_tpu.models.types import Features as JFeatures
 from visualslam_tpu.models.types import Keypoints as JKeypoints
+from visualslam_tpu.slam import engine as jengine
 from visualslam_tpu.slam import track_step as jts
 from visualslam_tpu.slam.map_state import SlamMap as JSlamMap
 from visualslam_tpu.utils import config as jcfg
@@ -45,10 +46,21 @@ JCFG = jcfg.FAST_CONFIG.replace(
 CFG = SlamConfig.from_json(JCFG.to_json())
 
 
+def _jax_dyn(frame_base, start, stop, Kl):
+    return jengine.EngineDyn(
+        frame_base=jnp.int32(frame_base), start=jnp.int32(start),
+        stop=jnp.int32(stop), kill=jnp.zeros(Kl, bool),
+        kill_gen=jnp.zeros(Kl, jnp.int32))
+
+
 def jax_ops():
-    """The JAX package's functions for run_window (jitted as the tracker
-    jits them)."""
+    """The JAX package's functions for run_window and run_engine (jitted as
+    the tracker jits them)."""
     return SimpleNamespace(
+        run_engine_batch=jax.jit(jengine.run_engine_batch,
+                                 static_argnums=(4, 5, 6)),
+        build_persist_from_host=jengine.build_persist_from_host,
+        engine_dyn=_jax_dyn, decode_packed=jengine.decode_packed,
         track_batch=jax.jit(jts.track_batch, static_argnums=(5, 6)),
         keyframe_step=jax.jit(jts.keyframe_step, static_argnums=(4, 5)),
         lite_at=jts.lite_at, index_features=jts.index_features,
@@ -68,7 +80,7 @@ def runs():
     frames = np.clip(frames * 255.0, 0, 255).astype(np.uint8)
     feats = SiftFrontend(CFG)(torch.from_numpy(frames))
     R_gt, t_gt = world_to_camera(seq.gt_poses)
-    port = run_window(port_ops(), feats, R_gt, t_gt,
+    port = run_window(port_ops("cpu"), feats, R_gt, t_gt,
                       torch.tensor(seq.intrinsics), CFG)
     jfeats = JFeatures(JKeypoints(*(jnp.asarray(x.numpy())
                                     for x in feats.keypoints)),

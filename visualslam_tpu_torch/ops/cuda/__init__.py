@@ -25,13 +25,15 @@ class Kernels(NamedTuple):
     descriptor: Callable
     blur_stack: Callable
     l2_2nn: Callable
+    extrema_score: Callable
 
 
 KERNELS = Kernels(extrema.extrema_winners, descriptor.orient_hist,
-                  descriptor.descriptor, blur.blur_stack, distance.l2_2nn)
+                  descriptor.descriptor, blur.blur_stack, distance.l2_2nn,
+                  extrema.extrema_score)
 PLAIN = Kernels(extrema.extrema_winners_ref, descriptor.orient_hist_ref,
                 descriptor.descriptor_ref, blur.blur_stack_ref,
-                distance.l2_2nn_ref)
+                distance.l2_2nn_ref, extrema.extrema_score_ref)
 
 
 def launch_counts() -> dict:

@@ -1,7 +1,8 @@
-"""Fused extrema scan + per-tile winner reduce: the CUDA kernel's wrapper
-and its plain PyTorch version.
+"""Scale-space extrema scans: the CUDA kernels' wrappers and their plain
+PyTorch versions.
 
-Replaces visualslam_tpu/ops/pallas/extrema.py `pallas_extrema_candidates`
+`extrema_winners`, the fused extrema scan + per-tile winner reduce,
+replaces visualslam_tpu/ops/pallas/extrema.py `pallas_extrema_candidates`
 (the `_fused_kernel` pallas_call in `_winners_batched`). On the H100 the
 scan is memory-bound: it reads the DoG stack once (about 150 MB for a
 16-frame octave-0 batch) and does ~27 compares per position. The kernel
@@ -11,7 +12,14 @@ walks the tile, and writes each winner once, so it equals the plain version
 bit for bit. Unlike the TPU kernel it needs no padded copy of the input and
 no pre-sliced halo rows: it reads the halo rows itself.
 
-`extrema_winners` launches the kernel for a CUDA tensor and runs the plain
+`extrema_score`, the full masked score map of `extrema_impl="pallas"`,
+replaces `pallas_extrema_score` (`_score_kernel`). It is memory-bound too: it
+reads the stack once and writes a map of the same size. The kernel gives one
+thread to each (frame, column, 16-row strip) with the same register window
+and writes D values per row, coalesced along W; compares and `fabsf` only,
+so it equals `extrema_score_ref` bit for bit.
+
+Each wrapper launches its kernel for a CUDA tensor and runs the plain
 version for a CPU tensor; anything else raises.
 """
 
@@ -104,10 +112,80 @@ def extrema_winners(dog: torch.Tensor, threshold: float):
 extrema_winners.launches = 0
 
 
+def extrema_mask(dog: torch.Tensor) -> torch.Tensor:
+    """Strict 26-neighbour extrema over the last three axes (level, y, x)
+    of a DoG stack [..., D, H, W] (visualslam_tpu/ops/extrema.py
+    `extrema_mask`): True only at interior positions strictly greater or
+    strictly smaller than all 26 neighbours."""
+    D, H, W = dog.shape[-3:]
+    if D < 3 or H < 3 or W < 3:
+        return torch.zeros_like(dog, dtype=torch.bool)
+    c = dog[..., 1:-1, 1:-1, 1:-1]
+    gt = torch.ones_like(c, dtype=torch.bool)
+    lt = torch.ones_like(c, dtype=torch.bool)
+    for dl in (-1, 0, 1):
+        for dy in (-1, 0, 1):
+            for dx in (-1, 0, 1):
+                if dl == dy == dx == 0:
+                    continue
+                nb = dog[..., 1 + dl:D - 1 + dl, 1 + dy:H - 1 + dy,
+                         1 + dx:W - 1 + dx]
+                gt &= c > nb
+                lt &= c < nb
+    return F.pad(gt | lt, (1, 1, 1, 1, 1, 1))
+
+
+def extrema_score_ref(dog: torch.Tensor, threshold: float) -> torch.Tensor:
+    """Plain version (ops/pallas/extrema.py `_score_kernel`): dog
+    [B, D, H, W] float32 -> [B, D, H, W] float32, |dog| at strict interior
+    26-neighbour extrema with |dog| > threshold / 2, NONE elsewhere (levels
+    0 and D-1 included)."""
+    score = dog.abs()
+    ok = extrema_mask(dog) & (score > 0.5 * threshold)
+    return torch.where(ok, score, torch.full_like(score, NONE))
+
+
+SCORE_LEVELS = (3, 8)   # D range the score kernel is built for
+
+
+def extrema_score(dog: torch.Tensor, threshold: float) -> torch.Tensor:
+    """Masked extrema score map of a DoG stack [B, D, H, W] float32,
+    3 <= D <= 8. Same contract as `extrema_score_ref`."""
+    if dog.device.type == "cpu":
+        return extrema_score_ref(dog, threshold)
+    if dog.device.type != "cuda":
+        raise ValueError(f"extrema_score: unsupported device {dog.device}")
+    lo, hi = SCORE_LEVELS
+    if (dog.dtype != torch.float32 or dog.ndim != 4
+            or not lo <= dog.shape[1] <= hi):
+        raise ValueError(f"extrema_score: expects float32 [B, D, H, W] with "
+                         f"{lo} <= D <= {hi}, got {dog.dtype} "
+                         f"{tuple(dog.shape)}")
+    if not dog.is_contiguous():
+        raise ValueError("extrema_score: dog must be contiguous")
+    B, D, H, W = dog.shape
+    out = torch.empty_like(dog)
+    lib = _lib()
+    with torch.cuda.device(dog.device):
+        rc = lib.extrema_score(build.ptr(dog), build.ptr(out), B, D, H, W,
+                               0.5 * threshold,
+                               build.stream_handle(dog.device))
+    build.check_launch(rc, "extrema_score")
+    extrema_score.launches += 1
+    return out
+
+
+extrema_score.launches = 0
+
+
 def _lib() -> ctypes.CDLL:
     lib = build.load_library("extrema")
     fn = lib.extrema_winners
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [
+        ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    fn = lib.extrema_score
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [
         ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib

@@ -5,8 +5,10 @@ visualslam_tpu/ops/pallas/extrema.py `pallas_extrema_candidates`).
 Batched over frames: dog stacks are [B, D, H, W]. Candidates are the
 strict 26-neighbour extrema above half the contrast threshold, reduced to
 one winner per (16-row tile, level, column) by the extrema kernel, then the
-top `capacity` winners per frame; a quadratic fit on each candidate's
-3x3x3 cube refines it and applies the contrast and edge tests.
+top `capacity` winners per frame (extrema_impl "fused"/"auto"), or the top
+`capacity` of the full score map (extrema_impl "pallas": the score kernel;
+"xla": plain torch). A quadratic fit on each candidate's 3x3x3 cube refines
+it and applies the contrast and edge tests.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ from typing import NamedTuple
 import torch
 
 from visualslam_tpu_torch.ops.cuda import KERNELS, Kernels
-from visualslam_tpu_torch.ops.cuda.extrema import NONE, TILE_H
+from visualslam_tpu_torch.ops.cuda.extrema import NONE, TILE_H, extrema_mask
 from visualslam_tpu_torch.utils.config import SiftConfig
 from visualslam_tpu_torch.utils.masked import block_top_k_select
 
@@ -118,17 +120,36 @@ def detect_extrema(dog: torch.Tensor, cfg: SiftConfig,
                    capacity: int | None = None, kernels: Kernels = KERNELS):
     """Per-octave candidate detection on [B, D, H, W] DoG stacks.
 
+    `cfg.extrema_impl` picks the candidates as the JAX package does:
+    "fused" (and "auto", on every device) the per-tile winners of the fused
+    kernel; "pallas" the full score map of the score kernel, then top-k;
+    "xla" the same map in plain torch (no kernel).
+
     Returns (lvl, y, x, offset [B, K, 3], score, valid), K = capacity
     (default cfg.max_keypoints_per_octave): integer grid positions, the
     offset clamped to +-0.5, |interpolated contrast| and the validity mask.
     """
-    if cfg.extrema_impl not in ("auto", "fused"):
-        raise NotImplementedError(
-            f"extrema_impl={cfg.extrema_impl!r} is not ported yet; the port "
-            "runs the fused candidate kernel (see ROADMAP.md B.6)")
+    impl = cfg.extrema_impl
+    if impl not in ("auto", "fused", "pallas", "xla"):
+        raise ValueError(f"unknown extrema_impl {impl!r}")
     k = capacity if capacity is not None else cfg.max_keypoints_per_octave
-    lvl, y, x, _, sel = extrema_candidates(dog, cfg.contrast_threshold, k,
-                                           kernels)
+    thr = cfg.contrast_threshold
+    if impl in ("auto", "fused"):
+        lvl, y, x, _, sel = extrema_candidates(dog, thr, k, kernels)
+    else:
+        B, D, H, W = dog.shape
+        if impl == "pallas":
+            score = kernels.extrema_score(dog.contiguous(), thr)
+            mask = score > NONE / 10
+        else:
+            score = dog.abs()
+            mask = extrema_mask(dog) & (score > 0.5 * thr)
+        idx, sel = block_top_k_select(score.reshape(B, -1),
+                                      mask.reshape(B, -1), k)
+        rem = idx % (H * W)
+        lvl = (idx // (H * W)).to(torch.int32)
+        y = (rem // W).to(torch.int32)
+        x = (rem % W).to(torch.int32)
     one = torch.ones_like(lvl)
     # masked-out slots point at a safe interior location
     lvl = torch.where(sel, lvl, one)

@@ -332,7 +332,7 @@ def track_step(kf: KeyframeRef, lmap: LocalMap, feats: Features,
 
 
 def build_local_map(slam_map, capacity: int, desc_dim: int, desc_dtype,
-                    device=None) -> tuple[LocalMap, np.ndarray]:
+                    device="cuda") -> tuple[LocalMap, np.ndarray]:
     """Host-side rebuild of the covisible-landmark set from the sliding
     window. For each landmark observed in the window, take the descriptor of
     its MOST RECENT observing keyframe. Returns (LocalMap on `device`,

@@ -1,6 +1,9 @@
-"""One tracking window from a ground-truth bootstrap: keyframes at two
-known poses, then track_batch over the batch, one keyframe promotion with
-triangulation, and the window BA.
+"""Drivers of the tracking slices from a ground-truth bootstrap: keyframes
+at two known poses (`bootstrap`), then either one tracking window
+(`run_window`: track_batch over the batch, one keyframe promotion with
+triangulation, and the window BA) or the engine (`run_engine`:
+run_engine_batch over consecutive batches, the persist chained device to
+device).
 
 The bootstrap stands in for the host tracker's two-view init (8-point
 RANSAC and scale, ROADMAP.md A.7, not ported yet): the first two keyframes
@@ -11,10 +14,10 @@ the first triangulation, the tracking floor is
 max(10, keyframe_min_inliers // 3), map updates on promotion follow
 `_insert_keyframe_from_track` and the BA problem `_run_window_ba`.
 
-`run_window` is written against the API the port shares with the JAX
-package (track_step, ba, map_state, se3): pass `port_ops(device)` to run
-the port, or an equivalent namespace of the JAX package's functions to run
-the reference on the same features.
+Both drivers are written against the API the port shares with the JAX
+package (track_step, ba, map_state, se3, engine): pass `port_ops(device)`
+to run the port, or an equivalent namespace of the JAX package's functions
+to run the reference on the same features.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ import torch
 from visualslam_tpu_torch.backend import ba
 from visualslam_tpu_torch.geometry import se3
 from visualslam_tpu_torch.ops.cuda import KERNELS, Kernels
+from visualslam_tpu_torch.slam import engine
 from visualslam_tpu_torch.slam import track_step as ts
 from visualslam_tpu_torch.slam.map_state import SlamMap
 from visualslam_tpu_torch.utils.config import SlamConfig
@@ -60,9 +64,16 @@ def world_to_camera(gt_poses: np.ndarray):
     return R.astype(np.float32), t.astype(np.float32)
 
 
-def port_ops(device=None, kernels: Kernels = KERNELS) -> SimpleNamespace:
-    """This package's functions for `run_window`, on `device`."""
+def port_ops(device="cuda", kernels: Kernels = KERNELS) -> SimpleNamespace:
+    """This package's functions for `run_window` and `run_engine`, on
+    `device` (the card unless the caller passes device="cpu")."""
     return SimpleNamespace(
+        run_engine_batch=functools.partial(engine.run_engine_batch,
+                                           kernels=kernels),
+        build_persist_from_host=functools.partial(
+            engine.build_persist_from_host, device=device),
+        engine_dyn=functools.partial(engine.engine_dyn, device=device),
+        decode_packed=engine.decode_packed,
         track_batch=functools.partial(ts.track_batch, kernels=kernels),
         keyframe_step=functools.partial(ts.keyframe_step, kernels=kernels),
         lite_at=ts.lite_at, index_features=ts.index_features,
@@ -112,21 +123,29 @@ def _add_triangulated(smap, prev: int, slot: int, d) -> int:
     return int(good.sum())
 
 
-def run_window(ops, feats_b, R_gt: np.ndarray, t_gt: np.ndarray, intr,
-               cfg: SlamConfig, kf0: int = 0, kf1: int = 4, start: int = 5,
-               promote: int = 12) -> WindowRun:
-    """feats_b: batched Features [B, K, ...] (backend arrays); R_gt [B, 3, 3],
-    t_gt [B, 3]: ground-truth world-to-camera poses (numpy float32); intr:
-    [4] backend array. Keyframes kf0 and kf1 at ground truth, track frames
-    start..B-1, promote frame `promote`, then the window BA."""
+class Bootstrap(NamedTuple):
+    """The map after the ground-truth bootstrap, and the tracker state it
+    hands on (numpy)."""
+
+    map: Any                 # SlamMap: keyframes kf0, kf1 + first landmarks
+    R: np.ndarray            # [3, 3] pose state: keyframe kf1 (ground truth)
+    t: np.ndarray            # [3]
+    vel: np.ndarray          # [6] constant-velocity twist into kf1
+    max_depth: float         # 20 x the median depth of the first landmarks
+    ok_min: int              # PnP inliers below which tracking is rejected
+    slots: tuple             # map slots of (kf0, kf1)
+    new_landmarks: int       # landmarks triangulated between kf0 and kf1
+
+
+def bootstrap(ops, feats_b, R_gt: np.ndarray, t_gt: np.ndarray, intr,
+              cfg: SlamConfig, kf0: int = 0, kf1: int = 4) -> Bootstrap:
+    """Keyframes kf0 and kf1 of batched Features at their ground-truth
+    world-to-camera poses, and the landmarks triangulated between them
+    (stands in for the host tracker's two-view init)."""
     K = int(feats_b.descriptors.shape[1])
-    D = int(feats_b.descriptors.shape[2])
     M = cfg.match.max_matches
     A = ops.asarray
-    ok_min = max(10, cfg.keyframe_min_inliers // 3)
     smap = ops.SlamMap(cfg.ba.max_cameras, cfg.map_landmarks, K)
-
-    # bootstrap at ground truth (stands in for the two-view init)
     f0 = ops.index_features(feats_b, kf0)
     f1 = ops.index_features(feats_b, kf1)
     s0 = _keyframe(ops, smap, kf0, R_gt[kf0], t_gt[kf0], f0)
@@ -152,11 +171,31 @@ def run_window(ops, feats_b, R_gt: np.ndarray, t_gt: np.ndarray, intr,
     d = _assoc(ops, ops.keyframe_step(ref0, f1, lite1, intr, cfg, max_depth),
                f1, M, K)
     s1 = _keyframe(ops, smap, kf1, R_gt[kf1], t_gt[kf1], f1)
-    n_new1 = _add_triangulated(smap, s0, s1, d)
+    n_new = _add_triangulated(smap, s0, s1, d)
+    return Bootstrap(map=smap, R=R_gt[kf1], t=t_gt[kf1], vel=vel,
+                     max_depth=max_depth,
+                     ok_min=max(10, cfg.keyframe_min_inliers // 3),
+                     slots=(s0, s1), new_landmarks=n_new)
+
+
+def run_window(ops, feats_b, R_gt: np.ndarray, t_gt: np.ndarray, intr,
+               cfg: SlamConfig, kf0: int = 0, kf1: int = 4, start: int = 5,
+               promote: int = 12) -> WindowRun:
+    """feats_b: batched Features [B, K, ...] (backend arrays); R_gt [B, 3, 3],
+    t_gt [B, 3]: ground-truth world-to-camera poses (numpy float32); intr:
+    [4] backend array. Keyframes kf0 and kf1 at ground truth, track frames
+    start..B-1, promote frame `promote`, then the window BA."""
+    K = int(feats_b.descriptors.shape[1])
+    D = int(feats_b.descriptors.shape[2])
+    M = cfg.match.max_matches
+    A = ops.asarray
+    boot = bootstrap(ops, feats_b, R_gt, t_gt, intr, cfg, kf0, kf1)
+    smap, (_, s1), max_depth = boot.map, boot.slots, boot.max_depth
+    ok_min, n_new1 = boot.ok_min, boot.new_landmarks
 
     # track every frame of the batch against the local map
     lmap, ids = ops.build_local_map(smap, cfg.local_map_size, D, np.float32)
-    state = ops.TrackState(R=A(R_gt[kf1]), t=A(t_gt[kf1]), vel=A(vel))
+    state = ops.TrackState(R=A(boot.R), t=A(boot.t), vel=A(boot.vel))
     _, lites = ops.track_batch(lmap, feats_b, start, state, intr, cfg, ok_min)
 
     # promote one tracked frame (tracker.py:1110-1125)
@@ -207,3 +246,59 @@ def run_window(ops, feats_b, R_gt: np.ndarray, t_gt: np.ndarray, intr,
                  float(ops.tonumpy(res.cost))),
         kf_R=smap.kf_R[slots].copy(), kf_t=smap.kf_t[slots].copy(),
         max_depth=max_depth, calls=calls)
+
+
+class EngineRun(NamedTuple):
+    """What run_engine produced (numpy), and each batch's inputs (backend
+    arrays, for timing a batch again)."""
+
+    R: np.ndarray            # [F, 3, 3] world-to-camera after each frame
+    t: np.ndarray            # [F, 3]
+    inliers: np.ndarray      # [F] PnP inliers (0 on inactive frames)
+    promoted: np.ndarray     # [F] bool
+    proms: list              # per batch, its PromRecords
+    db_n: list               # per batch, the loop-database size after it
+    tails: list              # per batch, its EngineTail
+    max_depth: float
+    ok_min: int
+    calls: list              # per batch, (persist, dyn) it started from
+
+
+def run_engine(ops, feats_batches, R_gt: np.ndarray, t_gt: np.ndarray, intr,
+               cfg: SlamConfig, start: int = 5) -> EngineRun:
+    """The engine over consecutive batches of Features [B, K, ...] (backend
+    arrays): the ground-truth bootstrap from batch 0 (keyframes 0 and 4),
+    the persist built from its map, then run_engine_batch on every batch
+    in order (frames [start, B) of batch 0, all frames after), the persist
+    chained device to device, each packed buffer decoded.
+
+    The host tracker's mirror of the promotions into its map
+    (tracker._engine_apply_prom, ROADMAP.md A.7) is not part of this
+    driver: the engine's own device state carries the run."""
+    B = int(feats_batches[0].descriptors.shape[0])
+    M = cfg.match.max_matches
+    W = cfg.ba.max_cameras
+    Kl = cfg.local_map_size
+    P = max(1, -(-B // max(1, cfg.keyframe_min_gap)))
+    boot = bootstrap(ops, feats_batches[0], R_gt, t_gt, intr, cfg)
+    persist, _, _ = ops.build_persist_from_host(
+        boot.map, cfg, boot.R, boot.t, boot.vel, 0)
+    stats, proms, db_n, tails, calls = [], [], [], [], []
+    for k, feats_b in enumerate(feats_batches):
+        dyn = ops.engine_dyn(B * k, start if k == 0 else 0, B, Kl)
+        calls.append((persist, dyn))
+        packed, persist = ops.run_engine_batch(persist, dyn, feats_b, intr,
+                                               cfg, boot.ok_min,
+                                               boot.max_depth)
+        st, recs, n, tail = ops.decode_packed(ops.tonumpy(packed), B, M, P,
+                                              W, Kl)
+        stats.append(st)
+        proms.append(recs)
+        db_n.append(n)
+        tails.append(tail)
+    stats = np.concatenate(stats)
+    return EngineRun(
+        R=stats[:, 4:13].reshape(-1, 3, 3), t=stats[:, 13:16],
+        inliers=stats[:, 1], promoted=stats[:, 22] > 0.5, proms=proms,
+        db_n=db_n, tails=tails, max_depth=boot.max_depth,
+        ok_min=boot.ok_min, calls=calls)

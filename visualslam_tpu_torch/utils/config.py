@@ -126,9 +126,10 @@ class SiftConfig(_Base):
     localize_iters: int = 1
     dense_extrema: bool = True
     extrema_impl: str = "auto"          # "auto" | "fused": the fused
-    #                                     scan + per-tile winner reduce (the
-    #                                     port's only mode so far);
-    #                                     "pallas" | "xla"
+    #                                     scan + per-tile winner reduce;
+    #                                     "pallas": the full score map
+    #                                     kernel, then top-k; "xla": the
+    #                                     same map in plain torch
     patch_impl: str = "auto"            # "auto" | "pallas": the fused
     #                                     per-keypoint sampling + histogram
     #                                     kernels (the port's only mode so

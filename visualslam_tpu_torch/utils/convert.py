@@ -25,13 +25,14 @@ def _nested_types(cls) -> dict:
             and hasattr(v, "_fields")}
 
 
-def from_numpy(cls, arrays, device=None):
+def from_numpy(cls, arrays, device="cuda"):
     """Port NamedTuple `cls` from numpy arrays in the JAX field order.
 
     arrays: a mapping by field name, or a tuple (a JAX NamedTuple fetched
     as numpy is one); nested NamedTuples are converted the same way. Each
-    leaf is copied into a tensor on `device` with its numpy dtype (bool,
-    int32 and float32 stay as they are)."""
+    leaf is copied into a tensor on `device` (the card unless the caller
+    passes device="cpu") with its numpy dtype (bool, int32 and float32 stay
+    as they are)."""
     if isinstance(arrays, Mapping):
         values = [arrays[name] for name in cls._fields]
     else:
