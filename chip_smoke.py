@@ -28,15 +28,20 @@ Phases, each printing its own lines:
   3. kernels   each kernel against its plain version on the card at the
                main path's shapes: the extrema winners and the candidates
                that follow bit for bit, the orientation histogram and the
-               descriptor within 1e-4 * (1 + max |plain|), the blur within
-               1e-5 * (1 + max |plain|), the 2-NN within
+               descriptor (reading the gradient levels in place, the
+               descriptor on the spawned keypoints) within
+               1e-4 * (1 + max |plain|) and equal run to run, the blur
+               within 1e-5 * (1 + max |plain|), the 2-NN within
                1e-5 * (1 + max |plain|) on valid rows, the score map bit
                for bit; median times beside each kernel's bound and, where
                one PyTorch call computes the same function, that call's
-               time
+               time; the time of the patch stack / cast / crop / re-gather
+               the kernel path no longer runs
   4. slice     the frontend + matching through the public entry points;
                the plain path on the same batch as the reference; keypoint
-               and match floors; frames/s of both paths
+               and match floors; frames/s of both paths; the frontend's
+               time by stage (pyramid, extrema, orientation, descriptor,
+               merge) from CUDA events
   5. track     the tracking slice, kernel path and plain path: launch
                counts, tracking accepted on every frame, PnP inlier floor,
                pose error against ground truth, BA cost, kernel path
@@ -77,8 +82,16 @@ import torch.nn.functional as F
 from visualslam_tpu_torch.backend.ba import run_ba
 from visualslam_tpu_torch.frontend import SiftFrontend
 from visualslam_tpu_torch.io.synthetic import SyntheticSequence
+from visualslam_tpu_torch.models import sift
 from visualslam_tpu_torch.models.matching import match_features
 from visualslam_tpu_torch.models.pyramid import build_pyramid
+from visualslam_tpu_torch.models.sift import (
+    _orientation_pass,
+    describe_octave,
+    merge_octaves,
+    octave_result,
+    patch_source,
+)
 from visualslam_tpu_torch.models.types import Features, Keypoints
 from visualslam_tpu_torch.ops.blur import blur_stack_matmul, pad_symmetric
 from visualslam_tpu_torch.ops.cuda import (
@@ -88,9 +101,9 @@ from visualslam_tpu_torch.ops.cuda import (
     launch_counts,
     reset_launch_counts,
 )
+from visualslam_tpu_torch.ops.cuda.descriptor import staged_boxes
 from visualslam_tpu_torch.ops.extrema import detect_extrema, extrema_candidates
-from visualslam_tpu_torch.ops.histograms import histogram_peaks
-from visualslam_tpu_torch.ops.patches import crop_patches
+from visualslam_tpu_torch.ops.patches import crop_patches, patch_shape
 from visualslam_tpu_torch.slam import engine
 from visualslam_tpu_torch.slam.engine import run_engine_batch
 from visualslam_tpu_torch.slam.evaluation import ate_rmse
@@ -199,6 +212,24 @@ def time_ms(fn, reps: int) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def device_ms(fn, reps: int, kernel: str) -> float:
+    """Median device time in ms of the `kernel` launches of fn() over
+    `reps` runs under the profiler (the kernel alone: no host work of the
+    wrapper, no other launch); nan if the profiler saw none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    times = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and kernel in e.name]
+    return float(np.median(times)) if times else float("nan")
 
 
 def wall_ms(fn, reps: int) -> float:
@@ -410,40 +441,74 @@ def phase_kernels(batch: torch.Tensor, frontend: SiftFrontend, dev) -> dict:
           f"bit-exact, {int((got > -1e29).sum())} extrema")
     del got, want
 
-    # the frontend's octave-0 patches: bf16, 32 rows, K = 16 * 1024
-    lvl, y, x, offset, _, _ = detect_extrema(dog, cfg.sift, cap, KERNELS)
-    mag_ori = torch.stack([ss.grad_mag[0], ss.grad_ori[0]], 1).to(
-        torch.bfloat16)
+    # the frontend's octave-0 patch stages: bf16, 32 rows, K = 16 * 1024;
+    # the descriptor on the keypoints spawned from them, each at its
+    # candidate's origin
+    lvl, y, x, offset, resp, valid = detect_extrema(dog, cfg.sift, cap,
+                                                    KERNELS)
+    src = patch_source(ss, 0, lvl, y, x, cfg.sift)
+    kps, cand_idx = _orientation_pass(src, lvl, y, x, offset, resp, valid,
+                                      cfg.pyramid, cfg.sift, PLAIN)
     yx = torch.stack([y, x], -1).float()
-    patches, y0, x0 = crop_patches(mag_ori, (lvl - 1).long(), yx, 32)
-    patches, y0, x0 = patches.flatten(0, 1), y0.flatten(), x0.flatten()
-    yx = yx.flatten(0, 1)
     lvl_f = (lvl.float() + offset[..., 0]).flatten()
     sigma = (cfg.sift.orientation_sigma_scale * cfg.pyramid.base_sigma
              * cfg.pyramid.k_factor ** lvl_f).contiguous()
-    hist_p = PLAIN.orient_hist(patches, y0, x0, yx, sigma)
-    angle = histogram_peaks(hist_p, 1, 0.8, 360.0)[0][:, 0].contiguous()
-    yxf = (yx + offset[..., 1:3].flatten(0, 1)).contiguous()
-    for name, args in (("orient_hist", (patches, y0, x0, yx, sigma)),
-                       ("descriptor", (patches, y0, x0, yxf, angle))):
+    every = torch.arange(cap, device=dev).expand(B, cap)
+    yxf = kps.yx_oct.flatten(0, 1).contiguous()
+    angle = kps.orientation.flatten().contiguous()
+    levels = (src.mag, src.ori)
+    _, _, Hl, Wl = src.mag.shape
+    ph, pw = patch_shape(Hl, Wl, src.patch)
+    for name, idx, centre, per_kp, box_angle in (
+            ("orient_hist", every, yx.flatten(0, 1), sigma, None),
+            ("descriptor", cand_idx, yxf, angle, angle)):
+        kidx = src.at(idx)
+        args = levels + kidx + (centre, per_kp, src.patch, src.bf16)
         kfn, pfn = getattr(KERNELS, name), getattr(PLAIN, name)
         got, want = kfn(*args), pfn(*args)
         check(bool(torch.isfinite(got).all()), f"{name} output is finite")
+        check(torch.equal(got, kfn(*args)), f"{name}: equal bits run to run")
         err = (got - want).abs().max().item()
         tol = KERNEL_TOL * (1.0 + want.abs().max().item())
-        print(f"kernel {name}: patches {tuple(patches.shape)} "
-              f"{patches.dtype}, max |kernel - plain| = {err:.3e} "
-              f"(bound {tol:.3e})")
+        # the bytes this function needs: each keypoint's box of level
+        # samples its weighted taps cover, both f32 channels, read once;
+        # its scalars read once; its histogram written once
+        _, _, nr, nc = staged_boxes(centre, kidx[2], kidx[3], box_angle,
+                                    ph, pw)
+        box_bytes = 2 * 4 * int((nr * nc).sum())
+        io = box_bytes + nbytes(kidx, centre, per_kp, got)
+        # ~40 operations per sample: 4 taps x 2 channels, the weights, the
+        # exponential, three tent bins
+        ops = 40.0 * 256 * centre.shape[0]
+        print(f"kernel {name}: levels {tuple(src.mag.shape)} x 2 f32, "
+              f"K = {centre.shape[0]}, bf16 {src.bf16}, ph {ph}, max "
+              f"|kernel - plain| = {err:.3e} (bound {tol:.3e}), boxes "
+              f"{box_bytes / 1e6:.1f} MB (mean {float((nr * nc).float().mean()):.1f} "
+              f"samples)")
         check(err <= tol, f"{name} within {KERNEL_TOL} x (1 + max|plain|)")
-        # operations per patch sample, estimated: weight, bin and add
-        # (histogram); rotation, trilinear weights and 8 adds (descriptor)
-        per = 8.0 if name == "orient_hist" else 16.0
         out[name] = dict(err=err, ms=time_ms(lambda: kfn(*args), 20),
                          plain_ms=time_ms(lambda: pfn(*args), 5),
                          library_ms=None)
-        out[name].update(zip(("bound_ms", "bound_by"), least_ms(
-            nbytes(args, got), per * patches[:, 0].numel())))
-    del ss, dog, patches, mag_ori, hist_p
+        out[name].update(zip(("bound_ms", "bound_by"), least_ms(io, ops)))
+        print(f"time {name}: kernel alone on the device "
+              f"{device_ms(lambda: kfn(*args), 20, 'patch_hist'):.4f} ms "
+              f"(profiler, median of 20), wrapper call {out[name]['ms']:.4f} "
+              f"ms (CUDA events, host work included)")
+
+    # what the kernel path no longer does: stack, bf16 cast, pad + crop,
+    # and the re-gather of the patches by candidate
+    def removed_gathers():
+        stack = torch.stack([src.mag, src.ori], 1).to(torch.bfloat16)
+        patches, _, _ = crop_patches(stack, src.glvl, yx, src.patch)
+        return sift._take(patches, cand_idx)
+
+    gather_ms = time_ms(removed_gathers, 10)
+    print(f"time removed gathers at octave 0 (stack + bf16 cast + "
+          f"crop_patches + re-gather by candidate, "
+          f"{tuple(removed_gathers().shape)} bf16): {gather_ms:.4f} ms "
+          f"against orient_hist + descriptor "
+          f"{out['orient_hist']['ms'] + out['descriptor']['ms']:.4f} ms")
+    del ss, dog, src
 
     out["blur_stack"] = kernel_blur(batch, frontend, dev)
     out["l2_2nn"] = kernel_2nn(frontend(batch), dev)
@@ -454,6 +519,46 @@ def phase_kernels(batch: torch.Tensor, frontend: SiftFrontend, dev) -> dict:
               f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}), library call {lib}")
     return out
+
+
+STAGES = ("pyramid", "extrema", "orientation", "descriptor", "merge")
+
+
+def frontend_stages(frontend: SiftFrontend, batch: torch.Tensor) -> tuple:
+    """One frontend batch stage by stage, as detect_and_describe_sift runs
+    it, with a CUDA event after each stage: ({stage: device ms between
+    events, summed over the octaves}, features)."""
+    cfg = FAST_CONFIG
+    marks = []
+
+    def mark(name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((name, ev))
+
+    mark(None)
+    ss = build_pyramid(batch.float() * (1.0 / 255.0), cfg.pyramid,
+                       frontend.bands)
+    mark("pyramid")
+    per_oct = []
+    for o in range(cfg.pyramid.num_octaves):
+        lvl, y, x, offset, resp, valid = detect_extrema(
+            ss.dog[o], cfg.sift, cfg.sift.octave_capacity(o), KERNELS)
+        mark("extrema")
+        src = patch_source(ss, o, lvl, y, x, cfg.sift)
+        kps, cand_idx = _orientation_pass(src, lvl, y, x, offset, resp,
+                                          valid, cfg.pyramid, cfg.sift)
+        mark("orientation")
+        desc = describe_octave(src, cand_idx, kps, cfg.sift)
+        mark("descriptor")
+        per_oct.append(octave_result(kps, desc, o, cfg.pyramid))
+    feats = merge_octaves(per_oct, cfg.sift)
+    mark("merge")
+    torch.cuda.synchronize()
+    ms = dict.fromkeys(STAGES, 0.0)
+    for (_, a), (name, b) in zip(marks, marks[1:]):
+        ms[name] += a.elapsed_time(b)
+    return ms, feats
 
 
 def compare_paths(fk: Features, fp: Features) -> None:
@@ -529,6 +634,21 @@ def phase_slice(frames_dev: torch.Tensor, frontend: SiftFrontend,
     med = {k: float(np.median(v)) for k, v in fps.items()}
     print(f"frontend frames/s (median of 8 batches of {BATCH}): kernel path "
           f"{med['kernel']:.1f}, plain path {med['plain']:.1f}")
+
+    # where the frontend's time goes, kernel path, stage by stage
+    ms, staged = frontend_stages(frontend, batch)
+    check(torch.equal(staged.descriptors, feats.descriptors)
+          and torch.equal(staged.keypoints.yx, feats.keypoints.yx),
+          "the staged frontend equals SiftFrontend")
+    runs = [frontend_stages(frontend, frames_dev[k:k + BATCH])[0]
+            for k in range(5)]
+    med = {n: float(np.median([r[n] for r in runs])) for n in STAGES}
+    total = sum(med.values())
+    print(f"frontend stages, kernel path (CUDA events between stages, "
+          f"median of 5 batches of {BATCH}): " + ", ".join(
+              f"{n} {med[n]:.3f} ms ({100 * med[n] / total:.1f}%)"
+              for n in STAGES) + f"; {total:.3f} ms per batch, "
+          f"{1e3 * BATCH / total:.1f} frames/s")
     print(f"peak device memory: "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return launches

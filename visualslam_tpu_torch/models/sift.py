@@ -1,18 +1,20 @@
 """SIFT frontend: DoG detection -> localization -> orientation -> descriptors
 (visualslam_tpu/models/sift.py), batched over frames.
 
-Per octave (a Python loop): extrema candidates and their localization, ONE
-(mag, ori) patch crop per candidate shared by the orientation and
-descriptor stages, orientation histograms (kernel) with peak spawning, the
-spawned keypoints' descriptors (kernel) and their normalization. The
-octaves' keypoints are then merged by response into the final fixed
-capacity.
+Per octave (a Python loop): extrema candidates and their localization, the
+candidates' patch origins in the (mag, ori) gradient levels (one origin per
+candidate, shared by the orientation and descriptor stages), orientation
+histograms (kernel) with peak spawning, the spawned keypoints' descriptors
+(kernel, at the origin of the candidate each was spawned from) and their
+normalization. The octaves' keypoints are then merged by response into the
+final fixed capacity.
 
 The port runs what "auto" selects on an accelerator in the JAX package, on
 every device: the fused extrema candidates, the patch kernels, and under
-hist_compute="bf16" bfloat16 patches of 32 rows (float32 patches of 28 rows
-otherwise). The device decides only whether a kernel or its plain version
-runs.
+hist_compute="bf16" bfloat16-rounded patches of 32 rows (float32 patches of
+28 rows otherwise). The kernels read the gradient levels in place; their
+plain versions cut the patches. The device decides only whether a kernel or
+its plain version runs.
 """
 
 from __future__ import annotations
@@ -21,13 +23,13 @@ from typing import NamedTuple
 
 import torch
 
-from visualslam_tpu_torch.models.pyramid import build_pyramid
+from visualslam_tpu_torch.models.pyramid import ScaleSpace, build_pyramid
 from visualslam_tpu_torch.models.types import Features, Keypoints
 from visualslam_tpu_torch.ops.blur import BlurBands
 from visualslam_tpu_torch.ops.cuda import KERNELS, Kernels
 from visualslam_tpu_torch.ops.extrema import detect_extrema
 from visualslam_tpu_torch.ops.histograms import histogram_peaks
-from visualslam_tpu_torch.ops.patches import crop_patches
+from visualslam_tpu_torch.ops.patches import patch_origins
 from visualslam_tpu_torch.utils.config import PyramidConfig, SiftConfig
 from visualslam_tpu_torch.utils.masked import top_k_select
 
@@ -47,24 +49,61 @@ def _take(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return a[rows, idx]
 
 
-def _orientation_pass(patches, py0, px0, lvl, y, x, offset, response, valid,
+class PatchSource(NamedTuple):
+    """Where an octave's patch kernels read: the gradient levels in place
+    and, per candidate, its frame, gradient level and patch origin."""
+
+    mag: torch.Tensor         # [B, Lg, H, W] float32
+    ori: torch.Tensor         # [B, Lg, H, W] float32 degrees
+    frame: torch.Tensor       # [B, K] int32
+    glvl: torch.Tensor        # [B, K] int32 gradient level
+    y0: torch.Tensor          # [B, K] int32 patch origin
+    x0: torch.Tensor          # [B, K] int32
+    patch: int                # patch rows (32 bf16, 28 f32)
+    bf16: bool                # values rounded to bfloat16
+
+    def at(self, idx: torch.Tensor):
+        """(frame, glvl, y0, x0) of rows idx [B, K'] of each frame,
+        flattened to [B * K'] int32 for the kernels."""
+        return tuple(t.gather(1, idx).flatten() for t in
+                     (self.frame, self.glvl, self.y0, self.x0))
+
+
+def patch_source(ss: ScaleSpace, o: int, lvl: torch.Tensor, y: torch.Tensor,
+                 x: torch.Tensor, cfg: SiftConfig) -> PatchSource:
+    """The patch origins of octave o's candidates (lvl, y, x [B, K]), as
+    ops/patches.crop_patches places them."""
+    bf16 = cfg.hist_compute == "bf16"
+    # 32 rows for bf16 patches, 28 for f32; both cover the rotated window
+    # radius win/2*sqrt(2)+0.5
+    patch = 32 if bf16 else 28
+    mag, ori = ss.grad_mag[o], ss.grad_ori[o]
+    B, _, H, W = mag.shape
+    y0, x0 = patch_origins(H, W, torch.stack([y, x], dim=-1).float(), patch)
+    frame = torch.arange(B, dtype=torch.int32,
+                         device=lvl.device)[:, None].expand_as(lvl)
+    glvl = (lvl - ss.grad_level_offset).to(torch.int32)
+    return PatchSource(mag, ori, frame, glvl, y0, x0, patch, bf16)
+
+
+def _orientation_pass(src: PatchSource, lvl, y, x, offset, response, valid,
                       pyr_cfg: PyramidConfig, cfg: SiftConfig,
                       kernels: Kernels = KERNELS):
     """Up to cfg.max_orientations orientations per candidate, then the
     per-octave top-K by response among the spawned keypoints.
 
-    patches [B, K, 2, Ph, Pw] with origins py0/px0 [B, K]; candidates
-    lvl/y/x/response/valid [B, K] and offset [B, K, 3]. Returns
-    (_OctaveKps, spawned row -> originating candidate [B, K])."""
+    src: the candidates' patch source; candidates lvl/y/x/response/valid
+    [B, K] and offset [B, K, 3]. Returns (_OctaveKps, spawned row ->
+    originating candidate [B, K])."""
     B, k = lvl.shape
     yx_int = torch.stack([y, x], dim=-1).float()
     lvl_f = lvl.float() + offset[..., 0]
     sigma_oct = pyr_cfg.base_sigma * pyr_cfg.k_factor ** lvl_f
+    every = torch.arange(k, device=lvl.device).expand(B, k)
     hist = kernels.orient_hist(
-        patches.flatten(0, 1), py0.flatten(), px0.flatten(),
-        yx_int.flatten(0, 1),
-        (cfg.orientation_sigma_scale * sigma_oct).flatten(),
-        cfg.num_orientation_bins).view(B, k, -1)
+        src.mag, src.ori, *src.at(every), yx_int.flatten(0, 1),
+        (cfg.orientation_sigma_scale * sigma_oct).flatten(), src.patch,
+        src.bf16, cfg.num_orientation_bins).view(B, k, -1)
     angles, _, peak_valid = histogram_peaks(
         hist, cfg.max_orientations, cfg.orientation_peak_ratio, 360.0)
 
@@ -94,17 +133,16 @@ def _orientation_pass(patches, py0, px0, lvl, y, x, offset, response, valid,
     return kps, idx // P
 
 
-def describe_octave(patches, py0, px0, cand_idx, kps: _OctaveKps,
+def describe_octave(src: PatchSource, cand_idx, kps: _OctaveKps,
                     cfg: SiftConfig, kernels: Kernels = KERNELS) -> torch.Tensor:
-    """128-D descriptors [B, K, D] of one octave's keypoints, sampled from
-    the same patches as the orientation pass (re-indexed by cand_idx)."""
+    """128-D descriptors [B, K, D] of one octave's keypoints, sampled at the
+    patch origin of the candidate each was spawned from (cand_idx)."""
     B, K = cand_idx.shape
     width, nbins = cfg.descriptor_width, cfg.descriptor_bins
     desc = kernels.descriptor(
-        _take(patches, cand_idx).flatten(0, 1),
-        py0.gather(1, cand_idx).flatten(), px0.gather(1, cand_idx).flatten(),
+        src.mag, src.ori, *src.at(cand_idx),
         kps.yx_oct.flatten(0, 1).contiguous(),
-        kps.orientation.flatten().contiguous(),
+        kps.orientation.flatten().contiguous(), src.patch, src.bf16,
         width, nbins).view(B, K, -1)
 
     def normalize(d):
@@ -115,46 +153,18 @@ def describe_octave(patches, py0, px0, cand_idx, kps: _OctaveKps,
     return desc * kps.valid[..., None]
 
 
-def detect_and_describe_sift(img: torch.Tensor, pyr_cfg: PyramidConfig,
-                             cfg: SiftConfig, bands: BlurBands | None = None,
-                             kernels: Kernels = KERNELS) -> Features:
-    """SIFT frontend on [B, H, W] float frames -> Features with a leading
-    frame axis ([B, cfg.max_keypoints, ...]). `kernels` is ops.cuda.KERNELS
-    (the kernel path) or ops.cuda.PLAIN (the plain path)."""
-    if cfg.patch_impl not in ("auto", "pallas"):
-        raise NotImplementedError(
-            f"patch_impl={cfg.patch_impl!r} is not ported yet; the port runs "
-            "the fused patch kernels")
-    if cfg.descriptor_norm != "l2":
-        raise NotImplementedError(
-            f"descriptor_norm={cfg.descriptor_norm!r} is not ported yet")
-    ss = build_pyramid(img, pyr_cfg, bands, kernels)
-    patch_dtype = torch.bfloat16 if cfg.hist_compute == "bf16" else None
-    # 32 rows for bf16 patches, 28 for f32; both cover the rotated window
-    # radius win/2*sqrt(2)+0.5
-    ph = 32 if patch_dtype is not None else 28
+def octave_result(kps: _OctaveKps, desc: torch.Tensor, o: int,
+                  pyr_cfg: PyramidConfig) -> tuple:
+    """(keypoints, descriptors, factor, sigma_base, octave) of octave o, as
+    merge_octaves takes them."""
+    factor = 2.0 ** o
+    lvl_f = kps.level.float() + kps.scale_off
+    sigma_base = factor * pyr_cfg.base_sigma * pyr_cfg.k_factor ** lvl_f
+    return kps, desc, factor, sigma_base, torch.full_like(kps.level, o)
 
-    per_oct = []
-    for o in range(pyr_cfg.num_octaves):
-        lvl, y, x, offset, resp, valid = detect_extrema(
-            ss.dog[o], cfg, cfg.octave_capacity(o), kernels)
-        mag_ori = torch.stack([ss.grad_mag[o], ss.grad_ori[o]], dim=1)
-        if patch_dtype is not None:
-            mag_ori = mag_ori.to(patch_dtype)          # [B, 2, Lg, H, W]
-        glvl = (lvl - ss.grad_level_offset).long()
-        yx_int = torch.stack([y, x], dim=-1).float()
-        patches, py0, px0 = crop_patches(mag_ori, glvl, yx_int, ph)
-        kps, cand_idx = _orientation_pass(patches, py0, px0, lvl, y, x,
-                                          offset, resp, valid, pyr_cfg, cfg,
-                                          kernels)
-        desc = describe_octave(patches, py0, px0, cand_idx, kps, cfg, kernels)
-        factor = 2.0 ** o
-        lvl_f = kps.level.float() + kps.scale_off
-        sigma_base = factor * pyr_cfg.base_sigma * pyr_cfg.k_factor ** lvl_f
-        per_oct.append((kps, desc, factor, sigma_base,
-                        torch.full_like(kps.level, o)))
 
-    # merge octaves: global top max_keypoints by response
+def merge_octaves(per_oct: list, cfg: SiftConfig) -> Features:
+    """The global top cfg.max_keypoints by response over the octaves."""
     resp_all = torch.cat([t[0].response for t in per_oct], dim=1)
     valid_all = torch.cat([t[0].valid for t in per_oct], dim=1)
     idx, mask = top_k_select(resp_all, valid_all, cfg.max_keypoints)
@@ -176,3 +186,29 @@ def detect_and_describe_sift(img: torch.Tensor, pyr_cfg: PyramidConfig,
         valid=mask,
     )
     return Features(kps, take(lambda t: t[1]))
+
+
+def detect_and_describe_sift(img: torch.Tensor, pyr_cfg: PyramidConfig,
+                             cfg: SiftConfig, bands: BlurBands | None = None,
+                             kernels: Kernels = KERNELS) -> Features:
+    """SIFT frontend on [B, H, W] float frames -> Features with a leading
+    frame axis ([B, cfg.max_keypoints, ...]). `kernels` is ops.cuda.KERNELS
+    (the kernel path) or ops.cuda.PLAIN (the plain path)."""
+    if cfg.patch_impl not in ("auto", "pallas"):
+        raise NotImplementedError(
+            f"patch_impl={cfg.patch_impl!r} is not ported yet; the port runs "
+            "the fused patch kernels")
+    if cfg.descriptor_norm != "l2":
+        raise NotImplementedError(
+            f"descriptor_norm={cfg.descriptor_norm!r} is not ported yet")
+    ss = build_pyramid(img, pyr_cfg, bands, kernels)
+    per_oct = []
+    for o in range(pyr_cfg.num_octaves):
+        lvl, y, x, offset, resp, valid = detect_extrema(
+            ss.dog[o], cfg, cfg.octave_capacity(o), kernels)
+        src = patch_source(ss, o, lvl, y, x, cfg)
+        kps, cand_idx = _orientation_pass(src, lvl, y, x, offset, resp,
+                                          valid, pyr_cfg, cfg, kernels)
+        desc = describe_octave(src, cand_idx, kps, cfg, kernels)
+        per_oct.append(octave_result(kps, desc, o, pyr_cfg))
+    return merge_octaves(per_oct, cfg)

@@ -31,8 +31,9 @@ class Kernels(NamedTuple):
 KERNELS = Kernels(extrema.extrema_winners, descriptor.orient_hist,
                   descriptor.descriptor, blur.blur_stack, distance.l2_2nn,
                   extrema.extrema_score)
-PLAIN = Kernels(extrema.extrema_winners_ref, descriptor.orient_hist_ref,
-                descriptor.descriptor_ref, blur.blur_stack_ref,
+PLAIN = Kernels(extrema.extrema_winners_ref,
+                descriptor.orient_hist_levels_ref,
+                descriptor.descriptor_levels_ref, blur.blur_stack_ref,
                 distance.l2_2nn_ref, extrema.extrema_score_ref)
 
 

@@ -5,9 +5,12 @@
 with the JAX package's exact origins: rows about the rounded centre, clamped
 into the level; columns from a 64-aligned origin, 128 wide, edge-replicated
 past the level's right border, or the full row where the level is narrower
-than 128. The descriptor kernels and their plain versions read these
-patches. `tent_sample_patches` and `rotated_grid` are the plain
-bilinear-sampling formulation the plain versions use.
+than 128. It is `patch_origins` (where a patch starts) followed by
+`gather_patches` (the cut at given origins). The plain versions of the
+orientation / descriptor kernels read these patches; the kernels read the
+levels in place at the same origins. `tent_sample_patches` and
+`rotated_grid` are the plain bilinear-sampling formulation the plain
+versions use.
 """
 
 from __future__ import annotations
@@ -19,6 +22,67 @@ import torch
 _SEG = 64       # column origins are multiples of this; patches are 2 wide
 
 
+def patch_shape(H: int, W: int, patch: int) -> tuple:
+    """(Ph, Pw) of the patches cut from an H x W level: Ph = min(patch, H),
+    Pw = 128 (W >= 128) or W (the full row)."""
+    return min(patch, H), (2 * _SEG if W >= 2 * _SEG else W)
+
+
+def patch_origins(H: int, W: int, center_yx: torch.Tensor, patch: int):
+    """The JAX package's patch origins for centres [..., 2] (float) in an
+    H x W level: (y0, x0) int32 [...]. Rows about the rounded centre,
+    clamped into the level; columns from a 64-aligned origin such that the
+    128-wide window holds the patch (0 where W < 128)."""
+    ph, _ = patch_shape(H, W, patch)
+    cy = torch.round(center_yx[..., 0]).to(torch.int64)
+    y0 = (cy - ph // 2).clamp(0, H - ph)
+    if W < 2 * _SEG:
+        x0 = torch.zeros_like(y0)
+    else:
+        if patch > _SEG + 1:
+            raise ValueError(
+                f"patch {patch} can escape the two-segment window "
+                f"(max {_SEG + 1})")
+        nseg = -(-W // _SEG)
+        cx = torch.round(center_yx[..., 1]).to(torch.int64)
+        x0d = (cx - patch // 2).clamp(0, W - min(patch, W))
+        x0 = torch.minimum(x0d // _SEG,
+                           torch.full_like(x0d, nseg - 2)) * _SEG
+    return y0.to(torch.int32), x0.to(torch.int32)
+
+
+def gather_patches(stack: torch.Tensor, frame: torch.Tensor,
+                   level_idx: torch.Tensor, y0: torch.Tensor,
+                   x0: torch.Tensor, patch: int) -> torch.Tensor:
+    """Patches at given origins from a channel-first level stack.
+
+    stack: [B, C, L, H, W]; frame, level_idx, y0, x0: index tensors of one
+    shape S, the origins as `patch_origins` gives them. Returns
+    [*S, C, Ph, Pw] in stack's dtype; columns past the level's right
+    border repeat its last column."""
+    B, C, L, H, W = stack.shape
+    ph, pw = patch_shape(H, W, patch)
+    src = stack
+    if W >= 2 * _SEG:
+        nseg = -(-W // _SEG)
+        if nseg * _SEG != W:   # edge-replicate the right border
+            src = torch.cat([stack, stack[..., -1:].expand(
+                B, C, L, H, nseg * _SEG - W)], dim=-1)
+    src = src.contiguous()
+    # overlapping strided view: win[b, c, l, y, s, i, j] =
+    # src[b, c, l, y + i, s * 64 + j]; indexing it with index tensors
+    # gathers whole windows without a per-element index tensor
+    sb, sc, sl, sh, _ = src.stride()
+    idx = (frame.long(), slice(None), level_idx.long(), y0.long())
+    if W < 2 * _SEG:
+        win = src.as_strided((B, C, L, H - ph + 1, ph, pw),
+                             (sb, sc, sl, sh, sh, 1))
+        return win[idx]
+    win = src.as_strided((B, C, L, H - ph + 1, nseg - 1, ph, pw),
+                         (sb, sc, sl, sh, _SEG, sh, 1))
+    return win[idx + (x0.long() // _SEG,)]
+
+
 def crop_patches(stack: torch.Tensor, level_idx: torch.Tensor,
                  center_yx: torch.Tensor, patch: int):
     """One patch per keypoint from a channel-first level stack.
@@ -27,44 +91,10 @@ def crop_patches(stack: torch.Tensor, level_idx: torch.Tensor,
     Returns (patches [B, K, C, Ph, Pw] in stack's dtype, y0 [B, K] int32,
     x0 [B, K] int32) with Ph = min(patch, H) and Pw = 128 (W >= 128) or W.
     """
-    B, C, L, H, W = stack.shape
-    ph = min(patch, H)
-    cy = torch.round(center_yx[..., 0]).to(torch.int64)
-    y0 = (cy - ph // 2).clamp(0, H - ph)
-    if W < 2 * _SEG:
-        src, pw = stack.contiguous(), W
-        x0 = torch.zeros_like(y0)
-        seg = None
-    else:
-        if patch > _SEG + 1:
-            raise ValueError(
-                f"patch {patch} can escape the two-segment window "
-                f"(max {_SEG + 1})")
-        nseg = -(-W // _SEG)
-        src = stack
-        if nseg * _SEG != W:   # edge-replicate the right border
-            src = torch.cat([stack, stack[..., -1:].expand(
-                B, C, L, H, nseg * _SEG - W)], dim=-1)
-        src, pw = src.contiguous(), 2 * _SEG
-        cx = torch.round(center_yx[..., 1]).to(torch.int64)
-        x0d = (cx - patch // 2).clamp(0, W - min(patch, W))
-        seg = torch.minimum(x0d // _SEG, torch.full_like(x0d, nseg - 2))
-        x0 = seg * _SEG
-    # overlapping strided view: win[b, c, l, y, s, i, j] =
-    # src[b, c, l, y + i, s * 64 + j]; indexing it with [B, K] index
-    # tensors gathers whole windows without a per-element index tensor
-    sb, sc, sl, sh, _ = src.stride()
-    if seg is None:
-        win = src.as_strided((B, C, L, H - ph + 1, ph, pw),
-                             (sb, sc, sl, sh, sh, 1))
-        patches = win[torch.arange(B, device=src.device)[:, None], :,
-                      level_idx, y0]
-    else:
-        win = src.as_strided((B, C, L, H - ph + 1, nseg - 1, ph, pw),
-                             (sb, sc, sl, sh, _SEG, sh, 1))
-        patches = win[torch.arange(B, device=src.device)[:, None], :,
-                      level_idx, y0, seg]
-    return patches, y0.to(torch.int32), x0.to(torch.int32)
+    B, _, _, H, W = stack.shape
+    y0, x0 = patch_origins(H, W, center_yx, patch)
+    frame = torch.arange(B, device=stack.device)[:, None].expand_as(y0)
+    return (gather_patches(stack, frame, level_idx, y0, x0, patch), y0, x0)
 
 
 def tent_sample_patches(patches: torch.Tensor, y0: torch.Tensor,
