@@ -31,12 +31,15 @@ Phases, each printing its own lines:
                descriptor (reading the gradient levels in place, the
                descriptor on the spawned keypoints) within
                1e-4 * (1 + max |plain|) and equal run to run, the blur
-               within 1e-5 * (1 + max |plain|), the 2-NN within
-               1e-5 * (1 + max |plain|) on valid rows, the score map bit
-               for bit; median times beside each kernel's bound and, where
-               one PyTorch call computes the same function, that call's
-               time; the time of the patch stack / cast / crop / re-gather
-               the kernel path no longer runs
+               bit for bit, the 2-NN within 1e-5 * (1 + max |plain|) on
+               valid rows with its indices equal off near-ties (one
+               tracked frame and 15 pairs), the score map bit for bit;
+               each kernel's time per wrapper call (CUDA events) and
+               alone on the device (profiler, with its launches per
+               call) beside its bound and, where one PyTorch call
+               computes the same function, that call's time; the time of
+               the patch stack / cast / crop / re-gather the kernel path
+               no longer runs
   4. slice     the frontend + matching through the public entry points;
                the plain path on the same batch as the reference; keypoint
                and match floors; frames/s of both paths; the frontend's
@@ -62,6 +65,12 @@ Phases, each printing its own lines:
 
 also writes the engine phase's kernel-path features (numpy), for running
 the JAX package's engine on the same features elsewhere.
+
+    python3 chip_smoke.py --kernels
+
+runs phases 1-3 alone (each kernel against its plain version, and its
+times) and prints no result lines: for timing two trees in turns in one
+call.
 
 Any failed check raises, so the run exits non-zero and prints no result.
 Without a CUDA device it exits non-zero before doing anything.
@@ -118,7 +127,6 @@ from visualslam_tpu_torch.utils.config import FAST_CONFIG
 
 H, W, BATCH = 376, 1248, 16
 KERNEL_TOL = 1e-4           # x (1 + max |plain|): summation order only
-BLUR_TOL = 1e-5             # x (1 + max |plain|): same taps, same order
 NN_TOL = 1e-5               # x (1 + max |plain|) on valid rows: a.b order
 MIN_KEYPOINTS = 800         # per frame
 MIN_MATCHES = 250           # per consecutive pair
@@ -157,6 +165,12 @@ ENGINE_PATH_POS_FRAC = 1e-3  # x the frame 0..47 baseline
 # operations over the f32 (non-tensor-core) rate
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
+PEAK_TF32_S = 495e12        # dense, tensor cores
+# the part of each kernel's name the profiler reports
+DEVICE_NAMES = {"extrema_winners": "extrema_winners_kernel",
+                "extrema_score": "extrema_score_kernel",
+                "orient_hist": "patch_hist", "descriptor": "patch_hist",
+                "blur_stack": "blur", "l2_2nn": "l2_2nn"}
 SOURCES = {
     "extrema_winners": ("visualslam_tpu_torch/csrc/extrema.cu",
                         "visualslam_tpu/ops/pallas/extrema.py:256"),
@@ -214,10 +228,12 @@ def time_ms(fn, reps: int) -> float:
     return float(np.median(times))
 
 
-def device_ms(fn, reps: int, kernel: str) -> float:
-    """Median device time in ms of the `kernel` launches of fn() over
-    `reps` runs under the profiler (the kernel alone: no host work of the
-    wrapper, no other launch); nan if the profiler saw none."""
+def device_ms(fn, reps: int, kernel: str) -> tuple:
+    """(device ms per call of the launches whose name holds `kernel`, those
+    launches per call, every device launch per call) of fn() over `reps`
+    runs under the profiler: the kernel alone, with no host work of the
+    wrapper. Per kernel name, the median launch times the launches per call
+    (the profiler may drop an event). (nan, 0, 0) if it saw none."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -226,10 +242,39 @@ def device_ms(fn, reps: int, kernel: str) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    times = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and kernel in e.name]
-    return float(np.median(times)) if times else float("nan")
+    every = [e for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_name: dict = {}
+    for e in every:
+        if kernel in e.name:
+            by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    if not by_name:
+        return float("nan"), 0.0, len(every) / reps
+    per_call = {n: max(1, round(len(v) / reps)) for n, v in by_name.items()}
+    ms = sum(1e-3 * float(np.median(v)) * per_call[n]
+             for n, v in by_name.items())
+    return ms, float(sum(per_call.values())), round(len(every) / reps, 2)
+
+
+def kernel_alone(name: str, fn, call_ms: float, what: str = ""):
+    """Print and return the kernel-alone device ms of one wrapper call
+    (profiler, median launch of 20 calls) beside its CUDA-event call time;
+    the profiler now and then records no device event, so up to three
+    tries, then None ("not measured")."""
+    for _ in range(3):
+        ms, mine, every = device_ms(fn, 20, DEVICE_NAMES[name])
+        if np.isfinite(ms):
+            break
+    else:
+        print(f"time {name}{what}: kernel alone not measured (the profiler "
+              f"recorded no device event in 3 tries), wrapper call "
+              f"{call_ms:.4f} ms")
+        return None
+    print(f"time {name}{what}: kernel alone on the device {ms:.4f} ms "
+          f"(profiler, median launch of 20 calls; {mine:g} kernel launches "
+          f"and {every:g} device launches per wrapper call), wrapper call "
+          f"{call_ms:.4f} ms (CUDA events, host work included)")
+    return ms
 
 
 def wall_ms(fn, reps: int) -> float:
@@ -316,43 +361,59 @@ def _masked_descriptors(f: Features, frames: slice, dev) -> tuple:
             valid)
 
 
-def kernel_2nn(feats: Features, dev) -> tuple:
-    """l2_2nn against its plain version on a tracked frame's problem:
-    [1, 2048, 128] x [1, 2048, 128] from the slice's descriptors."""
-    a, va = _masked_descriptors(feats, slice(0, 1), dev)
-    b, _ = _masked_descriptors(feats, slice(1, 2), dev)
+def check_2nn(a, b, valid, what: str) -> tuple:
+    """l2_2nn against its plain version on the valid A rows: best and
+    second within NN_TOL x (1 + max |plain|), the index equal off
+    near-ties, equal bits run to run. Returns (max error, kernel output)."""
     got = KERNELS.l2_2nn(a, b)
     want = PLAIN.l2_2nn(a, b)
-    rows = va
-    ref = torch.cat([want[0][rows], want[1][rows]])
+    ref = torch.cat([want[0][valid], want[1][valid]])
     bound = NN_TOL * (1.0 + ref.abs().max().item())
-    err = max((got[0] - want[0])[rows].abs().max().item(),
-              (got[1] - want[1])[rows].abs().max().item())
-    near = rows & ((want[1] - want[0]).abs() <= bound)
-    wrong = rows & ~near & (got[2] != want[2])
-    print(f"kernel l2_2nn: a {tuple(a.shape)} b {tuple(b.shape)}, "
-          f"{int(rows.sum())} valid rows, max |kernel - plain| = {err:.3e} "
-          f"(bound {bound:.3e}), {int(near.sum())} near-ties, "
+    err = max((got[0] - want[0])[valid].abs().max().item(),
+              (got[1] - want[1])[valid].abs().max().item())
+    near = valid & ((want[1] - want[0]).abs() <= bound)
+    wrong = valid & ~near & (got[2] != want[2])
+    print(f"kernel l2_2nn{what}: a {tuple(a.shape)} b {tuple(b.shape)}, "
+          f"{int(valid.sum())} valid rows, max |kernel - plain| = "
+          f"{err:.3e} (bound {bound:.3e}), {int(near.sum())} near-ties, "
           f"{int(wrong.sum())} other index mismatches")
-    check(err <= bound, f"l2_2nn within {NN_TOL} x (1 + max|plain|)")
-    check(int(wrong.sum()) == 0, "l2_2nn indices equal off near-ties")
+    check(err <= bound, f"l2_2nn{what} within {NN_TOL} x (1 + max|plain|)")
+    check(int(wrong.sum()) == 0, f"l2_2nn{what} indices equal off near-ties")
+    check(all(torch.equal(g, h) for g, h in zip(got, KERNELS.l2_2nn(a, b))),
+          f"l2_2nn{what}: equal bits run to run")
+    return err, got
+
+
+def kernel_2nn(feats: Features, dev) -> tuple:
+    """l2_2nn against its plain version on a tracked frame's problem,
+    [1, 2048, 128] x [1, 2048, 128] from the slice's descriptors, and on
+    the batch's 15 consecutive pairs."""
+    a, va = _masked_descriptors(feats, slice(0, 1), dev)
+    b, _ = _masked_descriptors(feats, slice(1, 2), dev)
+    err, got = check_2nn(a, b, va, "")
     ms = time_ms(lambda: KERNELS.l2_2nn(a, b), 20)
     plain_ms = time_ms(lambda: PLAIN.l2_2nn(a, b), 20)
+    kernel_ms = kernel_alone("l2_2nn", lambda: KERNELS.l2_2nn(a, b), ms)
     P, Ka, D = a.shape
     bms, by = least_ms(nbytes(a, b, got), 2.0 * P * Ka * b.shape[1] * D)
-    a15, _ = _masked_descriptors(feats, slice(0, BATCH - 1), dev)
+    a15, va15 = _masked_descriptors(feats, slice(0, BATCH - 1), dev)
     b15, _ = _masked_descriptors(feats, slice(1, BATCH), dev)
-    got15, want15 = KERNELS.l2_2nn(a15, b15), PLAIN.l2_2nn(a15, b15)
-    check(bool(torch.isfinite(got15[0]).all()), "15-pair 2-NN is finite")
+    _, got15 = check_2nn(a15, b15, va15, " 15 pairs")
     b15ms, _ = least_ms(nbytes(a15, b15, got15),
-                     2.0 * a15.shape[0] * Ka * b15.shape[1] * D)
-    print(f"time l2_2nn 15 pairs {tuple(a15.shape)}: kernel "
-          f"{time_ms(lambda: KERNELS.l2_2nn(a15, b15), 10):.4f} ms, plain "
-          f"{time_ms(lambda: PLAIN.l2_2nn(a15, b15), 10):.4f} ms, bound "
-          f"{b15ms:.4f} ms (max |kernel - plain| of best "
-          f"{(got15[0] - want15[0]).abs().max().item():.3e} over all rows)")
-    return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                bound_by=by, library_ms=None)
+                        2.0 * a15.shape[0] * Ka * b15.shape[1] * D)
+    ms15 = time_ms(lambda: KERNELS.l2_2nn(a15, b15), 10)
+    print(f"time l2_2nn 15 pairs {tuple(a15.shape)}: kernel {ms15:.4f} ms, "
+          f"plain {time_ms(lambda: PLAIN.l2_2nn(a15, b15), 10):.4f} ms, "
+          f"bound {b15ms:.4f} ms")
+    kernel_alone("l2_2nn", lambda: KERNELS.l2_2nn(a15, b15), ms15,
+                 " 15 pairs")
+    # the same products at the tensor cores' TF32 rate, three per a.b
+    tf32 = [1e3 * 3 * 2.0 * x.shape[0] * Ka * b.shape[1] * D / PEAK_TF32_S
+            for x in (a, a15)]
+    print(f"l2_2nn 3xTF32 bound: {tf32[0]:.4f} ms at [1, 2048, 128]^2, "
+          f"{tf32[1]:.4f} ms on 15 pairs")
+    return dict(err=err, ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms,
+                bound_ms=bms, bound_by=by, library_ms=None)
 
 
 def kernel_blur(batch: torch.Tensor, frontend: SiftFrontend, dev) -> tuple:
@@ -364,15 +425,17 @@ def kernel_blur(batch: torch.Tensor, frontend: SiftFrontend, dev) -> tuple:
     want = PLAIN.blur_stack(img, taps)
     check(bool(torch.isfinite(got).all()), "blur_stack output is finite")
     err = (got - want).abs().max().item()
-    bound = BLUR_TOL * (1.0 + want.abs().max().item())
     mm = blur_stack_matmul(img, frontend.bands)
     print(f"kernel blur_stack: img {tuple(img.shape)}, taps "
-          f"{tuple(taps.shape)}, max |kernel - plain| = {err:.3e} (bound "
-          f"{bound:.3e}), max |kernel - matmul blur| = "
-          f"{(got - mm).abs().max().item():.3e}")
-    check(err <= bound, f"blur_stack within {BLUR_TOL} x (1 + max|plain|)")
+          f"{tuple(taps.shape)}, max |kernel - plain| = {err:.3e}, max "
+          f"|kernel - matmul blur| = {(got - mm).abs().max().item():.3e}")
+    # the same taps in the same order, a rounded product and a rounded add
+    # per tap: the same bits
+    check(torch.equal(got, want), "blur_stack equals its plain version")
     ms = time_ms(lambda: KERNELS.blur_stack(img, taps), 20)
     plain_ms = time_ms(lambda: PLAIN.blur_stack(img, taps), 5)
+    kernel_ms = kernel_alone("blur_stack",
+                             lambda: KERNELS.blur_stack(img, taps), ms)
     mm_ms = time_ms(lambda: blur_stack_matmul(img, frontend.bands), 20)
     # the library yardstick: one cuDNN convolution (TF32 off) of the
     # symmetric-padded frames with each sigma's 2-D outer-product kernel
@@ -386,12 +449,17 @@ def kernel_blur(batch: torch.Tensor, frontend: SiftFrontend, dev) -> tuple:
     # the work: a multiply and an add per non-zero tap, per sigma, per
     # pass, per pixel; each input read once, the output written once
     ops = 2.0 * 2.0 * int((taps != 0).sum()) * img.numel()
-    bms, by = least_ms(nbytes(img, taps, got), ops)
+    io = nbytes(img, taps, got)
+    bms, by = least_ms(io, ops)
     print(f"time blur at octave 0: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
           f"ms, blur_stack_matmul {mm_ms:.4f} ms, F.conv2d {lib_ms:.4f} ms "
-          f"(max |conv2d - plain| {lib_err:.3e}), bound {bms:.4f} ms ({by})")
-    return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                bound_by=by, library_ms=lib_ms)
+          f"(max |conv2d - plain| {lib_err:.3e}), bound {bms:.4f} ms ({by}; "
+          f"a tap as one FMA), no-FMA floor {2e3 * ops / PEAK_F32_S:.4f} ms "
+          f"(a separate multiply and add per tap, as the plain version "
+          f"rounds), bytes floor {1e3 * io / PEAK_BYTES_S:.4f} ms "
+          f"({io / 1e6:.1f} MB)")
+    return dict(err=err, ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms,
+                bound_ms=bms, bound_by=by, library_ms=lib_ms)
 
 
 def phase_kernels(batch: torch.Tensor, frontend: SiftFrontend, dev) -> dict:
@@ -421,6 +489,9 @@ def phase_kernels(batch: torch.Tensor, frontend: SiftFrontend, dev) -> dict:
         err=err, ms=time_ms(lambda: KERNELS.extrema_winners(dog, thr), 20),
         plain_ms=time_ms(lambda: PLAIN.extrema_winners(dog, thr), 5),
         library_ms=None)
+    out["extrema_winners"]["kernel_ms"] = kernel_alone(
+        "extrema_winners", lambda: KERNELS.extrema_winners(dog, thr),
+        out["extrema_winners"]["ms"])
     out["extrema_winners"].update(zip(("bound_ms", "bound_by"),
                                       least_ms(nbytes(dog, got), scan_ops)))
     print(f"kernel extrema_winners: dog {tuple(dog.shape)}, winners and "
@@ -435,6 +506,9 @@ def phase_kernels(batch: torch.Tensor, frontend: SiftFrontend, dev) -> dict:
         ms=time_ms(lambda: KERNELS.extrema_score(dog, thr), 20),
         plain_ms=time_ms(lambda: PLAIN.extrema_score(dog, thr), 5),
         library_ms=None)
+    out["extrema_score"]["kernel_ms"] = kernel_alone(
+        "extrema_score", lambda: KERNELS.extrema_score(dog, thr),
+        out["extrema_score"]["ms"])
     out["extrema_score"].update(zip(("bound_ms", "bound_by"),
                                     least_ms(nbytes(dog, got), scan_ops)))
     print(f"kernel extrema_score: dog {tuple(dog.shape)}, score map "
@@ -490,10 +564,8 @@ def phase_kernels(batch: torch.Tensor, frontend: SiftFrontend, dev) -> dict:
                          plain_ms=time_ms(lambda: pfn(*args), 5),
                          library_ms=None)
         out[name].update(zip(("bound_ms", "bound_by"), least_ms(io, ops)))
-        print(f"time {name}: kernel alone on the device "
-              f"{device_ms(lambda: kfn(*args), 20, 'patch_hist'):.4f} ms "
-              f"(profiler, median of 20), wrapper call {out[name]['ms']:.4f} "
-              f"ms (CUDA events, host work included)")
+        out[name]["kernel_ms"] = kernel_alone(name, lambda: kfn(*args),
+                                              out[name]["ms"])
 
     # what the kernel path no longer does: stack, bf16 cast, pad + crop,
     # and the re-gather of the patches by candidate
@@ -515,9 +587,11 @@ def phase_kernels(batch: torch.Tensor, frontend: SiftFrontend, dev) -> dict:
     for name, r in out.items():
         lib = ("none" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms")
-        print(f"time {name}: kernel {r['ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']}), library call {lib}")
+        alone = ("not measured" if r["kernel_ms"] is None
+                 else f"{r['kernel_ms']:.4f} ms")
+        print(f"time {name}: kernel alone {alone}, call "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), library call {lib}")
     return out
 
 
@@ -1020,9 +1094,9 @@ def phase_engine(frames_dev: torch.Tensor, seq: SyntheticSequence, card: str,
 
 
 def main() -> None:
-    save = None
-    if sys.argv[1:2] == ["--save-features"]:
-        save = sys.argv[2]
+    args = sys.argv[1:]
+    save = args[args.index("--save-features") + 1] \
+        if "--save-features" in args else None
     dev, card = phase_device()
     phase_build()
     frames, seq = render_frames()
@@ -1033,6 +1107,8 @@ def main() -> None:
     frontend(frames_dev[:BATCH])
     plain(frames_dev[:BATCH])
     timings = phase_kernels(frames_dev[8:8 + BATCH], frontend, dev)
+    if "--kernels" in args:
+        return      # phases 1-3 alone: no main-path run, no result lines
     phase_slice(frames_dev, frontend, plain)
     track = phase_track(frames_dev, seq, frontend, card, dev)
     engine_counts = phase_engine(frames_dev, seq, card, dev, save)
@@ -1045,7 +1121,8 @@ def main() -> None:
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1], "launches": launches[name],
-         "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+         "max_abs_err": r["err"], "ms": r["ms"],
+         "kernel_ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
          "library_ms": r["library_ms"]}
         for name, r in timings.items()]}))

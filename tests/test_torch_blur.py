@@ -8,6 +8,7 @@ import pytest
 import torch
 
 from visualslam_tpu.models import pyramid as jpyr
+from visualslam_tpu.ops import blur as jblur
 from visualslam_tpu.ops.pallas.blur import pallas_blur_stack
 from visualslam_tpu.utils import config as jcfg
 from visualslam_tpu_torch.models import pyramid as tpyr
@@ -100,3 +101,41 @@ def test_build_pyramid_pallas_mode_matches_matmul_mode(rng):
     for o in range(2):
         np.testing.assert_allclose(a.dog[o].numpy(), m.dog[o].numpy(),
                                    rtol=0, atol=4 * TOL)
+
+
+SIGMA_SETS = [FAST_SIGMAS,
+              tpyr.level_sigmas(tcfg.DEFAULT_CONFIG.pyramid),
+              (1.6, 3.2),
+              (3.2, 1.6, 5.0, 1.2)]            # the widest sigma not last
+
+
+@pytest.mark.parametrize("sigmas", SIGMA_SETS)
+def test_tap_table_spans_are_the_jax_radii(sigmas):
+    """Each row's non-zero span in the tap table is centred and as wide as
+    the JAX package's taps for that sigma: the span the kernel finds by
+    scanning the row."""
+    bands = tblur.BlurBands(sigmas)
+    table = bands.taps(torch.device("cpu")).numpy()
+    R = bands.radius
+    for s, sigma in enumerate(sigmas):
+        r = (len(jblur.gaussian_taps(sigma)) - 1) // 2
+        nz = np.nonzero(table[s])[0]
+        assert (nz[0], nz[-1]) == (R - r, R + r)
+
+
+@pytest.mark.parametrize("H,W,sigmas", [
+    (37, 90, FAST_SIGMAS),
+    (12, 17, FAST_SIGMAS),            # smaller than the radius
+    (50, 64, (3.2, 1.6, 5.0, 1.2)),
+])
+def test_blur_ref_over_each_span_equals_full_table(rng, H, W, sigmas):
+    """The plain version run with one sigma's non-zero span alone gives the
+    bits of the full zero-padded table: the zero taps the kernel skips
+    leave every finite sum as it was."""
+    img = torch.from_numpy(rng.standard_normal((2, H, W)).astype(np.float32))
+    taps = _taps(sigmas)
+    full = blur_stack_ref(img, taps)
+    for s in range(len(sigmas)):
+        nz = torch.nonzero(taps[s]).flatten()
+        span = taps[s:s + 1, int(nz[0]):int(nz[-1]) + 1].contiguous()
+        assert torch.equal(blur_stack_ref(img, span)[:, 0], full[:, s])

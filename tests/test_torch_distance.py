@@ -13,10 +13,20 @@ from visualslam_tpu.models.types import Features as JFeatures
 from visualslam_tpu.models.types import Keypoints as JKeypoints
 from visualslam_tpu.ops.pallas.distance import pallas_l2_2nn
 from visualslam_tpu.utils.config import MatchConfig as JMatchConfig
+from visualslam_tpu_torch import FAST_CONFIG, detect_and_describe
+from visualslam_tpu_torch.io.synthetic import SyntheticSequence
 from visualslam_tpu_torch.models.matching import match_features
 from visualslam_tpu_torch.models.types import Features, Keypoints
 from visualslam_tpu_torch.ops.cuda import KERNELS, PLAIN, launch_counts
-from visualslam_tpu_torch.ops.cuda.distance import l2_2nn, l2_2nn_ref
+from visualslam_tpu_torch.ops.cuda.distance import (
+    A_TILE,
+    B_TILE,
+    BLOCKS_PER_SM,
+    _cover,
+    l2_2nn,
+    l2_2nn_ref,
+    plan_splits,
+)
 from visualslam_tpu_torch.utils.config import MatchConfig
 
 # float32 |a|^2 + |b|^2 - 2 a.b summed in another order than XLA's: a few
@@ -185,3 +195,99 @@ def test_match_falls_to_dense_path_off_tile():
     match_features(_to_torch(fa), _to_torch(fb), cfg.replace(tile=64),
                    PLAIN._replace(l2_2nn=spy))
     assert len(calls) == 2                           # forward + mutual
+
+
+@pytest.mark.parametrize("P,Ka,Kb,sms", [
+    (1, 2048, 2048, 132),             # a tracked frame: the B range split
+    (15, 2048, 2048, 132),            # the frontend's pairs: no split
+    (1, 100, 37, 132),                # one B tile
+    (2, 257, 200, 132),               # ragged A and B
+    (1, 64, 2048, 7),                 # few SMs
+    (1, 2048, 1000, 1000),            # more SMs than tiles
+])
+def test_split_planner_covers_every_tile_once(P, Ka, Kb, sms):
+    nsplit, per = plan_splits(P, Ka, Kb, sms)
+    n_tiles = -(-Kb // B_TILE)
+    tiles = [t for s in range(nsplit)
+             for t in range(s * per, min((s + 1) * per, n_tiles))]
+    assert sorted(tiles) == list(range(n_tiles))          # each exactly once
+    assert all(s * per < n_tiles for s in range(nsplit))  # none empty
+    blocks = P * -(-Ka // A_TILE)
+    assert nsplit == 1 or blocks * nsplit <= BLOCKS_PER_SM * sms
+    # an explicit split count (the GPU tests' 1, 2, 7, the tile count) is
+    # covered the same way
+    for want in (1, 2, 7, n_tiles, n_tiles + 3):
+        ns, pr = _cover(n_tiles, want)
+        assert ns <= min(want, n_tiles) and (ns - 1) * pr < n_tiles <= ns * pr
+
+
+def _tf32(x):
+    """float32 -> tf32 as the kernel rounds: to nearest, ties away from
+    zero, the 13 low mantissa bits cleared."""
+    u = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & np.uint32(0xffffe000)).view(np.float32)
+
+
+def _2nn_3xtf32(a, b):
+    """The kernel's arithmetic on the CPU: a.b as lo.hi + hi.lo + hi.hi of
+    the tf32 parts, summed in float32; norms in float32."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    dot = (al @ bh.T) + (ah @ bl.T) + (ah @ bh.T)
+    d = np.maximum((a * a).sum(1)[:, None] + (b * b).sum(1)[None]
+                   - np.float32(2) * dot, np.float32(0))
+    idx = d.argmin(1)
+    best = d[np.arange(len(a)), idx]
+    rest = d.copy()
+    rest[np.arange(len(a)), idx] = np.inf
+    return best, rest.min(1), idx
+
+
+@pytest.fixture(scope="module")
+def frame_descriptors():
+    """The port frontend's descriptors of two synthetic frames at a small
+    size, as the matcher hands them to the 2-NN: invalid rows and a
+    seeded ~10% of the valid ones set to 1e3."""
+    seq = SyntheticSequence(num_frames=2, h=96, w=256, n_dots=600)
+    frames = np.stack([seq.frame(k) for k in range(2)])
+    frames = np.clip(frames * 255.0, 0, 255).astype(np.uint8)
+    cfg = FAST_CONFIG.replace(
+        pyramid=FAST_CONFIG.pyramid.replace(num_octaves=2),
+        sift=FAST_CONFIG.sift.replace(max_keypoints=256,
+                                      max_keypoints_per_octave=128))
+    f = detect_and_describe(torch.from_numpy(frames), cfg)
+    keep = np.random.default_rng(0).random((2, 256)) > 0.1
+    valid = f.keypoints.valid.numpy() & keep
+    d = np.where(valid[..., None], f.descriptors.numpy(), 1e3)
+    return d.astype(np.float32), valid
+
+
+def test_3xtf32_products_match_pallas_on_frame_descriptors(
+        frame_descriptors):
+    """The tensor-core route's products (emulated) against the Pallas
+    kernel (interpret mode) on real descriptors: the same indices off
+    near-ties, best and second within 1e-5 x (1 + max)."""
+    d, valid = frame_descriptors
+    a, b, va = d[0], d[1], valid[0]
+    assert va.sum() > 100
+    best, second, idx = _2nn_3xtf32(a, b)
+    pb, ps, pi = _pallas(a, b, 128)
+    tol = REL * (1.0 + np.abs(np.concatenate([pb[va], ps[va]])).max())
+    np.testing.assert_allclose(best[va], pb[va], rtol=0, atol=tol)
+    np.testing.assert_allclose(second[va], ps[va], rtol=0, atol=tol)
+    near = np.abs(ps - pb) <= tol
+    np.testing.assert_array_equal(idx[va & ~near], pi[va & ~near])
+
+
+def test_3xtf32_products_are_exact_on_the_quarter_grid(rng):
+    """Descriptors on a 1/4 grid split with lo = 0 and every product exact:
+    the emulated kernel arithmetic gives the plain version's bits, ties to
+    the lower index included."""
+    b = rng.integers(0, 4, (256, 128)).astype(np.float32) / 4.0
+    b[200:] = b[:56]
+    a = b[rng.integers(0, 256, 128)]
+    got = _2nn_3xtf32(a, b)
+    want = [x[0].numpy() for x in l2_2nn_ref(torch.from_numpy(a)[None],
+                                             torch.from_numpy(b)[None])]
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)

@@ -10,6 +10,7 @@ at import: the first wrapper call that launches a kernel builds it.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -94,10 +95,27 @@ def check_launch(rc: int, kernel: str) -> None:
         raise RuntimeError(f"{kernel}: CUDA launch failed with error {rc}")
 
 
-def stream_handle(device) -> ctypes.c_void_p:
+def on_device(device):
+    """`torch.cuda.device(device)` where it is not the current device, else
+    a no-op context (entering the device context costs host time on every
+    launch)."""
     import torch
 
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+def stream_handle(device) -> int:
+    """The raw cudaStream_t of `device`'s current stream, as an int
+    (`torch.cuda.current_stream(device).cuda_stream` builds a Stream object
+    first, which costs host time on every launch)."""
+    import torch
+
+    index = device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def ptr(t) -> ctypes.c_void_p:

@@ -2,14 +2,18 @@
 PyTorch version.
 
 Replaces visualslam_tpu/ops/pallas/distance.py `pallas_l2_2nn`. On the H100
-the search is compute-bound on the SIMT f32 path (1.07 GFLOP at
-2048 x 2048 x 128, 2 MB of input); the kernel (csrc/distance.cu) stages
-64-row tiles of A and B through shared memory, keeps a 4x4 register
-micro-tile of a.b per thread and a running (best, second, index) per A
-row, and never writes the distance matrix. The B range is split over
-several blocks when a call has too few A tiles to fill the card, and the
-splits are merged in a fixed order: the result does not depend on the
-split.
+the search is bound by its products (1.07 GFLOP at 2048 x 2048 x 128, 2 MB
+of input). The kernel (csrc/distance.cu) runs them on the tensor cores in
+3xTF32 (lo.hi + hi.lo + hi.hi, f32 accumulation) with wgmma: one warpgroup
+per 64 A rows holds A's tf32 hi and lo fragments in registers, 32-row B
+tiles are copied with cp.async and split once into the products' shared
+memory layout, and each thread keeps a running (best, second, index) per A
+row; the distance matrix never reaches memory. When a call has too few A
+tiles to fill the card, the B range is split over several blocks and the
+last block of each A tile merges the splits in the same launch (a per-tile
+counter); the result does not depend on the split. One launch per call, one
+output allocation (three views of it); the SM count and the scratch are
+cached.
 
 `l2_2nn` launches the kernel for CUDA tensors and runs the plain version
 for CPU tensors; anything else raises.
@@ -18,14 +22,18 @@ for CPU tensors; anything else raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from visualslam_tpu_torch.ops.cuda import build
 from visualslam_tpu_torch.ops.distance import l2sq_distance_matrix
 
-TILE = 64           # A rows per block and B rows per tile in the kernel
+A_TILE = 64         # A rows per block in the kernel
+B_TILE = 32         # B rows per tile
+BLOCKS_PER_SM = 2   # one warpgroup each; 206 registers a thread at D = 128
 BIG = 1e30          # second-best where B has a single row (Pallas init)
+MAX_D = 192         # the widest descriptor the kernel's shared memory holds
 
 
 def l2_2nn_ref(a: torch.Tensor, b: torch.Tensor):
@@ -42,15 +50,61 @@ def l2_2nn_ref(a: torch.Tensor, b: torch.Tensor):
     return best, second, idx.to(torch.int32)
 
 
-def _splits(P: int, Ka: int, Kb: int, device) -> tuple[int, int]:
-    """(nsplit, tiles per split): split B so that about two blocks per SM
-    are in flight."""
-    n_tiles = -(-Kb // TILE)
-    blocks = P * -(-Ka // TILE)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    nsplit = max(1, min(n_tiles, -(-2 * sms // blocks)))
+def plan_splits(P: int, Ka: int, Kb: int, sms: int) -> tuple[int, int]:
+    """(nsplit, B tiles per split) for a call: split the B range only while
+    the blocks (P x A tiles x nsplit) fit on the card at once. Split s takes
+    tiles [s * per, min((s + 1) * per, ceil(Kb / B_TILE))); no split is
+    empty."""
+    n_tiles = -(-Kb // B_TILE)
+    blocks = max(1, P * -(-Ka // A_TILE))
+    return _cover(n_tiles,
+                  max(1, min(n_tiles, BLOCKS_PER_SM * sms // blocks)))
+
+
+def _cover(n_tiles: int, nsplit: int) -> tuple[int, int]:
     per = -(-n_tiles // nsplit)
     return -(-n_tiles // per), per
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+_scratch: dict = {}
+
+
+def _scratch_for(device: torch.device, stream: int, n_counters: int,
+                 n_part: int) -> tuple:
+    """(counters int32 [n_counters], partials f32 [n_part]): views of one
+    scratch tensor per (device, stream), grown when a call needs more, so
+    concurrent streams never share a counter. The counters start at 0 and
+    every launch leaves them at 0."""
+    key = (device, stream)
+    s = _scratch.get(key)
+    if s is None or s[0].numel() < n_counters or s[1].numel() < n_part:
+        if s is not None:
+            n_counters = max(n_counters, s[0].numel())
+            n_part = max(n_part, s[1].numel())
+        buf = torch.zeros(n_counters + n_part, dtype=torch.int32,
+                          device=device)
+        s = (buf[:n_counters], buf[n_counters:].view(torch.float32))
+        _scratch[key] = s
+    return s
+
+
+def _check(a: torch.Tensor, b: torch.Tensor) -> None:
+    if a.device.type != "cuda" or b.device != a.device:
+        raise ValueError(f"l2_2nn: unsupported devices {a.device}, {b.device}")
+    if (a.dtype != torch.float32 or b.dtype != torch.float32 or a.ndim != 3
+            or b.ndim != 3 or a.shape[0] != b.shape[0]
+            or a.shape[2] != b.shape[2] or b.shape[1] < 1
+            or not 1 <= a.shape[2] <= MAX_D):
+        raise ValueError("l2_2nn: expects float32 [P, Ka, D] and [P, Kb, D] "
+                         f"with Kb >= 1 and D <= {MAX_D}, got {a.dtype} "
+                         f"{tuple(a.shape)} and {b.dtype} {tuple(b.shape)}")
+    if not (a.is_contiguous() and b.is_contiguous()):
+        raise ValueError("l2_2nn: a and b must be contiguous")
 
 
 def l2_2nn(a: torch.Tensor, b: torch.Tensor):
@@ -58,44 +112,47 @@ def l2_2nn(a: torch.Tensor, b: torch.Tensor):
     a [P, Ka, D], b [P, Kb, D] float32. Same contract as `l2_2nn_ref`."""
     if a.device.type == "cpu" and b.device.type == "cpu":
         return l2_2nn_ref(a, b)
-    if a.device.type != "cuda" or b.device != a.device:
-        raise ValueError(f"l2_2nn: unsupported devices {a.device}, {b.device}")
-    if (a.dtype != torch.float32 or b.dtype != torch.float32 or a.ndim != 3
-            or b.ndim != 3 or a.shape[0] != b.shape[0]
-            or a.shape[2] != b.shape[2] or b.shape[1] < 1):
-        raise ValueError("l2_2nn: expects float32 [P, Ka, D] and [P, Kb, D] "
-                         f"with Kb >= 1, got {a.dtype} {tuple(a.shape)} and "
-                         f"{b.dtype} {tuple(b.shape)}")
-    if not (a.is_contiguous() and b.is_contiguous()):
-        raise ValueError("l2_2nn: a and b must be contiguous")
+    _check(a, b)
+    P, Ka, _ = a.shape
+    return _launch(a, b, plan_splits(P, Ka, b.shape[1],
+                                     _sm_count(a.device.index))[0])
+
+
+def launch(a: torch.Tensor, b: torch.Tensor, nsplit: int):
+    """`l2_2nn` on CUDA tensors with the B range split `nsplit` ways (at
+    most one split per B tile; the splits come out equal but the last): the
+    same contract and the same bits for every split."""
+    _check(a, b)
+    return _launch(a, b, nsplit)
+
+
+def _launch(a: torch.Tensor, b: torch.Tensor, nsplit: int):
     P, Ka, D = a.shape
     Kb = b.shape[1]
-    nsplit, per = _splits(P, Ka, Kb, a.device)
-    part_best = torch.empty((P, nsplit, Ka), dtype=torch.float32,
-                            device=a.device)
-    part_second = torch.empty_like(part_best)
-    part_idx = torch.empty((P, nsplit, Ka), dtype=torch.int32, device=a.device)
-    best = torch.empty((P, Ka), dtype=torch.float32, device=a.device)
-    second = torch.empty_like(best)
-    idx = torch.empty((P, Ka), dtype=torch.int32, device=a.device)
-    lib = _lib()
-    with torch.cuda.device(a.device):
-        rc = lib.l2_2nn(build.ptr(a), build.ptr(b), build.ptr(part_best),
-                        build.ptr(part_second), build.ptr(part_idx),
-                        build.ptr(best), build.ptr(second), build.ptr(idx),
-                        P, Ka, Kb, D, nsplit, per,
-                        build.stream_handle(a.device))
+    nsplit, per = _cover(-(-Kb // B_TILE), max(1, nsplit))
+    dev = a.device
+    out = torch.empty((3, P, Ka), dtype=torch.float32, device=dev)
+    with build.on_device(dev):
+        stream = build.stream_handle(dev)
+        counters, part = _scratch_for(dev, stream, P * -(-Ka // A_TILE),
+                                      3 * P * nsplit * Ka)
+        rc = _lib().l2_2nn(a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                           part.data_ptr(), counters.data_ptr(), P, Ka, Kb,
+                           D, nsplit, per, stream)
     build.check_launch(rc, "l2_2nn")
     l2_2nn.launches += 1
-    return best, second, idx
+    best, second, idx = out.unbind(0)
+    return best, second, idx.view(torch.int32)
 
 
 l2_2nn.launches = 0
 
 
+@functools.cache
 def _lib() -> ctypes.CDLL:
     lib = build.load_library("distance")
     fn = lib.l2_2nn
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib
