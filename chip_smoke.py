@@ -66,12 +66,6 @@ Phases, each printing its own lines:
 also writes the engine phase's kernel-path features (numpy), for running
 the JAX package's engine on the same features elsewhere.
 
-    python3 chip_smoke.py --kernels
-
-runs phases 1-3 alone (each kernel against its plain version, and its
-times) and prints no result lines: for timing two trees in turns in one
-call.
-
 Any failed check raises, so the run exits non-zero and prints no result.
 Without a CUDA device it exits non-zero before doing anything.
 """
@@ -111,6 +105,7 @@ from visualslam_tpu_torch.ops.cuda import (
     reset_launch_counts,
 )
 from visualslam_tpu_torch.ops.cuda.descriptor import staged_boxes
+from visualslam_tpu_torch.ops.cuda.distance import split_plan
 from visualslam_tpu_torch.ops.extrema import detect_extrema, extrema_candidates
 from visualslam_tpu_torch.ops.patches import crop_patches, patch_shape
 from visualslam_tpu_torch.slam import engine
@@ -162,7 +157,8 @@ ENGINE_PATH_ROT_DEG = 0.05  # kernel path vs plain path, per frame
 ENGINE_PATH_POS_FRAC = 1e-3  # x the frame 0..47 baseline
 # published H100 SXM peaks (NVIDIA's data sheet): the least time a kernel's
 # work could take is the larger of its bytes over the memory rate and its
-# operations over the f32 (non-tensor-core) rate
+# operations over the peak rate of the units that run them (f32 on the
+# SIMT cores; the 2-NN's 3xTF32 products on the tensor cores)
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
 PEAK_TF32_S = 495e12        # dense, tensor cores
@@ -198,11 +194,11 @@ def nbytes(*tensors) -> int:
     return n
 
 
-def least_ms(io_bytes: int, ops: float) -> tuple:
+def least_ms(io_bytes: int, ops: float, ops_s: float = PEAK_F32_S) -> tuple:
     """(least ms the card could take, "bytes" or "operations"): each input
     read once and each output written once at PEAK_BYTES_S, the operations
-    at PEAK_F32_S."""
-    tb, to = io_bytes / PEAK_BYTES_S, ops / PEAK_F32_S
+    at `ops_s`."""
+    tb, to = io_bytes / PEAK_BYTES_S, ops / ops_s
     return 1e3 * max(tb, to), ("bytes" if tb >= to else "operations")
 
 
@@ -395,23 +391,29 @@ def kernel_2nn(feats: Features, dev) -> tuple:
     plain_ms = time_ms(lambda: PLAIN.l2_2nn(a, b), 20)
     kernel_ms = kernel_alone("l2_2nn", lambda: KERNELS.l2_2nn(a, b), ms)
     P, Ka, D = a.shape
-    bms, by = least_ms(nbytes(a, b, got), 2.0 * P * Ka * b.shape[1] * D)
+    # the kernel's route: three TF32 products per a.b on the tensor cores
+    bms, by = least_ms(nbytes(a, b, got), 3 * 2.0 * P * Ka * b.shape[1] * D,
+                       PEAK_TF32_S)
     a15, va15 = _masked_descriptors(feats, slice(0, BATCH - 1), dev)
     b15, _ = _masked_descriptors(feats, slice(1, BATCH), dev)
     _, got15 = check_2nn(a15, b15, va15, " 15 pairs")
     b15ms, _ = least_ms(nbytes(a15, b15, got15),
-                        2.0 * a15.shape[0] * Ka * b15.shape[1] * D)
+                        3 * 2.0 * a15.shape[0] * Ka * b15.shape[1] * D,
+                        PEAK_TF32_S)
     ms15 = time_ms(lambda: KERNELS.l2_2nn(a15, b15), 10)
     print(f"time l2_2nn 15 pairs {tuple(a15.shape)}: kernel {ms15:.4f} ms, "
           f"plain {time_ms(lambda: PLAIN.l2_2nn(a15, b15), 10):.4f} ms, "
-          f"bound {b15ms:.4f} ms")
+          f"bound {b15ms:.4f} ms (3xTF32 products at the TF32 rate)")
     kernel_alone("l2_2nn", lambda: KERNELS.l2_2nn(a15, b15), ms15,
                  " 15 pairs")
-    # the same products at the tensor cores' TF32 rate, three per a.b
-    tf32 = [1e3 * 3 * 2.0 * x.shape[0] * Ka * b.shape[1] * D / PEAK_TF32_S
-            for x in (a, a15)]
-    print(f"l2_2nn 3xTF32 bound: {tf32[0]:.4f} ms at [1, 2048, 128]^2, "
-          f"{tf32[1]:.4f} ms on 15 pairs")
+    # aside: one f32 product per a.b on the SIMT cores (the earlier route)
+    f32 = [1e3 * 2.0 * x.shape[0] * Ka * b.shape[1] * D / PEAK_F32_S
+           for x in (a, a15)]
+    nsplit, _, per_sm = split_plan(a, b)
+    print(f"l2_2nn f32 SIMT floor (aside, not the bound): {f32[0]:.4f} ms at "
+          f"[1, 2048, 128]^2, {f32[1]:.4f} ms on 15 pairs; {per_sm} blocks "
+          f"per SM (the build's occupancy), {nsplit} splits at P = 1, "
+          f"{split_plan(a15, b15)[0]} on 15 pairs")
     return dict(err=err, ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms,
                 bound_ms=bms, bound_by=by, library_ms=None)
 
@@ -1107,8 +1109,6 @@ def main() -> None:
     frontend(frames_dev[:BATCH])
     plain(frames_dev[:BATCH])
     timings = phase_kernels(frames_dev[8:8 + BATCH], frontend, dev)
-    if "--kernels" in args:
-        return      # phases 1-3 alone: no main-path run, no result lines
     phase_slice(frames_dev, frontend, plain)
     track = phase_track(frames_dev, seq, frontend, card, dev)
     engine_counts = phase_engine(frames_dev, seq, card, dev, save)

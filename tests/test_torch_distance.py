@@ -21,7 +21,6 @@ from visualslam_tpu_torch.ops.cuda import KERNELS, PLAIN, launch_counts
 from visualslam_tpu_torch.ops.cuda.distance import (
     A_TILE,
     B_TILE,
-    BLOCKS_PER_SM,
     _cover,
     l2_2nn,
     l2_2nn_ref,
@@ -206,14 +205,16 @@ def test_match_falls_to_dense_path_off_tile():
     (1, 2048, 1000, 1000),            # more SMs than tiles
 ])
 def test_split_planner_covers_every_tile_once(P, Ka, Kb, sms):
-    nsplit, per = plan_splits(P, Ka, Kb, sms)
     n_tiles = -(-Kb // B_TILE)
-    tiles = [t for s in range(nsplit)
-             for t in range(s * per, min((s + 1) * per, n_tiles))]
-    assert sorted(tiles) == list(range(n_tiles))          # each exactly once
-    assert all(s * per < n_tiles for s in range(nsplit))  # none empty
     blocks = P * -(-Ka // A_TILE)
-    assert nsplit == 1 or blocks * nsplit <= BLOCKS_PER_SM * sms
+    # blocks per SM: 2 is the D = 128 build's occupancy on the H100
+    for per_sm in (1, 2, 5):
+        nsplit, per = plan_splits(P, Ka, Kb, sms, per_sm)
+        tiles = [t for s in range(nsplit)
+                 for t in range(s * per, min((s + 1) * per, n_tiles))]
+        assert sorted(tiles) == list(range(n_tiles))      # each exactly once
+        assert all(s * per < n_tiles for s in range(nsplit))  # none empty
+        assert nsplit == 1 or blocks * nsplit <= per_sm * sms
     # an explicit split count (the GPU tests' 1, 2, 7, the tile count) is
     # covered the same way
     for want in (1, 2, 7, n_tiles, n_tiles + 3):

@@ -48,7 +48,9 @@
 // index); a row's quad of lanes merges once, at the end.
 //
 // One tracked frame is one pair, 32 blocks of A rows: too few for the card,
-// so the B range is split over `nsplit` blocks. The splits merge in the same
+// so the B range is split over `nsplit` blocks, as many as fit on the card
+// at once (the caller plans it from `l2_2nn_blocks_per_sm`, the occupancy
+// of the instance it runs). The splits merge in the same
 // launch: each block writes its partial rows, and the last block of an A
 // tile to arrive (a per-tile counter: __threadfence + atomicAdd) merges the
 // partials in split order and resets its counter to 0 for the next launch.
@@ -494,27 +496,57 @@ l2_2nn_kernel(Params p) {
   if (tid == 0) *counter = 0;                // ready for the next launch
 }
 
+// Allow the instance its largest shared memory on the current device. The
+// attribute is per device and per kernel: set once per process.
 template <int KD>
-int launch(const Params& p, int a_tiles, cudaStream_t stream) {
-  // the attribute is per device and per kernel: set it once per process
+cudaError_t prepare() {
   static bool ready[kMaxDevices] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
   if (!ready[dev]) {
     err = cudaFuncSetAttribute(l2_2nn_kernel<KD>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                smem_bytes(KD ? KD : kMaxD, KD == 0));
-    if (err != cudaSuccess) return (int)err;
+    if (err != cudaSuccess) return err;
     ready[dev] = true;
   }
+  return cudaSuccess;
+}
+
+template <int KD>
+int launch(const Params& p, int a_tiles, cudaStream_t stream) {
+  const cudaError_t err = prepare<KD>();
+  if (err != cudaSuccess) return (int)err;
   const dim3 grid(a_tiles, p.nsplit, p.P);
   l2_2nn_kernel<KD><<<grid, kThreads, smem_bytes(p.D, KD == 0), stream>>>(p);
   return (int)cudaGetLastError();
 }
 
+template <int KD>
+int blocks_per_sm(int D, int* blocks) {
+  const cudaError_t err = prepare<KD>();
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, l2_2nn_kernel<KD>, kThreads, smem_bytes(D, KD == 0));
+}
+
+// The instance a call runs: D = 128 at compile time where the rows allow
+// 16-byte copies, D at run time otherwise.
+bool fixed_128(int D, bool vec) { return D == 128 && vec; }
+
 }  // namespace
+
+// *blocks = how many blocks of the instance that l2_2nn runs for width D
+// (vec: D % 4 == 0 and both operands 16-byte aligned) fit on one SM of the
+// current device at once, from its registers and shared memory; the
+// caller's split planner uses it. Returns a cudaError_t.
+extern "C" int l2_2nn_blocks_per_sm(int D, int vec, int* blocks) {
+  if (D < 1 || D > kMaxD) return (int)cudaErrorInvalidValue;
+  return fixed_128(D, vec != 0) ? blocks_per_sm<128>(D, blocks)
+                                : blocks_per_sm<0>(D, blocks);
+}
 
 // a: [P, Ka, D], b: [P, Kb, D] f32 with 1 <= D <= 192 and Kb >= 1; out:
 // [3, P, Ka] (best, second, idx as int32); part: [3, P, nsplit, Ka] scratch
@@ -532,6 +564,6 @@ extern "C" int l2_2nn(const float* a, const float* b, float* out, float* part,
   Params p{a, b, out, part, counters, P, Ka, Kb, D, nsplit, per,
            (D % 4 == 0 && aligned) ? 1 : 0};
   const int a_tiles = (Ka + kTA - 1) / kTA;
-  if (D == 128 && p.vec) return launch<128>(p, a_tiles, stream);
+  if (fixed_128(D, p.vec != 0)) return launch<128>(p, a_tiles, stream);
   return launch<0>(p, a_tiles, stream);
 }

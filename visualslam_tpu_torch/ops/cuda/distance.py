@@ -12,8 +12,9 @@ row; the distance matrix never reaches memory. When a call has too few A
 tiles to fill the card, the B range is split over several blocks and the
 last block of each A tile merges the splits in the same launch (a per-tile
 counter); the result does not depend on the split. One launch per call, one
-output allocation (three views of it); the SM count and the scratch are
-cached.
+output allocation (three views of it); the SM count, the blocks an SM
+holds (the build's occupancy, asked of the kernel's library) and the
+scratch are cached.
 
 `l2_2nn` launches the kernel for CUDA tensors and runs the plain version
 for CPU tensors; anything else raises.
@@ -31,7 +32,6 @@ from visualslam_tpu_torch.ops.distance import l2sq_distance_matrix
 
 A_TILE = 64         # A rows per block in the kernel
 B_TILE = 32         # B rows per tile
-BLOCKS_PER_SM = 2   # one warpgroup each; 206 registers a thread at D = 128
 BIG = 1e30          # second-best where B has a single row (Pallas init)
 MAX_D = 192         # the widest descriptor the kernel's shared memory holds
 
@@ -50,15 +50,16 @@ def l2_2nn_ref(a: torch.Tensor, b: torch.Tensor):
     return best, second, idx.to(torch.int32)
 
 
-def plan_splits(P: int, Ka: int, Kb: int, sms: int) -> tuple[int, int]:
-    """(nsplit, B tiles per split) for a call: split the B range only while
-    the blocks (P x A tiles x nsplit) fit on the card at once. Split s takes
+def plan_splits(P: int, Ka: int, Kb: int, sms: int,
+                per_sm: int) -> tuple[int, int]:
+    """(nsplit, B tiles per split) for a call on a card of `sms` SMs that
+    each hold `per_sm` blocks at once: split the B range only while the
+    blocks (P x A tiles x nsplit) fit on the card at once. Split s takes
     tiles [s * per, min((s + 1) * per, ceil(Kb / B_TILE))); no split is
     empty."""
     n_tiles = -(-Kb // B_TILE)
     blocks = max(1, P * -(-Ka // A_TILE))
-    return _cover(n_tiles,
-                  max(1, min(n_tiles, BLOCKS_PER_SM * sms // blocks)))
+    return _cover(n_tiles, max(1, min(n_tiles, per_sm * sms // blocks)))
 
 
 def _cover(n_tiles: int, nsplit: int) -> tuple[int, int]:
@@ -69,6 +70,18 @@ def _cover(n_tiles: int, nsplit: int) -> tuple[int, int]:
 @functools.cache
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.cache
+def _blocks_per_sm(index: int, D: int, vec: bool) -> int:
+    """Blocks of the kernel instance a call of width D runs (vec: 16-byte
+    copies) that fit on one SM of device `index` at once, from the build's
+    registers and shared memory."""
+    n = ctypes.c_int(0)
+    with build.on_device(torch.device("cuda", index)):
+        rc = _lib().l2_2nn_blocks_per_sm(D, int(vec), ctypes.byref(n))
+    build.check_launch(rc, "l2_2nn_blocks_per_sm")
+    return max(1, n.value)
 
 
 _scratch: dict = {}
@@ -113,9 +126,18 @@ def l2_2nn(a: torch.Tensor, b: torch.Tensor):
     if a.device.type == "cpu" and b.device.type == "cpu":
         return l2_2nn_ref(a, b)
     _check(a, b)
-    P, Ka, _ = a.shape
-    return _launch(a, b, plan_splits(P, Ka, b.shape[1],
-                                     _sm_count(a.device.index))[0])
+    return _launch(a, b, split_plan(a, b)[0])
+
+
+def split_plan(a: torch.Tensor, b: torch.Tensor) -> tuple[int, int, int]:
+    """(nsplit, B tiles per split, blocks per SM) with which `l2_2nn` runs
+    on CUDA tensors a and b: the blocks per SM of the kernel instance the
+    call runs, and `plan_splits` on this card."""
+    P, Ka, D = a.shape
+    index = a.device.index
+    vec = D % 4 == 0 and (a.data_ptr() | b.data_ptr()) % 16 == 0
+    per_sm = _blocks_per_sm(index, D, vec)
+    return plan_splits(P, Ka, b.shape[1], _sm_count(index), per_sm) + (per_sm,)
 
 
 def launch(a: torch.Tensor, b: torch.Tensor, nsplit: int):
@@ -155,4 +177,7 @@ def _lib() -> ctypes.CDLL:
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    occ = lib.l2_2nn_blocks_per_sm
+    occ.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    occ.restype = ctypes.c_int
     return lib
