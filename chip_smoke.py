@@ -26,8 +26,10 @@ Phases, each printing its own lines:
                source, all at once (timed, with the compiler's register /
                spill report)
   3. kernels   each kernel against its plain version on the card at the
-               main path's shapes: the extrema winners and the candidates
-               that follow bit for bit, the orientation histogram and the
+               main path's shapes: the extrema winners and the score map
+               bit for bit and equal run to run at each of the 3 octaves
+               (the candidates that follow at octave 0), timed per octave
+               and per batch (the sum), the orientation histogram and the
                descriptor (reading the gradient levels in place, the
                descriptor on the spawned keypoints) within
                1e-4 * (1 + max |plain|) and equal run to run, the blur
@@ -44,7 +46,9 @@ Phases, each printing its own lines:
                the plain path on the same batch as the reference; keypoint
                and match floors; frames/s of both paths; the frontend's
                time by stage (pyramid, extrema, orientation, descriptor,
-               merge) from CUDA events
+               merge) and the extrema stage by octave and part (contiguous
+               copy, kernel, top-k select, cubes + localize) from CUDA
+               events
   5. track     the tracking slice, kernel path and plain path: launch
                counts, tracking accepted on every frame, PnP inlier floor,
                pose error against ground truth, BA cost, kernel path
@@ -58,8 +62,10 @@ Phases, each printing its own lines:
                ms per run_engine_batch, per promotion and per tracked
                frame, host syncs and launches per batch, device busy share,
                frames/s of frontend + engine
-  7. result    one JSON line of per-kernel numbers, then the last line
-               {"ok": true, "device": {...}}
+  7. result    one JSON line of per-kernel numbers (the extrema kernels'
+               per batch: summed over the 3 octaves, one launch each; the
+               others per call at octave 0 or a tracked frame), then the
+               last line {"ok": true, "device": {...}}
 
     python3 chip_smoke.py --save-features engine_feats.npz
 
@@ -106,7 +112,13 @@ from visualslam_tpu_torch.ops.cuda import (
 )
 from visualslam_tpu_torch.ops.cuda.descriptor import staged_boxes
 from visualslam_tpu_torch.ops.cuda.distance import split_plan
-from visualslam_tpu_torch.ops.extrema import detect_extrema, extrema_candidates
+from visualslam_tpu_torch.ops.cuda.extrema import NONE, TILE_H
+from visualslam_tpu_torch.ops.extrema import (
+    detect_extrema,
+    extrema_candidates,
+    gather_cubes,
+    localize,
+)
 from visualslam_tpu_torch.ops.patches import crop_patches, patch_shape
 from visualslam_tpu_torch.slam import engine
 from visualslam_tpu_torch.slam.engine import run_engine_batch
@@ -119,6 +131,7 @@ from visualslam_tpu_torch.slam.window import (
     world_to_camera,
 )
 from visualslam_tpu_torch.utils.config import FAST_CONFIG
+from visualslam_tpu_torch.utils.masked import block_top_k_select
 
 H, W, BATCH = 376, 1248, 16
 KERNEL_TOL = 1e-4           # x (1 + max |plain|): summation order only
@@ -464,6 +477,76 @@ def kernel_blur(batch: torch.Tensor, frontend: SiftFrontend, dev) -> tuple:
                 bound_ms=bms, bound_by=by, library_ms=lib_ms)
 
 
+EXTREMA_KERNELS = ("extrema_winners", "extrema_score")
+
+
+def kernel_extrema(ss, thr: float, cap: int) -> dict:
+    """Both extrema kernels against their plain versions at every octave of
+    the main path's pyramid, bit for bit and equal run to run (the fused
+    candidates that follow too, at octave 0): each octave's call, alone and
+    bound times, and the batch's figure, their sum over the octaves (one
+    launch per octave)."""
+    per_oct = {name: [] for name in EXTREMA_KERNELS}
+    for o, dog in enumerate(ss.dog):
+        dog = dog.contiguous()
+        B, D, Hd, Wd = dog.shape
+        # ~28 operations (26 compares, |.|, the pre-filter) per inner position
+        scan_ops = 28.0 * B * (D - 2) * Hd * Wd
+        for name in EXTREMA_KERNELS:
+            kfn, pfn = getattr(KERNELS, name), getattr(PLAIN, name)
+            # the winners are a pair of planes, the score map one
+            got, want, again = (r if isinstance(r, tuple) else (r,)
+                                for r in (kfn(dog, thr), pfn(dog, thr),
+                                          kfn(dog, thr)))
+            check(all(map(torch.equal, got, want)),
+                  f"{name} at octave {o} equals its plain version bit for bit")
+            check(all(map(torch.equal, got, again)),
+                  f"{name} at octave {o}: equal bits run to run")
+            if name == "extrema_winners" and o == 0:
+                cand_k = extrema_candidates(dog, thr, cap, KERNELS)
+                cand_p = extrema_candidates(dog, thr, cap, PLAIN)
+                for i, what in ((0, "lvl"), (1, "y"), (2, "x"), (4, "sel")):
+                    check(torch.equal(cand_k[i], cand_p[i]),
+                          f"extrema candidates' {what} equal bit for bit")
+            what = f" octave {o} {tuple(dog.shape)}"
+            ms = time_ms(lambda: kfn(dog, thr), 20)
+            r = dict(err=max((g - w).abs().max().item()
+                             for g, w in zip(got, want)),
+                     ms=ms, plain_ms=time_ms(lambda: pfn(dog, thr), 5),
+                     kernel_ms=kernel_alone(name, lambda: kfn(dog, thr), ms,
+                                            what))
+            r.update(zip(("bound_ms", "bound_by"),
+                         least_ms(nbytes(dog, got), scan_ops)))
+            per_oct[name].append(r)
+            alone = ("not measured" if r["kernel_ms"] is None
+                     else f"{r['kernel_ms']:.4f} ms")
+            print(f"kernel {name}{what}: bit-exact, kernel alone {alone}, "
+                  f"call {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+                  f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+            del got, want, again
+    out = {}
+    for name, rows in per_oct.items():
+        alone = [r["kernel_ms"] for r in rows]
+        out[name] = dict(
+            err=max(r["err"] for r in rows),
+            kernel_ms=None if None in alone else sum(alone),
+            library_ms=None, bound_by=rows[0]["bound_by"],
+            **{k: sum(r[k] for r in rows)
+               for k in ("ms", "plain_ms", "bound_ms")})
+        r = out[name]
+        alone = ("not measured" if r["kernel_ms"] is None
+                 else f"{r['kernel_ms']:.4f} ms")
+        print(f"time {name} per batch ({len(rows)} octaves, one launch "
+              f"each): kernel alone {alone}, call {r['ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms; by octave alone "
+              + ", ".join("not measured" if a is None else f"{a:.4f}"
+                          for a in (q["kernel_ms"] for q in rows))
+              + " ms, call " + ", ".join(f"{q['ms']:.4f}" for q in rows)
+              + " ms, bound "
+              + ", ".join(f"{q['bound_ms']:.4f}" for q in rows) + " ms")
+    return out
+
+
 def phase_kernels(batch: torch.Tensor, frontend: SiftFrontend, dev) -> dict:
     """Each kernel against its plain version at the main path's shapes."""
     cfg = FAST_CONFIG
@@ -471,51 +554,9 @@ def phase_kernels(batch: torch.Tensor, frontend: SiftFrontend, dev) -> dict:
     cap = cfg.sift.octave_capacity(0)
     ss = build_pyramid(batch.float() * (1.0 / 255.0), cfg.pyramid,
                        frontend.bands)
+    out = kernel_extrema(ss, thr, cap)
     dog = ss.dog[0].contiguous()                         # [16, 5, 376, 1248]
-    out = {}
-
-    got = KERNELS.extrema_winners(dog, thr)
-    want = PLAIN.extrema_winners(dog, thr)
-    check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
-          "extrema winners equal their plain version bit for bit")
-    cand_k = extrema_candidates(dog, thr, cap, KERNELS)
-    cand_p = extrema_candidates(dog, thr, cap, PLAIN)
-    for i, name in ((0, "lvl"), (1, "y"), (2, "x"), (4, "sel")):
-        check(torch.equal(cand_k[i], cand_p[i]),
-              f"extrema candidates' {name} equal bit for bit")
-    err = (got[0] - want[0]).abs().max().item()
-    B, D, Hd, Wd = dog.shape
-    # ~28 operations (26 compares, |.|, the pre-filter) per interior position
-    scan_ops = 28.0 * B * (D - 2) * Hd * Wd
-    out["extrema_winners"] = dict(
-        err=err, ms=time_ms(lambda: KERNELS.extrema_winners(dog, thr), 20),
-        plain_ms=time_ms(lambda: PLAIN.extrema_winners(dog, thr), 5),
-        library_ms=None)
-    out["extrema_winners"]["kernel_ms"] = kernel_alone(
-        "extrema_winners", lambda: KERNELS.extrema_winners(dog, thr),
-        out["extrema_winners"]["ms"])
-    out["extrema_winners"].update(zip(("bound_ms", "bound_by"),
-                                      least_ms(nbytes(dog, got), scan_ops)))
-    print(f"kernel extrema_winners: dog {tuple(dog.shape)}, winners and "
-          f"{int(cand_k[4].sum())} candidates bit-exact")
-
-    got = KERNELS.extrema_score(dog, thr)
-    want = PLAIN.extrema_score(dog, thr)
-    check(torch.equal(got, want),
-          "extrema score map equals its plain version bit for bit")
-    out["extrema_score"] = dict(
-        err=(got - want).abs().max().item(),
-        ms=time_ms(lambda: KERNELS.extrema_score(dog, thr), 20),
-        plain_ms=time_ms(lambda: PLAIN.extrema_score(dog, thr), 5),
-        library_ms=None)
-    out["extrema_score"]["kernel_ms"] = kernel_alone(
-        "extrema_score", lambda: KERNELS.extrema_score(dog, thr),
-        out["extrema_score"]["ms"])
-    out["extrema_score"].update(zip(("bound_ms", "bound_by"),
-                                    least_ms(nbytes(dog, got), scan_ops)))
-    print(f"kernel extrema_score: dog {tuple(dog.shape)}, score map "
-          f"bit-exact, {int((got > -1e29).sum())} extrema")
-    del got, want
+    B = dog.shape[0]
 
     # the frontend's octave-0 patch stages: bf16, 32 rows, K = 16 * 1024;
     # the descriptor on the keypoints spawned from them, each at its
@@ -637,6 +678,59 @@ def frontend_stages(frontend: SiftFrontend, batch: torch.Tensor) -> tuple:
     return ms, feats
 
 
+EXTREMA_PARTS = ("contiguous", "kernel", "top-k select", "cubes + localize")
+
+
+def extrema_parts(frontend: SiftFrontend, batch: torch.Tensor) -> list:
+    """The frontend's extrema stage of one batch, octave by octave and part
+    by part as detect_extrema runs it under FAST_CONFIG (the fused
+    winners), with a CUDA event after each part: [{part: device ms
+    between events}] per octave. Each octave's result is checked against
+    detect_extrema's."""
+    cfg = FAST_CONFIG
+    thr = cfg.sift.contrast_threshold
+    ss = build_pyramid(batch.float() * (1.0 / 255.0), cfg.pyramid,
+                       frontend.bands)
+    per_oct = []
+    for o, dog in enumerate(ss.dog):
+        cap = cfg.sift.octave_capacity(o)
+        marks = [torch.cuda.Event(enable_timing=True)]
+        marks[0].record()
+
+        def mark():
+            marks.append(torch.cuda.Event(enable_timing=True))
+            marks[-1].record()
+
+        dog = dog.contiguous()
+        mark()
+        smax, srow = KERNELS.extrema_winners(dog, thr)
+        mark()
+        B, D, _, _ = dog.shape
+        Wp = smax.shape[-1]
+        flat = smax.reshape(B, -1)
+        idx, sel = block_top_k_select(flat, flat > NONE / 10, cap)
+        rem = idx % ((D - 2) * Wp)
+        lvl = (rem // Wp + 1).to(torch.int32)
+        y = ((idx // ((D - 2) * Wp)) * TILE_H
+             + srow.reshape(B, -1).gather(1, idx)).to(torch.int32)
+        x = (rem % Wp).to(torch.int32)
+        mark()
+        one = torch.ones_like(lvl)
+        lvl, y, x = (torch.where(sel, v, one) for v in (lvl, y, x))
+        loc = localize(gather_cubes(dog, lvl, y, x), cfg.sift)
+        valid = (sel & loc.converged & loc.edge_ok
+                 & (loc.contrast.abs() > cfg.sift.contrast_threshold))
+        mark()
+        torch.cuda.synchronize()
+        want = detect_extrema(ss.dog[o], cfg.sift, cap, KERNELS)
+        check(all(torch.equal(a, b) for a, b in zip((lvl, y, x, valid),
+                                                    want[:3] + want[5:])),
+              f"the staged extrema of octave {o} equal detect_extrema's")
+        per_oct.append({n: a.elapsed_time(b) for n, a, b in
+                        zip(EXTREMA_PARTS, marks, marks[1:])})
+    return per_oct
+
+
 def compare_paths(fk: Features, fp: Features) -> None:
     """Kernel path against plain path, frame by frame: valid counts within
     2%, >= 95% of keypoints within 0.5 px of a counterpart, median
@@ -725,6 +819,15 @@ def phase_slice(frames_dev: torch.Tensor, frontend: SiftFrontend,
               f"{n} {med[n]:.3f} ms ({100 * med[n] / total:.1f}%)"
               for n in STAGES) + f"; {total:.3f} ms per batch, "
           f"{1e3 * BATCH / total:.1f} frames/s")
+    # the extrema stage by octave and part
+    runs = [extrema_parts(frontend, frames_dev[k:k + BATCH]) for k in range(5)]
+    for o in range(len(runs[0])):
+        med = {n: float(np.median([r[o][n] for r in runs]))
+               for n in EXTREMA_PARTS}
+        print(f"frontend extrema stage, octave {o} (CUDA events between "
+              f"parts, median of 5 batches of {BATCH}): " + ", ".join(
+                  f"{n} {v:.4f} ms" for n, v in med.items())
+              + f"; {sum(med.values()):.4f} ms")
     print(f"peak device memory: "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return launches

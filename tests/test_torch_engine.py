@@ -3,8 +3,9 @@ unit by unit, from identical state: a synthetic scene of known points seen
 from known poses (tests/test_torch_tracking.Scene), two keyframes in a map
 filled by the same calls in both packages, and the JAX state handed to the
 port through utils/convert.from_numpy(..., device="cpu"). The JAX side runs
-as its own tests run it: jitted on the CPU, the streaming 2-NN in Pallas
-interpret mode (match.impl="pallas")."""
+as its own tests run it: jitted on the CPU. Each test of the batch runs
+twice: with the matcher on the streaming 2-NN (match.impl="pallas", Pallas
+in interpret mode) and on FAST_CONFIG's own dense matcher ("xla")."""
 
 import inspect
 from types import SimpleNamespace
@@ -36,14 +37,21 @@ KS = 64                     # loop subsample
 B = 6                       # frames 3..8 as one batch
 OK_MIN = 10
 MAX_DEPTH = 200.0
-JCFG = jcfg.FAST_CONFIG.replace(
-    match=jcfg.FAST_CONFIG.match.replace(impl="pallas", tile=128,
-                                         max_matches=128),
-    loop=jcfg.FAST_CONFIG.loop.replace(db_capacity=CAP, sub_keypoints=KS,
-                                       exclude_recent=1),
-    ba=jcfg.FAST_CONFIG.ba.replace(max_cameras=W),
-    local_map_size=K, keyframe_min_gap=1, keyframe_max_gap=3)
-CFG = SlamConfig.from_json(JCFG.to_json())
+
+
+def configs(impl):
+    """(JAX config, port config) at the tests' sizes with the matcher on
+    `impl`: "pallas" (the streaming 2-NN) or "xla" (FAST_CONFIG's own)."""
+    j = jcfg.FAST_CONFIG.replace(
+        match=jcfg.FAST_CONFIG.match.replace(impl=impl, tile=128,
+                                             max_matches=128),
+        loop=jcfg.FAST_CONFIG.loop.replace(db_capacity=CAP, sub_keypoints=KS,
+                                           exclude_recent=1),
+        ba=jcfg.FAST_CONFIG.ba.replace(max_cameras=W),
+        local_map_size=K, keyframe_min_gap=1, keyframe_max_gap=3)
+    return j, SlamConfig.from_json(j.to_json())
+
+
 # float32 LM / Schur solves in two libraries on the same matches: poses
 # agree to ~1e-5 after one solve; chained over a batch with two promotions
 # (window BA, re-refine, triangulation) to ~1e-4
@@ -140,8 +148,9 @@ def _db_entries(r):
     return out
 
 
-@pytest.fixture(scope="module")
-def world():
+@pytest.fixture(scope="module", params=["pallas", "xla"])
+def world(request):
+    jc, tc = configs(request.param)
     scene = Scene(seed=3)
     r = np.random.default_rng(4)
     views = {k: _features(scene, k, r) for k in range(0, 3 + B)}
@@ -151,9 +160,9 @@ def world():
     R, t, vel = _state(scene, 3)
     entries = _db_entries(r)
     jp, jids, jn = jeng.build_persist_from_host(
-        maps[0], JCFG, R, t, vel, 0, db_entries=entries)
+        maps[0], jc, R, t, vel, 0, db_entries=entries)
     tp, tids, tn = teng.build_persist_from_host(
-        maps[1], CFG, R, t, vel, 0, db_entries=entries, device="cpu")
+        maps[1], tc, R, t, vel, 0, db_entries=entries, device="cpu")
 
     frames = [views[k] for k in range(3, 3 + B)]
     kps = tuple(np.stack([v[0][i] for v in frames]) for i in range(8))
@@ -175,20 +184,21 @@ def world():
                           kill_gen=torch.from_numpy(kill_gen))
     intr = jnp.asarray(INTR)
     jpacked, jp2 = jax.jit(jeng.run_engine_batch, static_argnums=(4, 5, 6))(
-        jp, jdyn, jf, intr, JCFG, OK_MIN, MAX_DEPTH)
+        jp, jdyn, jf, intr, jc, OK_MIN, MAX_DEPTH)
     before = [x.clone() for x in tp]
     tpacked, tp2 = teng.run_engine_batch(tp, tdyn, tf, torch.tensor(INTR),
-                                         CFG, OK_MIN, MAX_DEPTH)
+                                         tc, OK_MIN, MAX_DEPTH)
     return SimpleNamespace(
-        scene=scene, views=views, maps=maps, R=R, t=t, vel=vel,
+        jcfg=jc, cfg=tc, scene=scene, views=views, maps=maps, R=R, t=t,
+        vel=vel,
         entries=entries, jp=jp, jids=jids, jn=jn, tp=tp, tids=tids, tn=tn,
         jf=jf, tf=tf, kill=kill, jpacked=np.asarray(jpacked),
         tpacked=tpacked, jp2=jp2, tp2=tp2, before=before, r=r)
 
 
-def _decode(packed):
-    P = B // CFG.keyframe_min_gap
-    return teng.decode_packed(packed, B, CFG.match.max_matches, P, W, K)
+def _decode(packed, cfg):
+    P = B // cfg.keyframe_min_gap
+    return teng.decode_packed(packed, B, cfg.match.max_matches, P, W, K)
 
 
 def test_engine_entry_points_default_to_the_card():
@@ -231,18 +241,18 @@ def test_build_persist_from_old_persist_matches_jax(world):
     """The database comes from the previous persist, the host count
     resetting its write index."""
     jp, _, jn = jeng.build_persist_from_host(
-        world.maps[0], JCFG, world.R, world.t, world.vel, 2,
+        world.maps[0], world.jcfg, world.R, world.t, world.vel, 2,
         old_persist=world.jp2, db_count=4)
     tp, _, tn = teng.build_persist_from_host(
-        world.maps[1], CFG, world.R, world.t, world.vel, 2,
+        world.maps[1], world.cfg, world.R, world.t, world.vel, 2,
         old_persist=world.tp2, db_count=4, device="cpu")
     assert jn is None and tn is None and int(tp.db_n) == 4
     _assert_persist_close(tp, jp)
 
 
 def test_run_engine_batch_matches_jax(world):
-    jst, jrecs, jdb, jtail = _decode(world.jpacked)
-    tst, trecs, tdb, ttail = _decode(world.tpacked)
+    jst, jrecs, jdb, jtail = _decode(world.jpacked, world.cfg)
+    tst, trecs, tdb, ttail = _decode(world.tpacked, world.cfg)
     assert world.tpacked.dtype == torch.float32
     assert world.tpacked.shape == world.jpacked.shape
     promoted = np.nonzero(tst[:, 22])[0]
@@ -274,10 +284,10 @@ def test_run_engine_batch_matches_jax(world):
 
 
 def test_decode_packed_reads_the_ports_buffer_like_jax(world):
-    port = _decode(world.tpacked)
-    P = B // CFG.keyframe_min_gap
-    ref = jeng.decode_packed(world.tpacked.numpy(), B, CFG.match.max_matches,
-                             P, W, K)
+    port = _decode(world.tpacked, world.cfg)
+    P = B // world.cfg.keyframe_min_gap
+    ref = jeng.decode_packed(world.tpacked.numpy(), B,
+                             world.cfg.match.max_matches, P, W, K)
     np.testing.assert_array_equal(port[0], ref[0])
     assert port[2] == ref[2] and len(port[1]) == len(ref[1]) >= 1
     for a, b in zip(port[1], ref[1]):
@@ -286,7 +296,7 @@ def test_decode_packed_reads_the_ports_buffer_like_jax(world):
     for x, y in zip(port[3], ref[3]):
         np.testing.assert_array_equal(x, y)
     assert len(world.tpacked) == (B * 24 + 2 + P * teng.prom_record_size(
-        CFG.match.max_matches) + teng.tail_size(W, K))
+        world.cfg.match.max_matches) + teng.tail_size(W, K))
 
 
 def test_run_engine_batch_leaves_its_input_alone_and_kills(world):
@@ -302,7 +312,7 @@ def test_run_engine_batch_leaves_its_input_alone_and_kills(world):
 def test_seen_writes_hit_distinct_slots(world):
     """The tracked-landmark writes of a promotion scatter to the matched
     local-map slots: mutual matching makes them distinct."""
-    _, recs, _, _ = _decode(world.tpacked)
+    _, recs, _, _ = _decode(world.tpacked, world.cfg)
     for rec in recs:
         slots = rec.lm_slot[rec.lm_obs]
         assert len(slots) > 20 and len(np.unique(slots)) == len(slots)
@@ -312,8 +322,8 @@ def test_seen_writes_hit_distinct_slots(world):
 
 @pytest.mark.parametrize("fix_gauge_scale", [True, False])
 def test_window_ba_matches_jax(world, fix_gauge_scale):
-    jc = JCFG.replace(ba=JCFG.ba.replace(fix_gauge_scale=fix_gauge_scale))
-    tc = CFG.replace(ba=CFG.ba.replace(fix_gauge_scale=fix_gauge_scale))
+    jc, tc = (c.replace(ba=c.ba.replace(fix_gauge_scale=fix_gauge_scale))
+              for c in (world.jcfg, world.cfg))
     want = jax.jit(jeng._window_ba, static_argnums=1)(world.jp2, jc)
     got = teng._window_ba(_port(teng.EnginePersist, world.jp2), tc)
     for g, w, tol in zip(got[:3], want[:3],
@@ -357,11 +367,11 @@ def test_verify_candidate_matches_jax(world, mutual, estimate_scale):
     want = np.asarray(jax.jit(
         jeng._verify_candidate, static_argnums=(11, 12))(
         *(jnp.asarray(a) for a in args), jnp.asarray(INTR),
-        jeng._sub_match_cfg(JCFG), estimate_scale,
+        jeng._sub_match_cfg(world.jcfg), estimate_scale,
         *(jnp.asarray(a) for a in extra)))
     got = teng._verify_candidate(
         *(torch.tensor(np.asarray(a)) for a in args), torch.tensor(INTR),
-        teng._sub_match_cfg(CFG), estimate_scale,
+        teng._sub_match_cfg(world.cfg), estimate_scale,
         *(torch.tensor(np.asarray(a)) for a in extra)).numpy()
     assert got.shape == want.shape == (20,)
     # usable, inliers, nboth, recip_inl exact; pose, scale and the
@@ -384,9 +394,10 @@ def test_engine_relocalize_matches_jax(world):
     tf = from_numpy(Features, (kps, desc), device="cpu")
     db_n = int(world.jp2.db_n)
     want = np.asarray(jax.jit(jeng.engine_relocalize, static_argnums=4)(
-        world.jp2, jnp.int32(db_n), jf, jnp.asarray(INTR), JCFG))
+        world.jp2, jnp.int32(db_n), jf, jnp.asarray(INTR), world.jcfg))
     got = teng.engine_relocalize(_port(teng.EnginePersist, world.jp2),
-                                 db_n, tf, torch.tensor(INTR), CFG).numpy()
+                                 db_n, tf, torch.tensor(INTR),
+                                 world.cfg).numpy()
     assert got.shape == want.shape == (teng.NC, teng.LOOP_REC)
     np.testing.assert_array_equal(got[:, LOOP_INT], want[:, LOOP_INT])
     _close(got[:, 1], want[:, 1], 1e-5)

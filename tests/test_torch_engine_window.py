@@ -1,19 +1,20 @@
 """The engine slice end to end in both packages: the same features (the
-port's frontend on 32 synthetic frames, extrema_impl="pallas", as two
-batches of 16) through one driver (visualslam_tpu_torch/slam/window.
-run_engine: ground-truth bootstrap -> build_persist_from_host ->
-run_engine_batch per batch, the persist chained), once with the port's
-functions and once with the JAX package's (jitted, the streaming 2-NN in
-Pallas interpret mode). A small loop database (16 entries, 64 sub
-keypoints, exclude_recent 1) gives retrieval eligible entries in batch 1."""
+port's frontend on 32 synthetic frames, as two batches of 16) through one
+function (visualslam_tpu_torch/slam/window.run_engine: ground-truth bootstrap
+-> build_persist_from_host -> run_engine_batch per batch, the persist
+chained), once with the port's functions and once with the JAX package's
+(jitted). Two cases: the opt-in kernels' switches (extrema_impl="pallas",
+blur_mode="pallas", match.impl="pallas", Pallas in interpret mode on the
+JAX side) and FAST_CONFIG's own (the fused extrema, the matmul blur, the
+dense matcher). A small loop database (16 entries, 64 sub keypoints,
+exclude_recent 1) gives retrieval eligible entries in batch 1."""
 
 import numpy as np
 import jax.numpy as jnp
 import pytest
 import torch
 
-from test_torch_window import JCFG as WINDOW_JCFG
-from test_torch_window import jax_ops
+from test_torch_window import CASES, configs, jax_ops
 from visualslam_tpu.models.types import Features as JFeatures
 from visualslam_tpu.models.types import Keypoints as JKeypoints
 from visualslam_tpu_torch.frontend import SiftFrontend
@@ -23,11 +24,6 @@ from visualslam_tpu_torch.slam.window import port_ops, run_engine, world_to_came
 from visualslam_tpu_torch.utils.config import SlamConfig
 
 B, H, W, BATCHES = 16, 240, 376, 2
-JCFG = WINDOW_JCFG.replace(
-    sift=WINDOW_JCFG.sift.replace(extrema_impl="pallas"),
-    loop=WINDOW_JCFG.loop.replace(db_capacity=16, sub_keypoints=64,
-                                  exclude_recent=1))
-CFG = SlamConfig.from_json(JCFG.to_json())
 # integer fields of a loop row: candidate, usable matches, inliers, pairs
 # with 3D on both sides, reciprocal inliers
 LOOP_INT = [0, 2, 3, 17, 18]
@@ -37,23 +33,37 @@ def _centres(R, t):
     return -np.einsum("fji,fj->fi", R, t)
 
 
-@pytest.fixture(scope="module")
-def runs():
+def engine_config(case):
+    """The window tests' config of `case` with a small loop database and,
+    for "pallas", the score-map extrema (the engine's third opt-in
+    switch)."""
+    jc = configs(case)
+    return jc.replace(
+        sift=jc.sift.replace(
+            extrema_impl="pallas" if case == "pallas" else "fused"),
+        loop=jc.loop.replace(db_capacity=16, sub_keypoints=64,
+                             exclude_recent=1))
+
+
+@pytest.fixture(scope="module", params=CASES)
+def runs(request):
+    jc = engine_config(request.param)
+    cfg = SlamConfig.from_json(jc.to_json())
     seq = SyntheticSequence(num_frames=B * BATCHES, h=H, w=W, n_dots=1500,
                             step=0.4)
     frames = np.stack([seq.frame(k) for k in range(len(seq))])
     frames = np.clip(frames * 255.0, 0, 255).astype(np.uint8)
-    fe = SiftFrontend(CFG)
+    fe = SiftFrontend(cfg)
     feats = [fe(torch.from_numpy(frames[b * B:(b + 1) * B]))
              for b in range(BATCHES)]
     R_gt, t_gt = world_to_camera(seq.gt_poses)
     port = run_engine(port_ops("cpu"), feats, R_gt, t_gt,
-                      torch.tensor(seq.intrinsics), CFG)
+                      torch.tensor(seq.intrinsics), cfg)
     jfeats = [JFeatures(JKeypoints(*(jnp.asarray(x.numpy())
                                      for x in f.keypoints)),
                         jnp.asarray(f.descriptors.numpy())) for f in feats]
     ref = run_engine(jax_ops(), jfeats, R_gt, t_gt,
-                     jnp.asarray(seq.intrinsics), JCFG)
+                     jnp.asarray(seq.intrinsics), jc)
     return port, ref, R_gt, t_gt
 
 

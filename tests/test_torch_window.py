@@ -1,9 +1,11 @@
 """The tracking slice end to end in both packages: the same features (the
-port's frontend on 16 synthetic frames, blur_mode="pallas") through one
-driver (visualslam_tpu_torch/slam/window.run_window: ground-truth
-bootstrap -> track_batch -> keyframe_step -> window BA), once with the
-port's functions and once with the JAX package's (Pallas in interpret
-mode, match.impl="pallas")."""
+port's frontend on 16 synthetic frames) through one function
+(visualslam_tpu_torch/slam/window.run_window: ground-truth bootstrap ->
+track_batch -> keyframe_step -> window BA), once with the port's functions
+and once with the JAX package's. Two cases: the switches that put the
+opt-in kernels on the path (blur_mode="pallas", match.impl="pallas",
+Pallas in interpret mode on the JAX side) and FAST_CONFIG's own (the
+matmul blur, the dense matcher)."""
 
 from types import SimpleNamespace
 
@@ -31,19 +33,28 @@ from visualslam_tpu_torch.slam.window import (
 from visualslam_tpu_torch.utils.config import SlamConfig
 
 B, H, W, K = 16, 240, 376, 256
-JCFG = jcfg.FAST_CONFIG.replace(
-    pyramid=jcfg.FAST_CONFIG.pyramid.replace(num_octaves=2,
-                                             blur_mode="pallas"),
-    sift=jcfg.FAST_CONFIG.sift.replace(max_keypoints=K,
-                                       max_keypoints_per_octave=K // 2,
-                                       extrema_impl="fused",
-                                       patch_impl="pallas",
-                                       hist_compute="bf16"),
-    match=jcfg.FAST_CONFIG.match.replace(impl="pallas", tile=128,
-                                         max_matches=K // 2),
-    local_map_size=K,
-    ba=jcfg.FAST_CONFIG.ba.replace(max_landmarks=1024, max_observations=3072))
-CFG = SlamConfig.from_json(JCFG.to_json())
+CASES = ("pallas", "fast")
+
+
+def configs(case):
+    """The JAX config of a case at the tests' sizes: "pallas" pins
+    blur_mode="pallas" and match.impl="pallas", "fast" keeps FAST_CONFIG's
+    own "matmul" and "xla". Both pin the fused extrema and the bf16 patch
+    kernels, which the JAX package's "auto" would not pick on the CPU."""
+    fast = case == "fast"
+    return jcfg.FAST_CONFIG.replace(
+        pyramid=jcfg.FAST_CONFIG.pyramid.replace(
+            num_octaves=2, blur_mode="matmul" if fast else "pallas"),
+        sift=jcfg.FAST_CONFIG.sift.replace(max_keypoints=K,
+                                           max_keypoints_per_octave=K // 2,
+                                           extrema_impl="fused",
+                                           patch_impl="pallas",
+                                           hist_compute="bf16"),
+        match=jcfg.FAST_CONFIG.match.replace(impl="xla" if fast else "pallas",
+                                             tile=128, max_matches=K // 2),
+        local_map_size=K,
+        ba=jcfg.FAST_CONFIG.ba.replace(max_landmarks=1024,
+                                       max_observations=3072))
 
 
 def _jax_dyn(frame_base, start, stop, Kl):
@@ -73,20 +84,22 @@ def jax_ops():
         SlamMap=JSlamMap, se3=jse3, asarray=jnp.asarray, tonumpy=np.asarray)
 
 
-@pytest.fixture(scope="module")
-def runs():
+@pytest.fixture(scope="module", params=CASES)
+def runs(request):
+    jc = configs(request.param)
+    cfg = SlamConfig.from_json(jc.to_json())
     seq = SyntheticSequence(num_frames=B, h=H, w=W, n_dots=1500, step=0.4)
     frames = np.stack([seq.frame(k) for k in range(B)])
     frames = np.clip(frames * 255.0, 0, 255).astype(np.uint8)
-    feats = SiftFrontend(CFG)(torch.from_numpy(frames))
+    feats = SiftFrontend(cfg)(torch.from_numpy(frames))
     R_gt, t_gt = world_to_camera(seq.gt_poses)
     port = run_window(port_ops("cpu"), feats, R_gt, t_gt,
-                      torch.tensor(seq.intrinsics), CFG)
+                      torch.tensor(seq.intrinsics), cfg)
     jfeats = JFeatures(JKeypoints(*(jnp.asarray(x.numpy())
                                     for x in feats.keypoints)),
                        jnp.asarray(feats.descriptors.numpy()))
     ref = run_window(jax_ops(), jfeats, R_gt, t_gt,
-                     jnp.asarray(seq.intrinsics), JCFG)
+                     jnp.asarray(seq.intrinsics), jc)
     return port, ref, R_gt, t_gt
 
 

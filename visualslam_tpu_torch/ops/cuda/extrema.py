@@ -3,21 +3,22 @@ PyTorch versions.
 
 `extrema_winners`, the fused extrema scan + per-tile winner reduce,
 replaces visualslam_tpu/ops/pallas/extrema.py `pallas_extrema_candidates`
-(the `_fused_kernel` pallas_call in `_winners_batched`). On the H100 the
-scan is memory-bound: it reads the DoG stack once (about 150 MB for a
-16-frame octave-0 batch) and does ~27 compares per position. The kernel
-(csrc/extrema.cu) gives one thread to each (frame, 16-row tile, padded
-column), keeps a 3-row x 5-level x 3-column window in registers while it
-walks the tile, and writes each winner once, so it equals the plain version
-bit for bit. Unlike the TPU kernel it needs no padded copy of the input and
-no pre-sliced halo rows: it reads the halo rows itself.
+(the `_fused_kernel` pallas_call in `_winners_batched`); `extrema_score`,
+the full masked score map of `extrema_impl="pallas"`, replaces
+`pallas_extrema_score` (`_score_kernel`). On the H100 both are
+memory-bound: they read the DoG stack once (150 MB for a 16-frame octave-0
+batch, 0.045 ms at 3.35 TB/s); the winners write 8% of that, the score map
+as much again.
 
-`extrema_score`, the full masked score map of `extrema_impl="pallas"`,
-replaces `pallas_extrema_score` (`_score_kernel`). It is memory-bound too: it
-reads the stack once and writes a map of the same size. The kernel gives one
-thread to each (frame, column, 16-row strip) with the same register window
-and writes D values per row, coalesced along W; compares and `fabsf` only,
-so it equals `extrema_score_ref` bit for bit.
+One kernel template serves both (csrc/extrema.cu): a block owns a strip of
+128 columns and one 16-row tile of one frame, streams the tile's rows (one
+halo row above and below) through a shared-memory ring with cp.async,
+several rows in flight, and each thread slides its column's 3-row window
+down the tile as per-level row extremes, so a position's 26 compares become
+two compares against the NaN-propagating max and min of its neighbours.
+Rows and columns outside the image are zero-filled, and every position
+whose window touches them is masked: compares and `fabsf` only, so both
+kernels equal their plain versions bit for bit.
 
 Each wrapper launches its kernel for a CUDA tensor and runs the plain
 version for a CPU tensor; anything else raises.
@@ -26,6 +27,7 @@ version for a CPU tensor; anything else raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -82,27 +84,33 @@ def extrema_winners_ref(dog: torch.Tensor, threshold: float):
             vrow.permute(0, 2, 1, 3).to(torch.int32).contiguous())
 
 
+def _check(name: str, dog: torch.Tensor, levels: tuple) -> None:
+    lo, hi = levels
+    if dog.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dog.device}")
+    if (dog.dtype != torch.float32 or dog.ndim != 4
+            or not lo <= dog.shape[1] <= hi):
+        want = f"D = {lo}" if lo == hi else f"{lo} <= D <= {hi}"
+        raise ValueError(f"{name}: expects float32 [B, D, H, W] with {want}, "
+                         f"got {dog.dtype} {tuple(dog.shape)}")
+    if not dog.is_contiguous():
+        raise ValueError(f"{name}: dog must be contiguous")
+
+
 def extrema_winners(dog: torch.Tensor, threshold: float):
     """Per-(tile, level, column) extrema winners of a DoG stack
     [B, 5, H, W] float32. Same contract as `extrema_winners_ref`."""
     if dog.device.type == "cpu":
         return extrema_winners_ref(dog, threshold)
-    if dog.device.type != "cuda":
-        raise ValueError(f"extrema_winners: unsupported device {dog.device}")
-    if dog.dtype != torch.float32 or dog.ndim != 4 or dog.shape[1] != LEVELS:
-        raise ValueError("extrema_winners: expects float32 [B, 5, H, W], got "
-                         f"{dog.dtype} {tuple(dog.shape)}")
-    if not dog.is_contiguous():
-        raise ValueError("extrema_winners: dog must be contiguous")
+    _check("extrema_winners", dog, (LEVELS, LEVELS))
     B, D, H, W = dog.shape
     shape = winner_shape(B, D, H, W)
     smax = torch.empty(shape, dtype=torch.float32, device=dog.device)
     srow = torch.empty(shape, dtype=torch.int32, device=dog.device)
-    lib = _lib()
-    with torch.cuda.device(dog.device):
-        rc = lib.extrema_winners(
-            build.ptr(dog), build.ptr(smax), build.ptr(srow), B, H, W,
-            shape[1], shape[3], TILE_H, 0.5 * threshold,
+    with build.on_device(dog.device):
+        rc = _lib().extrema_winners(
+            dog.data_ptr(), smax.data_ptr(), srow.data_ptr(), B, H, W,
+            shape[3], 0.5 * threshold,
             build.stream_handle(dog.device))
     build.check_launch(rc, "extrema_winners")
     extrema_winners.launches += 1
@@ -153,23 +161,13 @@ def extrema_score(dog: torch.Tensor, threshold: float) -> torch.Tensor:
     3 <= D <= 8. Same contract as `extrema_score_ref`."""
     if dog.device.type == "cpu":
         return extrema_score_ref(dog, threshold)
-    if dog.device.type != "cuda":
-        raise ValueError(f"extrema_score: unsupported device {dog.device}")
-    lo, hi = SCORE_LEVELS
-    if (dog.dtype != torch.float32 or dog.ndim != 4
-            or not lo <= dog.shape[1] <= hi):
-        raise ValueError(f"extrema_score: expects float32 [B, D, H, W] with "
-                         f"{lo} <= D <= {hi}, got {dog.dtype} "
-                         f"{tuple(dog.shape)}")
-    if not dog.is_contiguous():
-        raise ValueError("extrema_score: dog must be contiguous")
+    _check("extrema_score", dog, SCORE_LEVELS)
     B, D, H, W = dog.shape
     out = torch.empty_like(dog)
-    lib = _lib()
-    with torch.cuda.device(dog.device):
-        rc = lib.extrema_score(build.ptr(dog), build.ptr(out), B, D, H, W,
-                               0.5 * threshold,
-                               build.stream_handle(dog.device))
+    with build.on_device(dog.device):
+        rc = _lib().extrema_score(dog.data_ptr(), out.data_ptr(), B, D, H, W,
+                                  0.5 * threshold,
+                                  build.stream_handle(dog.device))
     build.check_launch(rc, "extrema_score")
     extrema_score.launches += 1
     return out
@@ -178,10 +176,11 @@ def extrema_score(dog: torch.Tensor, threshold: float) -> torch.Tensor:
 extrema_score.launches = 0
 
 
+@functools.cache
 def _lib() -> ctypes.CDLL:
     lib = build.load_library("extrema")
     fn = lib.extrema_winners
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
         ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     fn = lib.extrema_score
