@@ -3,7 +3,7 @@
     python3 chip_smoke.py        # from the repository root, one CUDA device
 
 The benchmark's main path at its own shapes: batches of 16 uint8 frames of
-376x1248 from the synthetic sequence. Three paths run, each with the launch
+376x1248 from the synthetic sequence. Four paths run, each with the launch
 counters reset just before it and read just after:
 
   - the frontend slice: the batched SIFT frontend (FAST_CONFIG, 3 octaves)
@@ -62,7 +62,17 @@ Phases, each printing its own lines:
                ms per run_engine_batch, per promotion and per tracked
                frame, host syncs and launches per batch, device busy share,
                frames/s of frontend + engine
-  7. result    one JSON line of per-kernel numbers (the extrema kernels'
+  7. sequence  the bench protocol on the kernel path: sequence frames/s
+               (median of 3 runs) and frontend frames/s, the time by stage
+               (StageTimer); an instrumented kernel-path run: launch
+               counts, host syncs per process_stream call and inside
+               every engine batch (checked: one per active frame + one per
+               promotion); an untimed plain-path run; every frame
+               committed, nothing left in flight; tracking-ok share, ATE
+               (Sim(3)-aligned), keyframes and inliers against bounds from
+               the JAX package on the same features (frames 0..55); kernel
+               path against plain path
+  8. result    one JSON line of per-kernel numbers (the extrema kernels'
                per batch: summed over the 3 octaves, one launch each; the
                others per call at octave 0 or a tracked frame), then the
                last line {"ok": true, "device": {...}}
@@ -70,7 +80,10 @@ Phases, each printing its own lines:
     python3 chip_smoke.py --save-features engine_feats.npz
 
 also writes the engine phase's kernel-path features (numpy), for running
-the JAX package's engine on the same features elsewhere.
+the JAX package's engine on the same features elsewhere;
+`--save-sequence-features seq_feats.npz` writes the sequence's features of
+frames 0..55 (the tracker's first four detection calls), for the JAX
+package's Tracker on the same features (PERF.md).
 
 Any failed check raises, so the run exits non-zero and prints no result.
 Without a CUDA device it exits non-zero before doing anything.
@@ -88,6 +101,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from visualslam_tpu_torch import bench
 from visualslam_tpu_torch.backend.ba import run_ba
 from visualslam_tpu_torch.frontend import SiftFrontend
 from visualslam_tpu_torch.io.synthetic import SyntheticSequence
@@ -124,6 +138,7 @@ from visualslam_tpu_torch.slam import engine
 from visualslam_tpu_torch.slam.engine import run_engine_batch
 from visualslam_tpu_torch.slam.evaluation import ate_rmse
 from visualslam_tpu_torch.slam.track_step import keyframe_step, track_batch
+from visualslam_tpu_torch.slam.tracker import Tracker
 from visualslam_tpu_torch.slam.window import (
     port_ops,
     run_engine,
@@ -132,6 +147,7 @@ from visualslam_tpu_torch.slam.window import (
 )
 from visualslam_tpu_torch.utils.config import FAST_CONFIG
 from visualslam_tpu_torch.utils.masked import block_top_k_select
+from visualslam_tpu_torch.utils.profiling import StageTimer
 
 H, W, BATCH = 376, 1248, 16
 KERNEL_TOL = 1e-4           # x (1 + max |plain|): summation order only
@@ -1198,10 +1214,190 @@ def phase_engine(frames_dev: torch.Tensor, seq: SyntheticSequence, card: str,
     return counts
 
 
+SEQ_BOUND_FRAMES = 56       # frames 0..55: the saved features' prefix
+# the sequence's bounds on frames 0..55: half and twice the JAX package's
+# Tracker on the same features (tests/jax_sequence_bounds.py on the
+# features of a chip run, PERF.md: tracking ok 1.0, ATE 0.2081 after a
+# Sim(3) alignment, 8 keyframes, mean inliers 81.04)
+SEQ_BOUNDS = dict(ok=0.5, ate=0.4163, keyframes=(4, 16),
+                  mean_inliers=(40.52, 162.07))
+SEQ_PATH_KEYFRAMES = 0      # kernel vs plain path: keyframe counts apart
+SEQ_PATH_ATE = 2.0          # kernel vs plain path: ATE within this factor
+FRONTEND_PATH = ("extrema_winners", "orient_hist", "descriptor")
+
+
+def sequence_stats(tracker, gt_centres: np.ndarray, n: int) -> dict:
+    """Tracking-ok share, ATE (Sim(3)-aligned), keyframes and inliers of
+    the tracker's frames 0..n-1."""
+    frames = tracker.frames[:n]
+    est = tracker.trajectory()[:n, :, 3]
+    inl = [f.num_inliers for f in frames if f.num_inliers > 0]
+    return dict(ok=float(np.mean([f.tracking_ok for f in frames])),
+                ate=ate_rmse(est, gt_centres[:n]),
+                keyframes=int(sum(f.is_keyframe for f in frames)),
+                mean_inliers=float(np.mean(inl or [0])),
+                min_inliers=int(min(inl or [0])))
+
+
+def instrumented_run(frames, seq, dev):
+    """One kernel-path run of the bench's sequence with the host syncs
+    counted (sync debug mode, every sync torch reports): per
+    process_stream call, and inside every engine batch against the
+    engine's rule (one need_kf read per active frame + one eigh per
+    promotion). Also keeps the features of the tracker's first detection
+    calls. Returns (tracker, syncs per process_stream call, [(syncs,
+    active frames, promotions)] per engine batch, detected Features)."""
+    run_batch = engine.run_engine_batch
+    per_batch, detected = [], []
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+
+        def n_syncs():
+            return sum("called a synchronizing" in str(w.message)
+                       for w in caught)
+
+        def counted(persist, dyn, *a, **kw):
+            s0 = n_syncs()
+            packed, p = run_batch(persist, dyn, *a, **kw)
+            s = n_syncs() - s0
+            B = a[0].keypoints.yx.shape[0]
+            per_batch.append((s, dyn.stop - dyn.start, packed, B))
+            return packed, p
+
+        tracker = Tracker(FAST_CONFIG, seq.intrinsics, device=dev)
+        detect = tracker.detect_batch
+
+        def keep(imgs):
+            f = detect(imgs)
+            detected.append(f)
+            return f
+
+        tracker.detect_batch = keep
+        engine.run_engine_batch = counted
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            tracker.process_batch(frames[:bench.INIT_FRAMES], 0)
+            stream = []
+            for k in range(bench.INIT_FRAMES, len(frames), BATCH):
+                s0 = n_syncs()
+                tracker.process_stream(frames[k:k + BATCH], k)
+                stream.append(n_syncs() - s0)
+            s0 = n_syncs()
+            tracker.finish()
+            stream.append(n_syncs() - s0)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            engine.run_engine_batch = run_batch
+    rules = []
+    for s, active, packed, B in per_batch:
+        prom_n = int(packed[B * 24].item())
+        rules.append((s, active, prom_n))
+    return tracker, stream, rules, detected
+
+
+def phase_sequence(card: str, dev, save_features: str | None) -> dict:
+    """The port's bench protocol on the kernel path (bench.run_once over
+    96 + 8 frames, 3 timed runs), an instrumented kernel-path run (launch
+    counts, host syncs, the engine's sync rule), and one untimed plain-path
+    run; returns the instrumented run's launch counts."""
+    t_phase = time.perf_counter()
+    print(f"sequence: {card}")
+    frames, seq = bench.render_sequence(bench.SEQ_FRAMES + bench.INIT_FRAMES)
+    n = len(frames)
+    gt = seq.gt_poses[:, :, 3]
+    bench.warmup(FAST_CONFIG, dev, KERNELS)
+    fps_runs, timers = [], []
+    for _ in range(3):
+        timer = StageTimer()
+        tracker, seconds = bench.run_once(frames, seq.intrinsics,
+                                          FAST_CONFIG, dev, KERNELS, timer)
+        fps_runs.append(bench.SEQ_FRAMES / seconds)
+        timers.append((seconds, timer))
+    fps = float(np.median(fps_runs))
+    frontend_fps = bench.bench_frontend(FAST_CONFIG, dev, KERNELS)
+    diag = bench.diagnostics(tracker)
+    print(f"sequence frames/s ({card}): {fps:.2f} (median of runs "
+          f"{[round(v, 2) for v in fps_runs]}, {bench.SEQ_FRAMES} frames of "
+          f"process_stream in batches of {BATCH} + finish), frontend "
+          f"frames/s {frontend_fps:.1f}; {json.dumps(diag)}")
+    seconds, timer = sorted(timers, key=lambda x: x[0])[1]
+    summ = timer.summary()
+    print(f"sequence time by stage (median run, {seconds:.3f} s; host "
+          f"clock, StageTimer): " + ", ".join(
+              f"{k} {v['total_s']:.3f} s / {v['count']}"
+              for k, v in summ.items()))
+
+    reset_launch_counts()
+    tk, stream, rules, detected = instrumented_run(frames, seq, dev)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    print(f"sequence launches (instrumented kernel-path run): {counts}")
+    for name in FRONTEND_PATH:
+        check(counts[name] > 0, f"{name} launched on the sequence path")
+    for name in ("blur_stack", "l2_2nn", "extrema_score"):
+        check(counts[name] == 0, f"{name} not launched under FAST_CONFIG")
+    print(f"sequence host syncs per process_stream call: {stream[:-1]} "
+          f"(finish: {stream[-1]})")
+    print(f"sequence engine batches (syncs, active frames, promotions): "
+          f"{rules}")
+    for s, active, prom in rules:
+        check(s == active + prom, "every engine batch syncs once per active "
+              "frame (need_kf) and once per promotion (eigh)")
+    if save_features:
+        first = detected[:4]        # frames 0..55: 8 + 3 x 16
+        np.savez(save_features, intrinsics=seq.intrinsics,
+                 gt_poses=seq.gt_poses[:SEQ_BOUND_FRAMES],
+                 sizes=np.array([f.descriptors.shape[0] for f in first]),
+                 **{f"b{b}_{k}": v.cpu().numpy()
+                    for b, f in enumerate(first)
+                    for k, v in zip(Keypoints._fields + ("descriptors",),
+                                    tuple(f.keypoints) + (f.descriptors,))})
+        print(f"sequence: features of frames 0..{SEQ_BOUND_FRAMES - 1} "
+              f"saved to {save_features}")
+
+    plain, _ = bench.run_once(frames, seq.intrinsics, FAST_CONFIG, dev, PLAIN)
+    out = {}
+    for name, t in (("kernel", tk), ("plain", plain)):
+        check(len(t.frames) == n and [f.frame_id for f in t.frames]
+              == list(range(n)), f"{name}: every frame committed once")
+        check(t._inflight is None, f"{name}: finish() leaves nothing in "
+              "flight")
+        full = sequence_stats(t, gt, n)
+        pre = sequence_stats(t, gt, SEQ_BOUND_FRAMES)
+        out[name] = (full, pre)
+        print(f"sequence {name} path: {json.dumps(full)} over frames "
+              f"0..{n - 1}; {json.dumps(pre)} over 0..{SEQ_BOUND_FRAMES - 1};"
+              f" landmarks {int(t.map.lm_valid.sum())}, loop closures "
+              f"{t.num_loop_closures}, relocalizations {t.relocalizations} "
+              f"(database {t.db_relocalizations})")
+        b = SEQ_BOUNDS
+        check(pre["ok"] >= b["ok"], f"{name}: tracking-ok share")
+        check(pre["ate"] <= b["ate"], f"{name}: ATE <= {b['ate']}")
+        check(b["keyframes"][0] <= pre["keyframes"] <= b["keyframes"][1],
+              f"{name}: keyframes within {b['keyframes']}")
+        check(b["mean_inliers"][0] <= pre["mean_inliers"]
+              <= b["mean_inliers"][1],
+              f"{name}: mean inliers within {b['mean_inliers']}")
+    k, p = out["kernel"][0], out["plain"][0]
+    ratio = k["ate"] / max(p["ate"], 1e-9)
+    print(f"sequence kernel vs plain: keyframes {k['keyframes']} vs "
+          f"{p['keyframes']}, ATE {k['ate']:.4f} vs {p['ate']:.4f} (ratio "
+          f"{ratio:.3f})")
+    check(abs(k["keyframes"] - p["keyframes"]) <= SEQ_PATH_KEYFRAMES,
+          "paths agree in keyframes")
+    check(1 / SEQ_PATH_ATE <= ratio <= SEQ_PATH_ATE,
+          f"paths' ATE within a factor {SEQ_PATH_ATE}")
+    print(f"sequence phase wall time: {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 def main() -> None:
     args = sys.argv[1:]
     save = args[args.index("--save-features") + 1] \
         if "--save-features" in args else None
+    save_seq = args[args.index("--save-sequence-features") + 1] \
+        if "--save-sequence-features" in args else None
     dev, card = phase_device()
     phase_build()
     frames, seq = render_frames()
@@ -1215,11 +1411,16 @@ def main() -> None:
     phase_slice(frames_dev, frontend, plain)
     track = phase_track(frames_dev, seq, frontend, card, dev)
     engine_counts = phase_engine(frames_dev, seq, card, dev, save)
-    # each kernel's launches on the path that runs it: the fused extrema on
-    # the tracking path, every other kernel on the engine path
-    launches = dict(engine_counts, extrema_winners=track["extrema_winners"])
+    del frames_dev
+    sequence_counts = phase_sequence(card, dev, save_seq)
+    # each kernel's launches on the path that runs it: the main path (the
+    # sequence) for the three FAST_CONFIG kernels, the engine path for the
+    # three opt-in ones
+    launches = dict(engine_counts, **{n: sequence_counts[n]
+                                      for n in FRONTEND_PATH})
     check(all(launches[name] > 0 for name in SOURCES),
-          "every kernel launched on the tracking or the engine path")
+          "every kernel launched on the sequence or the engine path")
+    check(track["extrema_winners"] > 0, "extrema_winners on the track path")
     print(f"device: {card}")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],

@@ -149,5 +149,5 @@ def test_singular_step_is_rejected(rng):
 @pytest.mark.parametrize("solver", ["schur_cg", "schur_mf"])
 def test_unported_solvers_raise(rng, solver):
     _, tp, _ = _problems(rng, n_cams=3, n_lms=20)
-    with pytest.raises(NotImplementedError, match="A.9"):
+    with pytest.raises(NotImplementedError, match="A.8"):
         tba.run_ba(tp, BAConfig(solver=solver))

@@ -150,6 +150,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "import visualslam_tpu_torch.geometry.camera\n"
             "import visualslam_tpu_torch.utils.convert\n"
             "import visualslam_tpu_torch.slam.evaluation\n"
+            "import visualslam_tpu_torch.slam.tracker\n"
+            "import visualslam_tpu_torch.slam.loop_closure\n"
+            "import visualslam_tpu_torch.slam.global_ba\n"
+            "import visualslam_tpu_torch.slam.two_view\n"
+            "import visualslam_tpu_torch.geometry.sim3\n"
+            "import visualslam_tpu_torch.utils.profiling\n"
+            "import visualslam_tpu_torch.bench\n"
             "import chip_smoke\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'visualslam_tpu' or "

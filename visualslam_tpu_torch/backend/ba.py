@@ -12,7 +12,7 @@ to run: hold results to tolerances on cost and pose, not to bits.
 Conventions: world-to-camera poses (x_cam = R X + t), residuals on the
 normalized image plane, left-multiplicative se(3) perturbation
 exp(xi) . T with xi = [omega, v]. The solvers "schur_cg" and "schur_mf"
-come with the sequence-scale work (ROADMAP.md A.9).
+come with the sequence-scale work (ROADMAP.md A.8).
 """
 
 from __future__ import annotations
@@ -54,7 +54,7 @@ class BAResult(NamedTuple):
 def _check_solver(cfg: BAConfig) -> None:
     if cfg.solver != "schur_dense":
         raise NotImplementedError(
-            f"BA solver {cfg.solver!r} is not ported yet; see ROADMAP.md A.9")
+            f"BA solver {cfg.solver!r} is not ported yet; see ROADMAP.md A.8")
 
 
 def _residuals_jacobians(p: BAProblem, R, t, X, huber_delta: float):

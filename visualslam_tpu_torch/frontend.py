@@ -41,7 +41,7 @@ def detect_and_describe(imgs: torch.Tensor, cfg: SlamConfig,
                                         kernels)
     if cfg.frontend in ("orb", "harris"):
         raise NotImplementedError(
-            f"the {cfg.frontend} frontend is not ported yet; see ROADMAP.md A.8")
+            f"the {cfg.frontend} frontend is not ported yet; see ROADMAP.md A.9")
     raise ValueError(f"unknown frontend {cfg.frontend!r}")
 
 

@@ -1,0 +1,83 @@
+"""Batched-hypothesis RANSAC for the essential matrix
+(visualslam_tpu/geometry/ransac.py).
+
+No early-exit loop: N hypotheses are sampled, solved and scored in one
+batched call, the first best count wins, and one weighted refit on the
+winner's inliers polishes it. Samples are Gumbel top-k over the validity
+mask, drawn from a `torch.Generator` on the tensors' device.
+
+`jax.random`'s bits cannot be drawn in torch, so the sampler is one
+module-level function, `sample_indices`: a parity test replaces it with one
+that replays the reference's draws.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from visualslam_tpu_torch.geometry.epipolar import (
+    eight_point,
+    recover_pose,
+    sampson_error,
+)
+from visualslam_tpu_torch.utils.config import RansacConfig
+from visualslam_tpu_torch.utils.masked import top_k
+
+
+def generator(seed: int, device="cuda") -> torch.Generator:
+    """A torch.Generator on `device` seeded with `seed`."""
+    return torch.Generator(device=device).manual_seed(int(seed))
+
+
+def sample_indices(gen: torch.Generator, valid: torch.Tensor, N: int,
+                   n: int) -> torch.Tensor:
+    """[N, n] indices: per hypothesis, n distinct indices among the True
+    entries of `valid` (Gumbel top-k, ties to the lower index). With fewer
+    than n valid entries the tail repeats invalid slots; the caller's
+    weights guard that."""
+    u = torch.rand((N,) + tuple(valid.shape), generator=gen,
+                   device=valid.device).clamp_min(1e-20)
+    g = -torch.log(-torch.log(u))
+    scores = torch.where(valid, g, torch.full_like(g, float("-inf")))
+    return top_k(scores, n)[1]
+
+
+def ransac_essential(x1: torch.Tensor, x2: torch.Tensor, valid: torch.Tensor,
+                     cfg: RansacConfig, gen: torch.Generator | None = None):
+    """Robust essential-matrix estimation.
+
+    x1, x2: [M, 2] normalized-coordinate correspondences; valid: [M] mask.
+    Returns (E, inlier_mask [M], num_inliers). Deterministic for a given
+    cfg.seed unless an explicit generator is passed."""
+    if cfg.solver == "5pt":
+        raise NotImplementedError(
+            "the five-point solver is not ported yet; see ROADMAP.md A.9")
+    if gen is None:
+        gen = generator(cfg.seed, x1.device)
+    idx = sample_indices(gen, valid, cfg.num_hypotheses, cfg.sample_size)
+    Es = eight_point(x1[idx], x2[idx])                       # [N, 3, 3]
+    inls = (sampson_error(Es, x1, x2) < cfg.inlier_threshold) & valid
+    counts = inls.sum(-1)
+    best = torch.argmax(counts)                              # first maximum
+    E0 = Es[best]
+    inl0 = inls[best]
+
+    # polish: weighted 8-point refit on the winner's inliers, re-scored
+    E1 = eight_point(x1, x2, inl0.to(x1.dtype))
+    inl1 = (sampson_error(E1, x1, x2) < cfg.inlier_threshold) & valid
+    use_refit = inl1.sum() >= inl0.sum()
+    E = torch.where(use_refit, E1, E0)
+    inl = torch.where(use_refit, inl1, inl0)
+    return E, inl, inl.sum()
+
+
+def estimate_relative_pose(x1: torch.Tensor, x2: torch.Tensor,
+                           valid: torch.Tensor, cfg: RansacConfig,
+                           gen: torch.Generator | None = None):
+    """RANSAC essential + cheirality-checked pose + triangulation.
+
+    Returns (R, t_unit, X [M, 3] in camera-1 frame, inlier_mask,
+    n_inliers). Translation is up-to-scale (unit norm)."""
+    E, inl, _ = ransac_essential(x1, x2, valid, cfg, gen)
+    R, t, X, front = recover_pose(E, x1, x2, inl.to(x1.dtype))
+    return R, t, X, inl & front, (inl & front).sum()

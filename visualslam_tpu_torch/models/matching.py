@@ -43,7 +43,7 @@ def match_features(fa: Features, fb: Features, cfg: MatchConfig,
     if cfg.metric != "l2":
         raise NotImplementedError(
             f"metric {cfg.metric!r} comes with the ORB frontend; see "
-            "ROADMAP.md A.8")
+            "ROADMAP.md A.9")
     va = fa.keypoints.valid
     vb = fb.keypoints.valid
     use_2nn = (cfg.impl == "pallas" and fa.capacity % cfg.tile == 0

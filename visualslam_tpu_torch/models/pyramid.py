@@ -59,11 +59,11 @@ def build_pyramid(img: torch.Tensor, cfg: PyramidConfig,
     if cfg.initial_upsample:
         raise NotImplementedError(
             "initial_upsample (the DEFAULT profile) is not ported yet; "
-            "see ROADMAP.md A.8")
+            "see ROADMAP.md A.9")
     if cfg.blur_mode not in ("matmul", "pallas"):
         raise NotImplementedError(
             f"blur_mode={cfg.blur_mode!r} is not ported yet; see ROADMAP.md "
-            "A.8")
+            "A.9")
     img = img.to(getattr(torch, cfg.dtype))
     sigmas = level_sigmas(cfg)
     if bands is None:

@@ -1,7 +1,7 @@
 """Resize ops for pyramid construction (visualslam_tpu/ops/resize.py).
 
 The 2x linear upsample of the DEFAULT profile is not ported yet (ROADMAP.md
-A.8); the FAST profile starts its pyramid from the frame itself.
+A.9); the FAST profile starts its pyramid from the frame itself.
 """
 
 from __future__ import annotations

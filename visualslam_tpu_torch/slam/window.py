@@ -6,9 +6,9 @@ run_engine_batch over consecutive batches, the persist chained device to
 device).
 
 The bootstrap stands in for the host tracker's two-view init (8-point
-RANSAC and scale, ROADMAP.md A.7, not ported yet): the first two keyframes
-sit at ground-truth world-to-camera poses, so the map is at the
-sequence's own scale. What follows is the tracker's own sequence
+RANSAC and scale, slam/tracker.Tracker): the first two keyframes sit at
+ground-truth world-to-camera poses, so the map is at the sequence's own
+scale and both packages start from the same map. What follows is the tracker's own sequence
 (visualslam_tpu/slam/tracker.py): `max_depth` is 20 x the median depth of
 the first triangulation, the tracking floor is
 max(10, keyframe_min_inliers // 3), map updates on promotion follow
@@ -273,8 +273,8 @@ def run_engine(ops, feats_batches, R_gt: np.ndarray, t_gt: np.ndarray, intr,
     chained device to device, each packed buffer decoded.
 
     The host tracker's mirror of the promotions into its map
-    (tracker._engine_apply_prom, ROADMAP.md A.7) is not part of this
-    driver: the engine's own device state carries the run."""
+    (slam/tracker.Tracker._engine_apply_prom) is not part of this driver:
+    the engine's own device state carries the run."""
     B = int(feats_batches[0].descriptors.shape[0])
     M = cfg.match.max_matches
     W = cfg.ba.max_cameras
