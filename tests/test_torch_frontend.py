@@ -157,6 +157,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "import visualslam_tpu_torch.geometry.sim3\n"
             "import visualslam_tpu_torch.utils.profiling\n"
             "import visualslam_tpu_torch.bench\n"
+            "import visualslam_tpu_torch.cli\n"
+            "import visualslam_tpu_torch.slam.checkpoint\n"
+            "import visualslam_tpu_torch.slam.viz\n"
+            "import visualslam_tpu_torch.io.kitti\n"
+            "import visualslam_tpu_torch.io.native\n"
+            "import visualslam_tpu_torch.io.photo_seq\n"
+            "import visualslam_tpu_torch.io.serialization\n"
+            "import visualslam_tpu_torch.utils.images\n"
+            "import visualslam_tpu_torch.utils.debug\n"
             "import chip_smoke\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'visualslam_tpu' or "

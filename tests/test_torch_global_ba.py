@@ -1,7 +1,8 @@
 """Global BA in both packages on one map: the port's tracker maps 30
 injected-feature frames (window of 6 keyframes, so evicted keyframes are
 archived), then both packages' run_global_ba optimize the full history of
-that map (the JAX one reads the port's SlamMap, a copy of its own class)."""
+that map (the JAX one reads the port's SlamMap, a copy of its own class).
+An 80-keyframe map built through the map's API puts both on schur_mf."""
 
 import numpy as np
 import pytest
@@ -79,3 +80,91 @@ def test_tracker_global_ba_adopts_the_poses(tracked):
             np.testing.assert_allclose(f.R, res.R[i], atol=1e-6)
     path = np.linalg.norm(before[-1, :, 3] - before[0, :, 3])
     assert np.abs(after - before).max() < 0.05 * path
+
+
+def _long_map(n_kf=80, window=6, seed=3):
+    """A SlamMap over `n_kf` keyframes of a forward path (window `window`,
+    so all but the last few are archived), built through the map's own
+    API: ground-truth landmarks and poses with noise, observations of the
+    visible landmarks with pixel noise. Returns (map, ground-truth R, t)."""
+    from visualslam_tpu_torch.slam.map_state import SlamMap
+
+    rng = np.random.default_rng(seed)
+    Xw = rng.uniform([-10, -4, 4], [10, 4, 0.5 * n_kf + 20], (900, 3))
+    m = SlamMap(window, 1200, 16)
+    lm = m.allocate_landmarks(
+        (Xw + rng.normal(0, 0.05, Xw.shape)).astype(np.float32))
+    Rs, ts = [], []
+    for k in range(n_kf):
+        a = 0.003 * k
+        R = np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0],
+                      [-np.sin(a), 0, np.cos(a)]])
+        t = -R @ np.array([0.02 * k, 0.0, 0.5 * k])
+        Rs.append(R)
+        ts.append(t)
+        slot, _ = m.allocate_keyframe()
+        Rn = R if k == 0 else R @ np.array(
+            [[1, -1e-3, 0], [1e-3, 1, 0], [0, 0, 1]])
+        tn = t + (0 if k == 0 else rng.normal(0, 0.02, 3))
+        m.set_keyframe(slot, k, Rn.astype(np.float32),
+                       tn.astype(np.float32), None, None, None)
+        Xc = Xw @ R.T + t
+        uv = Xc[:, :2] / Xc[:, 2:]
+        vis = (Xc[:, 2] > 2) & (Xc[:, 2] < 25) & (np.abs(uv) < 0.6).all(1)
+        uv = uv + rng.normal(0, 1e-3, uv.shape)
+        m.add_observations(slot, lm[vis], uv[vis].astype(np.float32))
+    return m, np.stack(Rs), np.stack(ts)
+
+
+def test_global_ba_above_64_cameras_takes_schur_mf_and_matches_jax():
+    """80 keyframes: both packages' run_global_ba hand the dense default
+    over to schur_mf, and the port's solve matches the JAX package's on
+    the same map."""
+    m, _, _ = _long_map()
+    assert len(m.archive) == 80 - 6
+    cfg = CFG.ba.replace(iters=6)
+    ref = jrun(m, cfg)
+    got = trun(m, PCFG.ba.replace(iters=6), device="cpu")
+    np.testing.assert_array_equal(got.frame_ids, ref.frame_ids)
+    assert (got.n_cameras, got.n_landmarks, got.n_observations) == (
+        ref.n_cameras, ref.n_landmarks, ref.n_observations)
+    assert got.n_cameras == 80
+    # initial costs within 1e-5 relative; the matrix-free CG solves of
+    # two libraries in float32: final costs within 2%, poses within
+    # 2e-3 / 2e-2 (as the dense case above)
+    assert got.initial_cost == pytest.approx(ref.initial_cost, rel=1e-5)
+    assert got.cost < 0.5 * got.initial_cost
+    assert got.cost == pytest.approx(ref.cost, rel=0.02)
+    np.testing.assert_allclose(got.R, ref.R, atol=2e-3)
+    np.testing.assert_allclose(got.t, ref.t, atol=2e-2)
+
+
+def test_tracker_global_ba_runs_above_64_keyframes(monkeypatch):
+    """Tracker.global_ba over an 80-keyframe history runs schur_mf (it
+    raised before the matrix-free solver was ported) and lowers the cost;
+    every keyframe adopts its optimized pose."""
+    from visualslam_tpu_torch.backend import ba as tba
+    from visualslam_tpu_torch.slam.tracker import FrameResult
+
+    m, _, _ = _long_map()
+    tracker = Tracker(PCFG, INTR, device="cpu", loop_closure=False)
+    tracker.map = m
+    tracker.frames = [
+        FrameResult(k, m.archive[k].R if k < len(m.archive)
+                    else m.kf_R[m.kf_order[k - len(m.archive)]],
+                    m.archive[k].t if k < len(m.archive)
+                    else m.kf_t[m.kf_order[k - len(m.archive)]],
+                    is_keyframe=True) for k in range(80)]
+    solvers = []
+    run_ba = tba.run_ba
+
+    def spy(p, cfg):
+        solvers.append(cfg.solver)
+        return run_ba(p, cfg)
+
+    monkeypatch.setattr("visualslam_tpu_torch.slam.global_ba.run_ba", spy)
+    res = tracker.global_ba()
+    assert solvers == ["schur_mf"]
+    assert res.n_cameras == 80 and res.cost < res.initial_cost
+    for k, f in enumerate(tracker.frames):
+        np.testing.assert_array_equal(f.R, res.R[k].astype(np.float32))

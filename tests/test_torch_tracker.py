@@ -89,6 +89,32 @@ def test_tracker_trajectory_accuracy(rng):
     assert r_rmse < 0.5, f"RPE rot {r_rmse:.3f} deg"
 
 
+@pytest.mark.parametrize("solver", ["schur_cg", "schur_mf"])
+def test_tracker_window_ba_under_cg_solvers(rng, monkeypatch, solver):
+    """The tracker's window BA runs cfg.ba as the reference does, the two
+    CG solvers included (they raised before they were ported): every
+    window BA takes the configured solver, and the trajectory keeps the
+    band of test_tracker_trajectory_accuracy."""
+    from visualslam_tpu_torch.slam import tracker as tmod
+
+    seen = []
+    packed = tmod.run_ba_packed
+
+    def spy(p, cfg):
+        seen.append(cfg.solver)
+        return packed(p, cfg)
+
+    monkeypatch.setattr(tmod, "run_ba_packed", spy)
+    cfg = PCFG.replace(ba=PCFG.ba.replace(solver=solver))
+    tracker, gt = run_sequence(rng, n_frames=16, cfg=cfg)
+    assert seen and set(seen) == {solver}
+    assert tracker.last_ba_cost >= 0
+    assert all(f.tracking_ok for f in tracker.frames)
+    assert _ate(tracker, gt) < 0.15
+    _, r_rmse = rpe(tracker.trajectory(), gt)
+    assert r_rmse < 0.5, f"RPE rot {r_rmse:.3f} deg"
+
+
 def test_tracker_window_slides(rng):
     tracker, gt = run_sequence(rng, n_frames=40)
     assert len(tracker.map.kf_order) <= CFG.ba.max_cameras

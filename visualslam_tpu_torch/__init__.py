@@ -1,13 +1,14 @@
 """PyTorch + CUDA port of visualslam_tpu for NVIDIA Hopper (H100).
 
 The JAX package `visualslam_tpu` is the reference; module names here mirror
-it. Ported so far: the batched SIFT frontend and frame matching
-(`frontend.detect_and_describe`, `frontend.SiftFrontend`,
-`models.matching.match_features`), per-frame tracking and keyframe
-triangulation (`slam.track_step`, `backend.pnp`, `geometry`), the numpy map
-(`slam.map_state`) and the dense-Schur window BA (`backend.ba`). Five TPU
-kernels are hand-written in CUDA for sm_90a (`ops/cuda/`, sources in
-`csrc/`). The port imports torch and never jax.
+it. The whole SLAM stream is ported: the batched SIFT frontend and
+matching, tracking, the engine batch program, the host tracker
+(`slam.tracker.Tracker`) with loop closure and global BA, the three BA
+solvers, checkpoint / resume, the I/O modules and the command line
+(`python -m visualslam_tpu_torch.cli`). The six TPU kernels are
+hand-written in CUDA for sm_90a (`ops/cuda/`, sources in `csrc/`). The
+DEFAULT profile, ORB / Harris and the parallel paths come later
+(ROADMAP.md A.9, A.10). The port imports torch and never jax.
 """
 
 from visualslam_tpu_torch.frontend import SiftFrontend, detect_and_describe

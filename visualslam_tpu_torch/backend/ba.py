@@ -9,10 +9,17 @@ Levenberg-Marquardt runs a fixed number of iterations with a masked accept.
 On CUDA `index_add_` sums with atomics, in an order that changes from run
 to run: hold results to tolerances on cost and pose, not to bits.
 
+Three solvers, as the reference: "schur_dense" (the reduced 6C x 6C system
+solved directly), "schur_cg" (the same system by Jacobi-preconditioned
+conjugate gradients) and "schur_mf" (matrix-free: the coupling stays per
+observation, [O, 6, 3], and the reduced system is only ever applied, by
+gathers and segment sums, under block-Jacobi-preconditioned CG). Both CG
+solvers follow `jax.scipy.sparse.linalg.cg` (`cg`): the stop test is carried
+on the device, so a solve never waits for the host.
+
 Conventions: world-to-camera poses (x_cam = R X + t), residuals on the
 normalized image plane, left-multiplicative se(3) perturbation
-exp(xi) . T with xi = [omega, v]. The solvers "schur_cg" and "schur_mf"
-come with the sequence-scale work (ROADMAP.md A.8).
+exp(xi) . T with xi = [omega, v].
 """
 
 from __future__ import annotations
@@ -49,12 +56,6 @@ class BAResult(NamedTuple):
     cost: torch.Tensor          # final robust cost
     initial_cost: torch.Tensor
     lm_lambda: torch.Tensor
-
-
-def _check_solver(cfg: BAConfig) -> None:
-    if cfg.solver != "schur_dense":
-        raise NotImplementedError(
-            f"BA solver {cfg.solver!r} is not ported yet; see ROADMAP.md A.8")
 
 
 def _residuals_jacobians(p: BAProblem, R, t, X, huber_delta: float):
@@ -131,9 +132,12 @@ def _segment_sum(x: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
                        device=x.device).index_add_(0, idx, x)
 
 
-def normal_equations(p: BAProblem, R, t, X, cfg: BAConfig):
-    """Assemble (U [C,6,6], V [L,3,3], bc [C,6], bl [L,3], Wd [C,L,6,3]);
-    the coupling Wd is a scatter-add over the fused (cam, lm) pair index."""
+def normal_equations_mf(p: BAProblem, R, t, X, cfg: BAConfig):
+    """Normal-equation factors with the camera-landmark coupling per
+    observation (Wo [O, 6, 3]): the matrix-free solver applies the reduced
+    system from them and never materializes it (O(O) memory at any
+    scale).
+    Returns (U [C,6,6], V [L,3,3], bc [C,6], bl [L,3], Wo [O,6,3])."""
     C = R.shape[0]
     L = X.shape[0]
     r, Jc, Jl, _ = _residuals_jacobians(p, R, t, X, cfg.huber_delta)
@@ -141,9 +145,19 @@ def normal_equations(p: BAProblem, R, t, X, cfg: BAConfig):
     V = _segment_sum(torch.einsum("oai,oaj->oij", Jl, Jl), p.lm_idx, L)
     bc = -_segment_sum(torch.einsum("oai,oa->oi", Jc, r), p.cam_idx, C)
     bl = -_segment_sum(torch.einsum("oai,oa->oi", Jl, r), p.lm_idx, L)
+    Wo = torch.einsum("oai,oaj->oij", Jc, Jl)            # [O, 6, 3]
+    return U, V, bc, bl, Wo
+
+
+def normal_equations(p: BAProblem, R, t, X, cfg: BAConfig):
+    """Assemble (U [C,6,6], V [L,3,3], bc [C,6], bl [L,3], Wd [C,L,6,3]):
+    normal_equations_mf's factors with the per-observation coupling
+    scatter-added over the fused (cam, lm) pair index."""
+    C = R.shape[0]
+    L = X.shape[0]
+    U, V, bc, bl, Wo = normal_equations_mf(p, R, t, X, cfg)
     pair = p.cam_idx * L + p.lm_idx                      # [O]
-    Wd = _segment_sum(torch.einsum("oai,oaj->oij", Jc, Jl), pair,
-                      C * L).reshape(C, L, 6, 3)
+    Wd = _segment_sum(Wo, pair, C * L).reshape(C, L, 6, 3)
     return U, V, bc, bl, Wd
 
 
@@ -161,11 +175,40 @@ def schur_camera_system(U, V, bc, bl, Wd, lam):
     return S, b, V_inv
 
 
+def cg(matvec, b: torch.Tensor, precond, maxiter: int,
+       tol: float = 1e-10) -> torch.Tensor:
+    """Preconditioned conjugate gradients with the semantics of
+    `jax.scipy.sparse.linalg.cg(matvec, b, M=precond, maxiter, tol)`: start
+    from x0 = 0, r0 = b - A x0; iterate while r.r > tol^2 (b.b) (the
+    unpreconditioned residual) and k < maxiter. The loop runs `maxiter`
+    iterations on the device and freezes (x, r, p, gamma) with torch.where
+    once the test fails, so nothing is read on the host; a frozen
+    iteration's 0 / 0 never reaches the result (b = 0 gives zeros)."""
+    atol2 = tol * tol * (b * b).sum()
+    x = torch.zeros_like(b)
+    r = b - matvec(x)
+    p = precond(r)
+    gamma = (r * p).sum()
+    for _ in range(maxiter):
+        live = (r * r).sum() > atol2
+        Ap = matvec(p)
+        alpha = gamma / (p * Ap).sum()
+        x_ = x + alpha * p
+        r_ = r - alpha * Ap
+        z_ = precond(r_)
+        gamma_ = (r_ * z_).sum()
+        p_ = z_ + (gamma_ / gamma) * p
+        x = torch.where(live, x_, x)
+        r = torch.where(live, r_, r)
+        p = torch.where(live, p_, p)
+        gamma = torch.where(live, gamma_, gamma)
+    return x
+
+
 def solve_cameras(S, b, cam_valid, lam, cfg: BAConfig):
-    """Damp, gauge-fix and solve the reduced 6C x 6C camera system densely
-    (solver "schur_dense"); a singular system gives NaN, which the LM
-    accept rejects."""
-    _check_solver(cfg)
+    """Damp, gauge-fix and solve the reduced 6C x 6C camera system: densely
+    ("schur_dense"; a singular system gives NaN, which the LM accept
+    rejects) or by Jacobi-preconditioned CG ("schur_cg")."""
     C = cam_valid.shape[0]
     frozen = ~cam_valid
     if cfg.fix_first_camera:
@@ -175,7 +218,12 @@ def solve_cameras(S, b, cam_valid, lam, cfg: BAConfig):
     S2 = S.reshape(6 * C, 6 * C) + lam * eye
     S2 = S2 * mask6[:, None] * mask6[None, :]
     S2 = S2 + torch.diag(1.0 - mask6)                    # identity on frozen
-    return solve_masked(S2, b.reshape(-1) * mask6).reshape(C, 6)
+    b2 = b.reshape(-1) * mask6
+    if cfg.solver == "schur_cg":
+        inv_diag = 1.0 / torch.clamp_min(torch.diagonal(S2), 1e-12)
+        return cg(lambda v: S2 @ v, b2, lambda v: inv_diag * v,
+                  cfg.cg_iters).reshape(C, 6)
+    return solve_masked(S2, b2).reshape(C, 6)
 
 
 def backsub_landmarks(V_inv, bl, Wd, dc, lm_valid):
@@ -191,9 +239,70 @@ def apply_increments(R, t, X, dc, dl):
     return dR @ R, (dR @ t[..., None])[..., 0] + dt, X + dl
 
 
+def schur_matvec_mf(v, U, V_inv, Wo, cam_idx, lm_idx, lam, free6):
+    """S v = (U + lam I) v - W V^-1 W^T v without materializing S or W: two
+    gathers and two segment sums over the observations. v, free6: [C, 6]
+    (free6 zero on frozen / gauge cameras, which act as identity)."""
+    C = U.shape[0]
+    L = V_inv.shape[0]
+    vm = v * free6
+    a = torch.einsum("oij,oi->oj", Wo, vm[cam_idx])      # [O, 3] W^T v rows
+    q = _segment_sum(a, lm_idx, L)                       # [L, 3]
+    y = torch.einsum("lij,lj->li", V_inv, q)             # V^-1 W^T v
+    b = torch.einsum("oij,oj->oi", Wo, y[lm_idx])        # [O, 6]
+    s = _segment_sum(b, cam_idx, C)                      # [C, 6]
+    Sv = torch.einsum("cij,cj->ci", U, vm) + lam * vm - s
+    return Sv * free6 + v * (1.0 - free6)
+
+
+def solve_cameras_mf(p: BAProblem, U, V_inv, bc, bl, Wo, lam,
+                     cfg: BAConfig):
+    """Matrix-free CG on the reduced camera system, preconditioned by the
+    block-Jacobi inverse of U + lam I (6x6 blocks by `inv_ex`: no status
+    read on the host)."""
+    C = U.shape[0]
+    frozen = ~p.cam_valid
+    if cfg.fix_first_camera:
+        frozen = frozen | (torch.arange(C, device=U.device) == 0)
+    free6 = (~frozen).to(U.dtype)[:, None].expand(C, 6)
+
+    # reduced right-hand side b = bc - W V^-1 bl (the matvec's structure)
+    ybl = torch.einsum("lij,lj->li", V_inv, bl)
+    wyb = _segment_sum(torch.einsum("oij,oj->oi", Wo, ybl[p.lm_idx]),
+                       p.cam_idx, C)
+    b = (bc - wyb) * free6
+
+    eye6 = torch.eye(6, dtype=U.dtype, device=U.device)
+    Ublk = torch.where(frozen[:, None, None], eye6, U + lam * eye6)
+    Minv = torch.linalg.inv_ex(Ublk + 1e-8 * eye6, check_errors=False)[0]
+
+    def mv(v):
+        return schur_matvec_mf(v, U, V_inv, Wo, p.cam_idx, p.lm_idx, lam,
+                               free6)
+
+    def prec(v):
+        return torch.einsum("cij,cj->ci", Minv, v) * free6
+
+    return cg(mv, b, prec, cfg.cg_iters) * free6
+
+
+def backsub_landmarks_mf(p: BAProblem, V_inv, bl, Wo, dc, lm_valid):
+    """dl = V^-1 (bl - W^T dc) through the per-observation coupling."""
+    a = torch.einsum("oij,oi->oj", Wo, dc[p.cam_idx])
+    WtD = _segment_sum(a, p.lm_idx, V_inv.shape[0])
+    dl = torch.einsum("lij,lj->li", V_inv, bl - WtD)
+    return dl * lm_valid[:, None]
+
+
 def ba_step(p: BAProblem, R, t, X, lam, cfg: BAConfig):
     """One damped-GN (LM) step: returns proposed (R, t, X)."""
-    _check_solver(cfg)
+    if cfg.solver == "schur_mf":
+        U, V, bc, bl, Wo = normal_equations_mf(p, R, t, X, cfg)
+        eye3 = torch.eye(3, dtype=U.dtype, device=U.device)
+        V_inv = _inv3x3(V + lam * eye3)
+        dc = solve_cameras_mf(p, U, V_inv, bc, bl, Wo, lam, cfg)
+        dl = backsub_landmarks_mf(p, V_inv, bl, Wo, dc, p.lm_valid)
+        return apply_increments(R, t, X, dc, dl)
     U, V, bc, bl, Wd = normal_equations(p, R, t, X, cfg)
     S, b, V_inv = schur_camera_system(U, V, bc, bl, Wd, lam)
     dc = solve_cameras(S, b, p.cam_valid, lam, cfg)

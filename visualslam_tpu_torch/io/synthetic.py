@@ -248,3 +248,51 @@ class SyntheticSequence:
     def info(self) -> SequenceInfo:
         return SequenceInfo("synthetic", self.num_frames, self.intrinsics,
                             self.image_size, self.gt_poses, self.times)
+
+
+_worker_seq = None      # the sequence a render worker process draws from
+
+
+def _init_worker(seq) -> None:
+    global _worker_seq
+    _worker_seq = seq
+
+
+def _uint8(img: np.ndarray) -> np.ndarray:
+    return np.clip(img * 255.0, 0, 255).astype(np.uint8)
+
+
+def _frame_uint8(k: int) -> np.ndarray:
+    return _uint8(_worker_seq.frame(k))
+
+
+def render_uint8(seq, ids, workers: int = 1) -> np.ndarray:
+    """Frames `ids` of `seq` as uint8 [n, H, W] (the 8-bit frames a
+    loader ships; the device normalizes). A frame depends on its index
+    alone, so with workers > 1 the frames render in a pool of that many
+    processes (spawned: safe after CUDA has started in the caller), in
+    the order of `ids`."""
+    ids = list(ids)
+    if workers <= 1 or len(ids) <= 1:
+        return np.stack([_uint8(seq.frame(k)) for k in ids])
+    import multiprocessing
+    import os
+    from concurrent.futures import ProcessPoolExecutor
+
+    # one BLAS / OpenMP thread per worker (the workers inherit the
+    # environment when they start): the pool already fills the cores
+    threads = ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS")
+    saved = {k: os.environ.get(k) for k in threads}
+    os.environ.update(dict.fromkeys(threads, "1"))
+    try:
+        with ProcessPoolExecutor(
+                min(workers, len(ids)), initializer=_init_worker,
+                initargs=(seq,),
+                mp_context=multiprocessing.get_context("spawn")) as pool:
+            return np.stack(list(pool.map(_frame_uint8, ids, chunksize=4)))
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v

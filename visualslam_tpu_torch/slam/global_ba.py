@@ -10,9 +10,9 @@ the complete observation graph is recoverable:
     obs        = uid-validated normalized-plane measurements
 
 The problem goes to backend/ba.run_ba on the device. As in the reference,
-the dense Schur solver hands over to "schur_mf" above 64 cameras, which the
-port does not have yet (ROADMAP.md A.8: run_ba raises). The trajectory-
-sharded solve over a device mesh is ROADMAP.md A.10.
+the dense Schur solver hands over to the matrix-free "schur_mf" above 64
+cameras. The trajectory-sharded solve over a device mesh is ROADMAP.md
+A.10.
 """
 
 from __future__ import annotations
