@@ -1,9 +1,11 @@
 """The port's CLI (python -m visualslam_tpu_torch.cli) on the CPU: run +
-eval, checkpoints and resume, global BA, the subcommands that raise with
-their ROADMAP item, the accuracy table, two-view, the overlays and the
-debug helpers. The runs use FAST_CONFIG with its keypoint capacities cut
-to 256 / 128 per octave and 120x160 frames (FAST_CONFIG's own capacities
-cost the CPU ~4 s a frame in the plain patch path)."""
+eval, checkpoints and resume, global BA, detect with each frontend, the
+subcommands that raise with their ROADMAP item, the accuracy table (a
+reference-profile row included), two-view, the overlays and the debug
+helpers. The runs use FAST_CONFIG with its keypoint capacities cut to
+256 / 128 per octave and 120x160 frames (FAST_CONFIG's own capacities
+cost the CPU ~4 s a frame in the plain patch path); the accuracy table's
+reference row DEFAULT_CONFIG cut to 3 octaves and the same capacities."""
 
 import contextlib
 import io
@@ -20,6 +22,10 @@ from visualslam_tpu_torch.utils import config
 
 SMALL = config.FAST_CONFIG.replace(sift=config.FAST_CONFIG.sift.replace(
     max_keypoints=256, max_keypoints_per_octave=128))
+SMALL_REFERENCE = config.DEFAULT_CONFIG.replace(
+    pyramid=config.DEFAULT_CONFIG.pyramid.replace(num_octaves=3),
+    sift=config.DEFAULT_CONFIG.sift.replace(max_keypoints=256,
+                                            max_keypoints_per_octave=128))
 WORLD = ["--height", "120", "--width", "160", "--dots", "400"]
 
 
@@ -115,13 +121,6 @@ def test_cli_unported_paths_raise_with_their_roadmap_item(tmp_path,
     from PIL import Image
 
     monkeypatch.chdir(tmp_path)
-    img = (np.random.default_rng(0).random((64, 80)) * 255).astype(np.uint8)
-    Image.fromarray(img).save("img.png")
-    with pytest.raises(NotImplementedError, match="A.9"):
-        main(["detect", "img.png", "--device", "cpu"])      # 2x upsample
-    for fe in ("orb", "harris"):
-        with pytest.raises(NotImplementedError, match="A.9"):
-            main(["detect", "img.png", "--frontend", fe, "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="A.10"):
         main(["run", "--synthetic", "4", "--pipeline", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="harness"):
@@ -132,16 +131,18 @@ def test_cli_unported_paths_raise_with_their_roadmap_item(tmp_path,
 
 
 def test_cli_accuracy_writes_its_own_table(tmp_path, monkeypatch):
-    """accuracy with SCENARIOS replaced by one tiny run, a reference-profile
-    row and the photographic row: ACCURACY_TORCH.md with one measured row
-    and two "not run" rows saying why."""
+    """accuracy with SCENARIOS replaced by one tiny run per profile and the
+    photographic row: ACCURACY_TORCH.md with two measured rows (the
+    reference profile at DEFAULT_CONFIG's 2x upsample, cut to 3 octaves
+    and the small capacities) and a "not run" row saying why."""
     from visualslam_tpu_torch import cli
 
     monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(config, "DEFAULT_CONFIG", SMALL_REFERENCE)
+    world = dict(num_frames=10, h=120, w=160, n_dots=400)
     monkeypatch.setattr(cli, "SCENARIOS", [
-        ("dolly-10", "fast", dict(num_frames=10, h=120, w=160, n_dots=400),
-         True, 4),
-        ("dolly-10", "reference", dict(num_frames=10), False, 4),
+        ("dolly-10", "fast", world, True, 4),
+        ("dolly-10", "reference", world, False, 4),
         ("photo-loop-100", "fast", "photo", False, 8),
     ])
     _run(["accuracy", "--device", "cpu"])
@@ -150,11 +151,36 @@ def test_cli_accuracy_writes_its_own_table(tmp_path, monkeypatch):
     rows = [line for line in text.splitlines()
             if line.startswith("| dolly") or line.startswith("| photo")]
     assert len(rows) == 3
-    cells = [c.strip() for c in rows[0].strip("|").split("|")]
-    assert cells[:2] == ["dolly-10", "fast"] and cells[3] == "10"
-    assert float(cells[6]) < 0.5                          # ATE
-    assert "not run" in rows[1] and "A.9" in rows[1]
+    for row, profile in zip(rows[:2], ("fast", "reference")):
+        cells = [c.strip() for c in row.strip("|").split("|")]
+        assert cells[:2] == ["dolly-10", profile] and cells[3] == "10"
+        assert float(cells[6]) < 0.5                      # ATE
+        assert "not run" not in row
     assert "not run" in rows[2] and "photograph" in rows[2]
+
+
+@pytest.mark.parametrize("frontend", ["sift", "orb", "harris"])
+def test_cli_detect_each_frontend(tmp_path, monkeypatch, frontend):
+    """detect at DEFAULT_CONFIG (the reference profile for SIFT: 2x upsample,
+    4 octaves) on a rendered 96x128 frame: keypoints found, the overlay and
+    the descriptor file written with one row per keypoint (SIFT's 128
+    values, ORB's 8 packed words, Harris's 256 patch values)."""
+    from PIL import Image
+
+    from visualslam_tpu_torch.io.serialization import load_descriptors_dat
+    from visualslam_tpu_torch.io.synthetic import SyntheticSequence, render_uint8
+
+    monkeypatch.chdir(tmp_path)
+    seq = SyntheticSequence(num_frames=1, h=96, w=128, n_dots=500)
+    Image.fromarray(render_uint8(seq, [0])[0]).save("img.png")
+    out = _run(["detect", "img.png", "--frontend", frontend, "--device",
+                "cpu"])
+    n = int(out.split("detected ")[1].split()[0])
+    assert n > 20 and f"({frontend})" in out
+    assert os.path.getsize("img_keypoints.png") > 100
+    desc = load_descriptors_dat("img_descriptors.dat")
+    width = {"sift": 128, "orb": 8, "harris": 256}[frontend]
+    assert desc.shape == (n, width)
 
 
 def test_cli_two_view(tmp_path, monkeypatch):

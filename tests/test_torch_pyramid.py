@@ -95,13 +95,3 @@ def test_build_pyramid_matches_jax(rng):
             strong = mag > 1e-3
             tol = ATOL + np.degrees(ATOL / np.maximum(mag, 1e-3))
             assert (np.abs(d)[strong] <= tol[strong]).all()
-
-
-def test_build_pyramid_rejects_unported_options():
-    img = torch.zeros(1, 32, 32)
-    with pytest.raises(NotImplementedError):
-        tpyr.build_pyramid(img, tcfg.DEFAULT_CONFIG.pyramid)
-    for mode in ("conv", "incremental"):
-        with pytest.raises(NotImplementedError):
-            tpyr.build_pyramid(img, tcfg.FAST_CONFIG.pyramid.replace(
-                blur_mode=mode))

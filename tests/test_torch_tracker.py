@@ -196,8 +196,9 @@ def test_tracker_100_frame_ate_regression(rng):
 
 
 # ---------------------------------------------------------------------
-# rendered frames through the port's frontend (no 2x upsample: the
-# port's pyramid does not take the DEFAULT profile's, ROADMAP.md A.9)
+# rendered frames through the port's frontend (no 2x upsample and 2
+# octaves, for the CPU's time; tests/test_torch_reference_profile.py runs
+# the DEFAULT profile's)
 # ---------------------------------------------------------------------
 
 RCFG = PCFG.replace(

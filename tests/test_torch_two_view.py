@@ -219,12 +219,6 @@ def test_port_sampler_draws_distinct_valid_indices():
     assert torch.equal(idx, again)
 
 
-def test_five_point_raises():
-    cfg = SlamConfig().ransac.replace(solver="5pt")
-    x = torch.zeros(16, 2)
-    with pytest.raises(NotImplementedError, match="A.9"):
-        trs.ransac_essential(x, x, torch.ones(16, dtype=torch.bool), cfg)
-
 
 def test_two_view_from_features_matches_jax(rng, replayed):
     """Injected features of two views of one point cloud (64-D unit

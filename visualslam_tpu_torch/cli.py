@@ -7,10 +7,11 @@
     python -m visualslam_tpu_torch.cli accuracy [--out ACCURACY_TORCH.md]
 
 `run`, `two-view`, `accuracy` and `detect` take `--device` (default
-`cuda`: the card; `cpu` runs the port's plain versions on the CPU). What
+`cuda`: the card; `cpu` runs the port's plain versions on the CPU).
+`detect` runs the DEFAULT (reference) profile with any of the three
+frontends; `run` takes `--profile fast|reference` and `--frontend`. What
 the port cannot run yet raises NotImplementedError naming its ROADMAP.md
-item: the DEFAULT profile's 2x upsample and the ORB / Harris frontends
-(A.9), `run --pipeline` (A.10) and `benchmark` (the JAX package's
+item: `run --pipeline` (A.10) and `benchmark` (the JAX package's
 benchmarks/harness.py, not ported).
 """
 
@@ -48,7 +49,8 @@ def cmd_detect(args) -> None:
     out_base = args.out or os.path.splitext(os.path.basename(args.image))[0]
     draw_keypoints(img, feats, out_base + "_keypoints.png")
     v = feats.keypoints.valid.cpu().numpy()
-    desc = feats.descriptors.float().cpu().numpy()[v]
+    # ORB's packed uint32 words are written as their float32 values
+    desc = feats.descriptors.cpu().numpy().astype(np.float32)[v]
     save_descriptors_dat(out_base + "_descriptors.dat", desc)
     print(f"wrote {out_base}_keypoints.png and {out_base}_descriptors.dat")
 
@@ -330,7 +332,7 @@ def cmd_accuracy(args) -> None:
         rpe,
     )
     from visualslam_tpu_torch.slam.tracker import Tracker
-    from visualslam_tpu_torch.utils.config import FAST_CONFIG
+    from visualslam_tpu_torch.utils.config import DEFAULT_CONFIG, FAST_CONFIG
 
     try:
         commit = subprocess.run(
@@ -342,12 +344,6 @@ def cmd_accuracy(args) -> None:
 
     rows = []
     for name, profile, kw, use_gba, batch in SCENARIOS:
-        if profile != "fast":
-            rows.append(_not_run(name, profile, batch, commit,
-                                 "the reference profile's 2x upsample is "
-                                 "not ported (ROADMAP.md A.9)"))
-            print(json.dumps(rows[-1]), flush=True)
-            continue
         if kw == "photo":
             if not args.photo:
                 rows.append(_not_run(
@@ -372,7 +368,7 @@ def cmd_accuracy(args) -> None:
             intr = info.intrinsics
             gt_all = info.gt_poses
             init_depth = 20.0
-            cfg = FAST_CONFIG
+            cfg = FAST_CONFIG if profile == "fast" else DEFAULT_CONFIG
         frames = np.stack([seq.frame(k) for k in range(len(seq))])
         # a warmup tracker at this (config, shape), so the fps column
         # measures the pipeline

@@ -1,10 +1,12 @@
 """Batched-hypothesis RANSAC for the essential matrix
 (visualslam_tpu/geometry/ransac.py).
 
-No early-exit loop: N hypotheses are sampled, solved and scored in one
-batched call, the first best count wins, and one weighted refit on the
-winner's inliers polishes it. Samples are Gumbel top-k over the validity
-mask, drawn from a `torch.Generator` on the tensors' device.
+No early-exit loop: N hypotheses are sampled, solved (the 8-point solver,
+or the five-point solver's up to 10 candidates of which each hypothesis
+keeps its first best) and scored in one batched call, the first best count
+wins, and one weighted 8-point refit on the winner's inliers polishes it.
+Samples are Gumbel top-k over the validity mask, drawn from a
+`torch.Generator` on the tensors' device.
 
 `jax.random`'s bits cannot be drawn in torch, so the sampler is one
 module-level function, `sample_indices`: a parity test replaces it with one
@@ -20,6 +22,7 @@ from visualslam_tpu_torch.geometry.epipolar import (
     recover_pose,
     sampson_error,
 )
+from visualslam_tpu_torch.geometry.fivepoint import MAX_CANDIDATES, five_point
 from visualslam_tpu_torch.utils.config import RansacConfig
 from visualslam_tpu_torch.utils.masked import top_k
 
@@ -49,14 +52,24 @@ def ransac_essential(x1: torch.Tensor, x2: torch.Tensor, valid: torch.Tensor,
     x1, x2: [M, 2] normalized-coordinate correspondences; valid: [M] mask.
     Returns (E, inlier_mask [M], num_inliers). Deterministic for a given
     cfg.seed unless an explicit generator is passed."""
-    if cfg.solver == "5pt":
-        raise NotImplementedError(
-            "the five-point solver is not ported yet; see ROADMAP.md A.9")
+    if cfg.solver not in ("8pt", "5pt"):
+        raise ValueError(f"unknown solver {cfg.solver!r}")
     if gen is None:
         gen = generator(cfg.seed, x1.device)
-    idx = sample_indices(gen, valid, cfg.num_hypotheses, cfg.sample_size)
-    Es = eight_point(x1[idx], x2[idx])                       # [N, 3, 3]
-    inls = (sampson_error(Es, x1, x2) < cfg.inlier_threshold) & valid
+    N = cfg.num_hypotheses
+    if cfg.solver == "5pt":
+        idx = sample_indices(gen, valid, N, 5)
+        cand, cmask = five_point(x1[idx], x2[idx])           # [N, 10, 3, 3]
+        errs = sampson_error(cand.reshape(-1, 3, 3), x1, x2).view(
+            N, MAX_CANDIDATES, -1)
+        inls_c = (errs < cfg.inlier_threshold) & valid & cmask[..., None]
+        b = torch.argmax(inls_c.sum(-1), dim=1)              # first maximum
+        rows = torch.arange(N, device=x1.device)
+        Es, inls = cand[rows, b], inls_c[rows, b]
+    else:
+        idx = sample_indices(gen, valid, N, cfg.sample_size)
+        Es = eight_point(x1[idx], x2[idx])                   # [N, 3, 3]
+        inls = (sampson_error(Es, x1, x2) < cfg.inlier_threshold) & valid
     counts = inls.sum(-1)
     best = torch.argmax(counts)                              # first maximum
     E0 = Es[best]

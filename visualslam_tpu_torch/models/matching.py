@@ -6,7 +6,8 @@ Batches over any leading axes: matching features [B, Ka, ...] against
 the JAX package does: "pallas" runs the streaming 2-NN kernel
 (`kernels.l2_2nn`) when the metric is l2, both capacities are multiples of
 `cfg.tile` and the descriptor width of 128; otherwise the dense distance
-matrix.
+matrix, squared L2 or Hamming (`cfg.metric`; ORB's bit-packed
+descriptors).
 """
 
 from __future__ import annotations
@@ -15,7 +16,10 @@ import torch
 
 from visualslam_tpu_torch.models.types import Features, Matches
 from visualslam_tpu_torch.ops.cuda import KERNELS, Kernels
-from visualslam_tpu_torch.ops.distance import l2sq_distance_matrix
+from visualslam_tpu_torch.ops.distance import (
+    hamming_distance_matrix,
+    l2sq_distance_matrix,
+)
 from visualslam_tpu_torch.utils.config import MatchConfig
 from visualslam_tpu_torch.utils.masked import top_k_select
 
@@ -36,17 +40,17 @@ def match_features(fa: Features, fb: Features, cfg: MatchConfig,
                    kernels: Kernels = KERNELS) -> Matches:
     """Match two fixed-capacity Feature sets -> Matches[..., cfg.max_matches].
 
-    Lowe ratio test on squared distances (hence ratio^2), optional
-    mutual-best check; matches ranked by distance, best first (ties to the
-    lower index). `kernels`: ops.cuda.KERNELS (default) or ops.cuda.PLAIN,
-    for the 2-NN path."""
-    if cfg.metric != "l2":
-        raise NotImplementedError(
-            f"metric {cfg.metric!r} comes with the ORB frontend; see "
-            "ROADMAP.md A.9")
+    Lowe ratio test (on squared distances for l2, hence ratio^2; on the
+    Hamming distance itself for hamming), optional mutual-best check;
+    matches ranked by distance, best first (ties to the lower index).
+    `kernels`: ops.cuda.KERNELS (default) or ops.cuda.PLAIN, for the 2-NN
+    path."""
+    if cfg.metric not in ("l2", "hamming"):
+        raise ValueError(f"unknown metric {cfg.metric!r}")
     va = fa.keypoints.valid
     vb = fb.keypoints.valid
-    use_2nn = (cfg.impl == "pallas" and fa.capacity % cfg.tile == 0
+    use_2nn = (cfg.impl == "pallas" and cfg.metric == "l2"
+               and fa.capacity % cfg.tile == 0
                and fb.capacity % cfg.tile == 0
                and fa.descriptors.shape[-1] % 128 == 0)
     if use_2nn:
@@ -63,14 +67,18 @@ def match_features(fa: Features, fb: Features, cfg: MatchConfig,
             rows = torch.arange(fa.capacity, device=va.device)
             ok &= col_nn.gather(-1, nn) == rows
     else:
-        dist = l2sq_distance_matrix(fa.descriptors, fb.descriptors)
+        if cfg.metric == "l2":
+            dist = l2sq_distance_matrix(fa.descriptors, fb.descriptors)
+        else:
+            dist = hamming_distance_matrix(fa.descriptors, fb.descriptors)
         big = torch.full_like(dist, _BIG)
         dist = torch.where(va[..., :, None] & vb[..., None, :], dist, big)
         best = dist.amin(dim=-1)
         nn = dist.argmin(dim=-1)                               # first minimum
         cols = torch.arange(dist.shape[-1], device=dist.device)
         second = torch.where(cols == nn[..., None], big, dist).amin(dim=-1)
-        ok = va & (best < _BIG) & (best < cfg.ratio ** 2 * second)
+        ratio = cfg.ratio ** 2 if cfg.metric == "l2" else cfg.ratio
+        ok = va & (best < _BIG) & (best < ratio * second)
         if cfg.mutual:
             col_best = dist.argmin(dim=-2)                     # [..., Kb]
             rows = torch.arange(dist.shape[-2], device=dist.device)

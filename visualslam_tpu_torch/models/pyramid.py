@@ -1,24 +1,36 @@
 """Gaussian scale-space pyramid (visualslam_tpu/models/pyramid.py).
 
 Batched over frames natively: every product is [B, levels, H_o, W_o].
-Per octave: all levels blurred from the octave base at absolute sigma
-base_sigma * k^l in one pass (blur_mode="matmul": banded products,
-ops/blur.py; blur_mode="pallas": the separable-convolution kernel,
-`kernels.blur_stack`), DoG as adjacent level differences, gradients of
-the levels the SIFT path reads, and the next octave's base as the
-stride-2 downsample of level s.
+Octave 0's base is the frame, or its 2x linear upsample under
+`initial_upsample` (the DEFAULT profile). Per octave: all levels blurred
+from the octave base at absolute sigma base_sigma * k^l (blur_mode
+"matmul": banded products, ops/blur.py; "pallas": the separable-convolution
+kernel, `kernels.blur_stack`; "conv": separable convolutions; "incremental":
+chained convolutions), DoG as adjacent level differences, gradients of the
+levels the SIFT path reads, and the next octave's base as the stride-2
+downsample of level s.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Tuple
 
 import torch
 
-from visualslam_tpu_torch.ops.blur import BlurBands, blur_stack_matmul
+from visualslam_tpu_torch.ops.blur import (
+    BlurBands,
+    blur_stack,
+    blur_stack_matmul,
+    incremental_blur_stack,
+)
 from visualslam_tpu_torch.ops.cuda import KERNELS, Kernels
 from visualslam_tpu_torch.ops.gradients import gradients
-from visualslam_tpu_torch.ops.resize import downsample2x_nearest
+from visualslam_tpu_torch.ops.resize import (
+    ResizeWeights,
+    downsample2x_nearest,
+    upsample2x_linear,
+)
 from visualslam_tpu_torch.utils.config import PyramidConfig
 
 
@@ -47,23 +59,24 @@ def level_sigmas(cfg: PyramidConfig) -> Tuple[float, ...]:
                  for l in range(cfg.levels_per_octave))
 
 
+def auto_num_octaves(h: int, w: int) -> int:
+    """floor(log2(min(H, W))) - 4, at least 1."""
+    return max(1, int(math.floor(math.log2(min(h, w)))) - 4)
+
+
 def build_pyramid(img: torch.Tensor, cfg: PyramidConfig,
                   bands: BlurBands | None = None,
-                  kernels: Kernels = KERNELS) -> ScaleSpace:
-    """Scale space of [B, H, W] frames. `bands` holds the blur's constants
-    across calls (frontend.SiftFrontend owns one); without it they are
-    built for this call. `kernels` supplies `blur_stack` for
-    blur_mode="pallas" (ops.cuda.KERNELS or ops.cuda.PLAIN)."""
+                  kernels: Kernels = KERNELS,
+                  resize: ResizeWeights | None = None) -> ScaleSpace:
+    """Scale space of [B, H, W] frames. `bands` and `resize` hold the
+    blur's and the upsample's constants across calls
+    (frontend.SiftFrontend owns both); without them they are built for this
+    call. `kernels` supplies `blur_stack` for blur_mode="pallas"
+    (ops.cuda.KERNELS or ops.cuda.PLAIN)."""
     if img.ndim != 3:
         raise ValueError(f"build_pyramid expects [B, H, W], got {tuple(img.shape)}")
-    if cfg.initial_upsample:
-        raise NotImplementedError(
-            "initial_upsample (the DEFAULT profile) is not ported yet; "
-            "see ROADMAP.md A.9")
-    if cfg.blur_mode not in ("matmul", "pallas"):
-        raise NotImplementedError(
-            f"blur_mode={cfg.blur_mode!r} is not ported yet; see ROADMAP.md "
-            "A.9")
+    if cfg.blur_mode not in ("matmul", "pallas", "conv", "incremental"):
+        raise ValueError(f"unknown blur_mode {cfg.blur_mode!r}")
     img = img.to(getattr(torch, cfg.dtype))
     sigmas = level_sigmas(cfg)
     if bands is None:
@@ -71,12 +84,16 @@ def build_pyramid(img: torch.Tensor, cfg: PyramidConfig,
     elif bands.sigmas != tuple(float(s) for s in sigmas):
         raise ValueError("bands were built for another sigma set")
     s = cfg.scale_samples
-    base = img
+    base = upsample2x_linear(img, resize) if cfg.initial_upsample else img
     gauss, dog, gx, gy, gm, go = [], [], [], [], [], []
     for _ in range(cfg.num_octaves):
         if cfg.blur_mode == "pallas":
             stack = kernels.blur_stack(base.contiguous(),
                                        bands.taps(base.device))
+        elif cfg.blur_mode == "conv":
+            stack = blur_stack(base, sigmas, cfg.truncate)
+        elif cfg.blur_mode == "incremental":
+            stack = incremental_blur_stack(base, sigmas, cfg.truncate)
         else:
             stack = blur_stack_matmul(base, bands)              # [B, L, H, W]
         gauss.append(stack)

@@ -9,16 +9,21 @@ histograms (kernel) with peak spawning, the spawned keypoints' descriptors
 normalization. The octaves' keypoints are then merged by response into the
 final fixed capacity.
 
-The port runs what "auto" selects on an accelerator in the JAX package, on
-every device: the fused extrema candidates, the patch kernels, and under
+patch_impl "auto" / "pallas" run what "auto" selects on an accelerator in
+the JAX package, on every device: the patch kernels, and under
 hist_compute="bf16" bfloat16-rounded patches of 32 rows (float32 patches of
 28 rows otherwise). The kernels read the gradient levels in place; their
 plain versions cut the patches. The device decides only whether a kernel or
-its plain version runs.
+its plain version runs. patch_impl="xla" is the JAX package's opt-in XLA
+formulation: float32 patches of 28 rows, tent-sampled windows and a soft
+histogram computed in `hist_compute`'s dtype, in plain torch on any device.
+Keypoints come back in input-image pixels (octave-0 pixels halved under the
+2x upsample).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -27,9 +32,14 @@ from visualslam_tpu_torch.models.pyramid import ScaleSpace, build_pyramid
 from visualslam_tpu_torch.models.types import Features, Keypoints
 from visualslam_tpu_torch.ops.blur import BlurBands
 from visualslam_tpu_torch.ops.cuda import KERNELS, Kernels
+from visualslam_tpu_torch.ops.cuda.descriptor import (
+    descriptor_levels_ref,
+    orient_hist_levels_ref,
+)
 from visualslam_tpu_torch.ops.extrema import detect_extrema
 from visualslam_tpu_torch.ops.histograms import histogram_peaks
 from visualslam_tpu_torch.ops.patches import patch_origins
+from visualslam_tpu_torch.ops.resize import ResizeWeights
 from visualslam_tpu_torch.utils.config import PyramidConfig, SiftConfig
 from visualslam_tpu_torch.utils.masked import top_k_select
 
@@ -73,7 +83,8 @@ def patch_source(ss: ScaleSpace, o: int, lvl: torch.Tensor, y: torch.Tensor,
                  x: torch.Tensor, cfg: SiftConfig) -> PatchSource:
     """The patch origins of octave o's candidates (lvl, y, x [B, K]), as
     ops/patches.crop_patches places them."""
-    bf16 = cfg.hist_compute == "bf16"
+    # the XLA formulation samples float32 patches whatever hist_compute is
+    bf16 = cfg.hist_compute == "bf16" and cfg.patch_impl != "xla"
     # 32 rows for bf16 patches, 28 for f32; both cover the rotated window
     # radius win/2*sqrt(2)+0.5
     patch = 32 if bf16 else 28
@@ -84,6 +95,19 @@ def patch_source(ss: ScaleSpace, o: int, lvl: torch.Tensor, y: torch.Tensor,
                          device=lvl.device)[:, None].expand_as(lvl)
     glvl = (lvl - ss.grad_level_offset).to(torch.int32)
     return PatchSource(mag, ori, frame, glvl, y0, x0, patch, bf16)
+
+
+def patch_ops(cfg: SiftConfig, kernels: Kernels = KERNELS) -> tuple:
+    """(orient_hist, descriptor) in the kernels' levels form: the kernels
+    (their plain versions on CPU tensors), or under patch_impl="xla" the
+    plain formulation with the histogram in `hist_compute`'s dtype."""
+    if cfg.patch_impl in ("auto", "pallas"):
+        return kernels.orient_hist, kernels.descriptor
+    if cfg.patch_impl != "xla":
+        raise ValueError(f"unknown patch_impl {cfg.patch_impl!r}")
+    dt = cfg.hist_compute_dtype
+    return (functools.partial(orient_hist_levels_ref, compute_dtype=dt),
+            functools.partial(descriptor_levels_ref, compute_dtype=dt))
 
 
 def _orientation_pass(src: PatchSource, lvl, y, x, offset, response, valid,
@@ -100,7 +124,7 @@ def _orientation_pass(src: PatchSource, lvl, y, x, offset, response, valid,
     lvl_f = lvl.float() + offset[..., 0]
     sigma_oct = pyr_cfg.base_sigma * pyr_cfg.k_factor ** lvl_f
     every = torch.arange(k, device=lvl.device).expand(B, k)
-    hist = kernels.orient_hist(
+    hist = patch_ops(cfg, kernels)[0](
         src.mag, src.ori, *src.at(every), yx_int.flatten(0, 1),
         (cfg.orientation_sigma_scale * sigma_oct).flatten(), src.patch,
         src.bf16, cfg.num_orientation_bins).view(B, k, -1)
@@ -139,13 +163,15 @@ def describe_octave(src: PatchSource, cand_idx, kps: _OctaveKps,
     patch origin of the candidate each was spawned from (cand_idx)."""
     B, K = cand_idx.shape
     width, nbins = cfg.descriptor_width, cfg.descriptor_bins
-    desc = kernels.descriptor(
+    desc = patch_ops(cfg, kernels)[1](
         src.mag, src.ori, *src.at(cand_idx),
         kps.yx_oct.flatten(0, 1).contiguous(),
         kps.orientation.flatten().contiguous(), src.patch, src.bf16,
         width, nbins).view(B, K, -1)
 
     def normalize(d):
+        if cfg.descriptor_norm == "max":     # the reference's quirk (f)
+            return d / d.amax(dim=-1, keepdim=True).clamp_min(1e-12)
         return d / torch.linalg.vector_norm(d, dim=-1,
                                             keepdim=True).clamp_min(1e-12)
 
@@ -156,8 +182,8 @@ def describe_octave(src: PatchSource, cand_idx, kps: _OctaveKps,
 def octave_result(kps: _OctaveKps, desc: torch.Tensor, o: int,
                   pyr_cfg: PyramidConfig) -> tuple:
     """(keypoints, descriptors, factor, sigma_base, octave) of octave o, as
-    merge_octaves takes them."""
-    factor = 2.0 ** o
+    merge_octaves takes them; factor maps octave pixels to input pixels."""
+    factor = (2.0 ** o) * (0.5 if pyr_cfg.initial_upsample else 1.0)
     lvl_f = kps.level.float() + kps.scale_off
     sigma_base = factor * pyr_cfg.base_sigma * pyr_cfg.k_factor ** lvl_f
     return kps, desc, factor, sigma_base, torch.full_like(kps.level, o)
@@ -190,18 +216,15 @@ def merge_octaves(per_oct: list, cfg: SiftConfig) -> Features:
 
 def detect_and_describe_sift(img: torch.Tensor, pyr_cfg: PyramidConfig,
                              cfg: SiftConfig, bands: BlurBands | None = None,
-                             kernels: Kernels = KERNELS) -> Features:
+                             kernels: Kernels = KERNELS,
+                             resize: ResizeWeights | None = None) -> Features:
     """SIFT frontend on [B, H, W] float frames -> Features with a leading
     frame axis ([B, cfg.max_keypoints, ...]). `kernels` is ops.cuda.KERNELS
-    (the kernel path) or ops.cuda.PLAIN (the plain path)."""
-    if cfg.patch_impl not in ("auto", "pallas"):
-        raise NotImplementedError(
-            f"patch_impl={cfg.patch_impl!r} is not ported yet; the port runs "
-            "the fused patch kernels")
-    if cfg.descriptor_norm != "l2":
-        raise NotImplementedError(
-            f"descriptor_norm={cfg.descriptor_norm!r} is not ported yet")
-    ss = build_pyramid(img, pyr_cfg, bands, kernels)
+    (the kernel path) or ops.cuda.PLAIN (the plain path); `bands` and
+    `resize` hold the pyramid's constants across calls."""
+    if cfg.descriptor_norm not in ("l2", "max"):
+        raise ValueError(f"unknown descriptor_norm {cfg.descriptor_norm!r}")
+    ss = build_pyramid(img, pyr_cfg, bands, kernels, resize)
     per_oct = []
     for o in range(pyr_cfg.num_octaves):
         lvl, y, x, offset, resp, valid = detect_extrema(

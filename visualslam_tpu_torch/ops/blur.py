@@ -1,7 +1,13 @@
-"""Multi-sigma Gaussian blur as banded-Toeplitz matrix products
-(visualslam_tpu/ops/blur.py, `blur_mode="matmul"`), and the blur's
-constants. `blur_mode="pallas"` runs the separable-convolution kernel of
-ops/cuda/blur.py on the tap table `BlurBands.taps` holds.
+"""Gaussian blurs (visualslam_tpu/ops/blur.py) and the blur's constants.
+
+`blur_mode="matmul"`: multi-sigma blur as banded-Toeplitz matrix products.
+`blur_mode="pallas"` runs the separable-convolution kernel of
+ops/cuda/blur.py on the tap table `BlurBands.taps` holds. `blur_mode="conv"`
+(`blur_stack`) and `"incremental"` (`incremental_blur_stack`) and the
+one-sigma `gaussian_blur` are separable convolutions, here `F.conv2d` in
+float32 (cuDNN's TF32 off, frontend.detect_and_describe), as the JAX
+package runs them outside any Pallas kernel; the `box_filter` sum adds
+shifted slices in the window's order.
 
 One image blurred to S sigmas at once: a symmetric-padded x pass and a
 symmetric-padded y pass, each one dense product against [S, n + 2R, n]
@@ -22,6 +28,7 @@ from typing import Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
@@ -56,15 +63,24 @@ def taps_key(sigmas: Sequence[float], truncate: float = 4.0) -> tuple:
 
 
 @functools.lru_cache(maxsize=64)
-def _symmetric_index(n: int, r: int) -> np.ndarray:
+def _pad_index(n: int, r: int, mode: str) -> np.ndarray:
     """Source index of each position of an axis padded by r on both sides
-    in numpy's "symmetric" mode (the edge sample repeats)."""
-    return np.pad(np.arange(n), r, mode="symmetric")
+    in numpy's `mode` ("symmetric": the edge sample repeats; "edge")."""
+    return np.pad(np.arange(n), r, mode=mode)
+
+
+def pad_axis(x: torch.Tensor, dim: int, r: int,
+             mode: str = "symmetric") -> torch.Tensor:
+    idx = torch.from_numpy(_pad_index(x.shape[dim], r, mode)).to(x.device)
+    return x.index_select(dim, idx)
 
 
 def pad_symmetric(x: torch.Tensor, dim: int, r: int) -> torch.Tensor:
-    idx = torch.from_numpy(_symmetric_index(x.shape[dim], r)).to(x.device)
-    return x.index_select(dim, idx)
+    return pad_axis(x, dim, r, "symmetric")
+
+
+def _pad2d(img: torch.Tensor, ry: int, rx: int, mode: str) -> torch.Tensor:
+    return pad_axis(pad_axis(img, -2, ry, mode), -1, rx, mode)
 
 
 def taps_table(key: tuple, radius: int) -> np.ndarray:
@@ -121,3 +137,68 @@ def blur_stack_matmul(img: torch.Tensor, bands: BlurBands) -> torch.Tensor:
     hx = hx.reshape(B, H, S, W).permute(0, 2, 1, 3)        # [B, S, H, W]
     yp = pad_symmetric(hx, 2, R)                           # [B, S, H+2R, W]
     return torch.matmul(Ty.transpose(1, 2), yp)            # [B, S, H, W]
+
+
+def _separable(x: torch.Tensor, kh: torch.Tensor, kv: torch.Tensor,
+               groups: int = 1) -> torch.Tensor:
+    """A horizontal then a vertical VALID correlation of [N, 1, H', W']:
+    kh [C, 1, 1, K] maps 1 -> C channels, kv [C, 1, K, 1] is depthwise."""
+    return F.conv2d(F.conv2d(x, kh), kv, groups=groups)
+
+
+def blur_stack(img: torch.Tensor, sigmas: Sequence[float],
+               truncate: float = 4.0, mode: str = "symmetric") -> torch.Tensor:
+    """Blur [B, H, W] frames with S sigmas at once -> [B, S, H, W]
+    (blur_mode="conv"): the kernels zero-padded to the largest radius, an
+    x pass of 1 -> S channels, then a depthwise y pass."""
+    key = taps_key(sigmas, truncate)
+    R = max((len(t) - 1) // 2 for t in key)
+    S, K = len(key), 2 * R + 1
+    taps = torch.from_numpy(taps_table(key, R)).to(img.device)
+    x = _pad2d(img, R, R, mode)[:, None]                 # [B, 1, H+2R, W+2R]
+    return _separable(x, taps.view(S, 1, 1, K), taps.view(S, 1, K, 1), S)
+
+
+def gaussian_blur(img: torch.Tensor, sigma: float, truncate: float = 4.0,
+                  mode: str = "symmetric") -> torch.Tensor:
+    """Separable Gaussian blur of [..., H, W] with one sigma."""
+    taps = torch.from_numpy(gaussian_taps(sigma, truncate=truncate)).to(
+        img.device)
+    K = taps.shape[0]
+    r = (K - 1) // 2
+    lead, (H, W) = img.shape[:-2], img.shape[-2:]
+    x = _pad2d(img, r, r, mode).reshape(-1, 1, H + 2 * r, W + 2 * r)
+    return _separable(x, taps.view(1, 1, 1, K),
+                      taps.view(1, 1, K, 1)).reshape(lead + (H, W))
+
+
+def incremental_blur_stack(img: torch.Tensor, sigmas: Sequence[float],
+                           truncate: float = 4.0,
+                           mode: str = "symmetric") -> torch.Tensor:
+    """[B, H, W] -> [B, S, H, W] by chained blurs (blur_mode="incremental"):
+    level 0 at sigmas[0], each next one from the previous level at the
+    incremental sigma sqrt(s_l^2 - s_{l-1}^2)."""
+    sigmas = [float(s) for s in sigmas]
+    levels = [gaussian_blur(img, sigmas[0], truncate, mode)]
+    for prev, cur in zip(sigmas[:-1], sigmas[1:]):
+        inc = math.sqrt(max(cur * cur - prev * prev, 1e-12))
+        levels.append(gaussian_blur(levels[-1], inc, truncate, mode))
+    return torch.stack(levels, dim=1)
+
+
+def box_filter(img: torch.Tensor, window: int) -> torch.Tensor:
+    """Sum (not mean) over a window x window box of [..., H, W], same size,
+    edge-replicated: the x pass, then the y pass, each adding the window's
+    values in order, the same bits on every device. At window 3 (the
+    Harris windows) that is the order XLA's convolution with ones sums in;
+    wider windows XLA sums in another order."""
+    r = window // 2
+    H, W = img.shape[-2:]
+    x = _pad2d(img, r, r, "edge")
+    sx = x[..., :, 0:W]
+    for i in range(1, window):
+        sx = sx + x[..., :, i:i + W]
+    out = sx[..., 0:H, :]
+    for i in range(1, window):
+        out = out + sx[..., i:i + H, :]
+    return out

@@ -59,10 +59,12 @@ from visualslam_tpu_torch.ops.patches import (
 WIN = 16            # sampling window side (16 x 16 samples)
 
 
-def orient_hist_ref(patches, y0, x0, yx, sigma, nbins: int = 36):
+def orient_hist_ref(patches, y0, x0, yx, sigma, nbins: int = 36,
+                    compute_dtype=None):
     """Plain version: the integer 16x16 window about yx (tent weights reduce
     to one-hots), Gaussian-weighted magnitude, circular soft histogram.
-    patches [K, 2, Ph, Pw]; y0, x0 [K]; yx [K, 2]; sigma [K] -> [K, nbins]."""
+    patches [K, 2, Ph, Pw]; y0, x0 [K]; yx [K, 2]; sigma [K] -> [K, nbins].
+    compute_dtype: the histogram's (models/sift's patch_impl="xla")."""
     K = patches.shape[0]
     offs = torch.arange(WIN, dtype=torch.float32, device=yx.device) - WIN // 2
     gy, gx = torch.meshgrid(offs, offs, indexing="ij")
@@ -70,11 +72,12 @@ def orient_hist_ref(patches, y0, x0, yx, sigma, nbins: int = 36):
     both = tent_sample_patches(patches, y0, x0, yx[:, None, None, :] + grid)
     w = gaussian_window(WIN, sigma.clamp_min(1e-6))          # [K, S, S]
     return soft_histogram(both[..., 1].reshape(K, -1),
-                          (both[..., 0] * w).reshape(K, -1), nbins, 360.0)
+                          (both[..., 0] * w).reshape(K, -1), nbins, 360.0,
+                          compute_dtype)
 
 
 def descriptor_ref(patches, y0, x0, yx, angle, width: int = 4,
-                   nbins: int = 8):
+                   nbins: int = 8, compute_dtype=None):
     """Plain version: rotated 16x16 grid, bilinear (mag, ori), spatial
     Gaussian (sigma 8) x magnitude, orientation relative to the keypoint
     angle, width x width regions x nbins circular bins, unnormalized.
@@ -93,7 +96,7 @@ def descriptor_ref(patches, y0, x0, yx, angle, width: int = 4,
         return a.permute(0, 1, 3, 2, 4).reshape(K, width * width, cell * cell)
 
     hist = soft_histogram(to_regions(rel), to_regions(both[..., 0] * w_spatial),
-                          nbins, 360.0)
+                          nbins, 360.0, compute_dtype)
     return hist.reshape(K, width * width * nbins)
 
 
@@ -107,22 +110,23 @@ def level_patches(mag, ori, frame, glvl, y0, x0, patch: int, bf16: bool):
 
 
 def orient_hist_levels_ref(mag, ori, frame, glvl, y0, x0, yx, sigma,
-                           patch: int, bf16: bool, nbins: int = 36):
+                           patch: int, bf16: bool, nbins: int = 36,
+                           compute_dtype=None):
     """Plain version of `orient_hist`: `level_patches`, then
     `orient_hist_ref`."""
     return orient_hist_ref(
         level_patches(mag, ori, frame, glvl, y0, x0, patch, bf16),
-        y0, x0, yx, sigma, nbins)
+        y0, x0, yx, sigma, nbins, compute_dtype)
 
 
 def descriptor_levels_ref(mag, ori, frame, glvl, y0, x0, yx, angle,
                           patch: int, bf16: bool, width: int = 4,
-                          nbins: int = 8):
+                          nbins: int = 8, compute_dtype=None):
     """Plain version of `descriptor`: `level_patches`, then
     `descriptor_ref`."""
     return descriptor_ref(
         level_patches(mag, ori, frame, glvl, y0, x0, patch, bf16),
-        y0, x0, yx, angle, width, nbins)
+        y0, x0, yx, angle, width, nbins, compute_dtype)
 
 
 def staged_boxes(yx, y0, x0, angle, ph: int, pw: int):

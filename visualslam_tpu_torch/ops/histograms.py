@@ -23,14 +23,20 @@ def mod(a: torch.Tensor, n: float) -> torch.Tensor:
 
 
 def soft_histogram(values: torch.Tensor, weights: torch.Tensor,
-                   num_bins: int, period: float) -> torch.Tensor:
+                   num_bins: int, period: float,
+                   compute_dtype: torch.dtype | None = None) -> torch.Tensor:
     """Weighted circular histogram over the last axis: values [..., P] in
-    [0, period), weights [..., P] -> [..., num_bins] float32."""
+    [0, period), weights [..., P] -> [..., num_bins] float32. With
+    compute_dtype (bfloat16) the triangle weights and the weights are
+    rounded to it, and the products and sums stay float32."""
     pos = values * (num_bins / period)                      # [..., P]
     centers = torch.arange(num_bins, dtype=pos.dtype, device=pos.device) + 0.5
     d = pos[..., None] - centers                            # [..., P, B]
     d = mod(d + num_bins / 2.0, num_bins) - num_bins / 2.0
     tri = (1.0 - d.abs()).clamp_min(0.0)
+    if compute_dtype is not None:
+        tri = tri.to(compute_dtype).float()
+        weights = weights.to(compute_dtype).float()
     return torch.einsum("...pb,...p->...b", tri, weights)
 
 

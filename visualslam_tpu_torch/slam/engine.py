@@ -52,6 +52,7 @@ from visualslam_tpu_torch.geometry.camera import normalized
 from visualslam_tpu_torch.models.matching import match_features
 from visualslam_tpu_torch.models.types import Features, Keypoints
 from visualslam_tpu_torch.ops.cuda import KERNELS, Kernels
+from visualslam_tpu_torch.ops.distance import unpack_bits
 from visualslam_tpu_torch.slam.track_step import (
     KeyframeRef,
     LocalMap,
@@ -149,14 +150,20 @@ class _Carry(NamedTuple):
 
 def float_desc(desc: torch.Tensor) -> torch.Tensor:
     """Descriptors as floats: bit-packed uint32 words unpack to {0, 1} in
-    the bit order of np.unpackbits(view(uint8), bitorder='little'), through
-    int64 arithmetic (torch has no shifts on uint32)."""
+    the bit order of np.unpackbits(view(uint8), bitorder='little')
+    (ops/distance.unpack_bits)."""
     if desc.dtype == torch.uint32:
-        w = desc.to(torch.int64)
-        shifts = torch.arange(32, dtype=torch.int64, device=desc.device)
-        bits = (w[:, :, None] >> shifts) & 1
-        return bits.reshape(desc.shape[0], -1).to(_F32)
+        return unpack_bits(desc)
     return desc.to(_F32)
+
+
+def _rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x[idx] along the first axis; bit-packed uint32 rows through an int32
+    view (torch has no indexing kernel for uint32 on the card in some
+    releases)."""
+    if x.dtype == torch.uint32:
+        return x.view(torch.int32)[idx].view(torch.uint32)
+    return x[idx]
 
 
 def float_desc_dim(desc_dim: int, dtype) -> int:
@@ -199,7 +206,12 @@ def _on_device(x: torch.Tensor, val):
 
 def _set_drop(x: torch.Tensor, idx: torch.Tensor, val) -> torch.Tensor:
     """x.at[idx].set(val, mode="drop") for idx in [0, len(x)]: the write
-    goes to a copy with one trash row at index len(x), then sliced off."""
+    goes to a copy with one trash row at index len(x), then sliced off.
+    Bit-packed uint32 rows are written through an int32 view (torch has no
+    index_put for uint32)."""
+    if x.dtype == torch.uint32:
+        val = _on_device(x, val).view(torch.int32)
+        return _set_drop(x.view(torch.int32), idx, val).view(torch.uint32)
     buf = torch.cat([x, x.new_zeros((1,) + x.shape[1:])])
     buf[idx.long()] = _on_device(x, val)
     return buf[:x.shape[0]]
@@ -449,8 +461,8 @@ def _promote(c: _Carry, feats: Features, lite, i: int, fctr: int, intr,
     # seen writes hit distinct rows; the slot writes follow, as in JAX
     idx_seen_a = torch.where(seen, ia_l, torch.full_like(ia_l, Kl))
     lm_desc = _set_drop(p.lm_desc, idx_seen_a,
-                        feats.descriptors[lite.ml_idx_b.long()])
-    lm_desc = _set_drop(lm_desc, slot, feats.descriptors[m_idx_b])
+                        _rows(feats.descriptors, lite.ml_idx_b.long()))
+    lm_desc = _set_drop(lm_desc, slot, _rows(feats.descriptors, m_idx_b))
     lm_X = _set_drop(lm_X, slot, Xw)
     lm_valid = _set_drop(p.lm_valid, slot, True)
     lm_last = _set_drop(p.lm_last, slot, fctr)

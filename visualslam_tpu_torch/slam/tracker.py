@@ -2,7 +2,7 @@
 
 Host-side orchestration of the port's device functions:
 
-  frontend  SIFT detection + description        frontend.SiftFrontend
+  frontend  SIFT / ORB / Harris features       frontend.make_frontend
   matching  ratio + mutual matcher              models/matching
   init      essential RANSAC + triangulation    geometry/ransac
   tracking  motion-only LM (PnP refine)         slam/track_step
@@ -18,7 +18,7 @@ median scene depth to `init_depth`.
 Where the JAX package caches jitted programs per config
 (`_shared_programs`, `engine.engine_programs`), the port calls its
 functions directly: PyTorch runs them eagerly. The tracker owns one
-`SiftFrontend` and one `torch.Generator` for RANSAC, split per two-view
+frontend module (the one `cfg.frontend` names) and one `torch.Generator` for RANSAC, split per two-view
 init as the reference splits its PRNG key. Everything runs on `device`
 (the card unless the caller asks for the CPU); `kernels` picks the kernel
 path (ops.cuda.KERNELS) or the plain path (ops.cuda.PLAIN). The lag-1
@@ -192,7 +192,7 @@ class Tracker:
         # a fresh device generator per two-view init (the reference splits
         # its PRNG key there)
         self._gen = torch.Generator().manual_seed(cfg.ransac.seed)
-        self._frontend_module = None     # SiftFrontend, built on first use
+        self._frontend_module = None     # the frontend, built on first use
         self._track_ok_min = max(10, cfg.keyframe_min_inliers // 3)
         self._max_depth = float(init_depth) * 20.0
         # device-side caches, rebuilt at every keyframe / correction
@@ -234,15 +234,12 @@ class Tracker:
 
     @property
     def frontend(self):
-        """The tracker's SiftFrontend (an nn.Module on `device`)."""
+        """The tracker's frontend module (frontend.make_frontend: the one
+        cfg.frontend names) on `device`."""
         if self._frontend_module is None:
-            from visualslam_tpu_torch.frontend import SiftFrontend
+            from visualslam_tpu_torch.frontend import make_frontend
 
-            if self.cfg.frontend != "sift":
-                raise NotImplementedError(
-                    f"the {self.cfg.frontend} frontend is not ported yet; "
-                    "see ROADMAP.md A.9")
-            self._frontend_module = SiftFrontend(self.cfg, self.kernels).to(
+            self._frontend_module = make_frontend(self.cfg, self.kernels).to(
                 self.device)
         return self._frontend_module
 

@@ -7,8 +7,9 @@ tree, its defaults and its JSON form are the same, so
 (tests/test_torch_pyramid.py holds the two equal). One difference:
 `SiftConfig.hist_compute_dtype` returns a torch dtype.
 
-Option values the port does not implement yet are accepted here and
-rejected by the module that would run them (NotImplementedError).
+Option values the port does not implement yet (the Tracker's `mesh`,
+ROADMAP.md A.10) are rejected by the module that would run them
+(NotImplementedError).
 """
 
 from __future__ import annotations
@@ -72,7 +73,8 @@ class PyramidConfig(_Base):
     #                                     "all": every level
     blur_mode: str = "matmul"           # "matmul": banded-Toeplitz products;
     #                                     "pallas": the separable blur kernel;
-    #                                     "conv" | "incremental" (not ported)
+    #                                     "conv": separable convolutions;
+    #                                     "incremental": chained convolutions
 
     @property
     def levels_per_octave(self) -> int:
@@ -132,8 +134,8 @@ class SiftConfig(_Base):
     #                                     same map in plain torch
     patch_impl: str = "auto"            # "auto" | "pallas": the fused
     #                                     per-keypoint sampling + histogram
-    #                                     kernels (the port's only mode so
-    #                                     far); "xla"
+    #                                     kernels; "xla": the plain tent
+    #                                     sampling + soft histogram
     hist_compute: str = "f32"           # "f32" | "bf16": bf16 (mag, ori)
     #                                     patches of 32 rows into the
     #                                     kernels, accumulation in f32
