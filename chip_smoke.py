@@ -3,8 +3,8 @@
     python3 chip_smoke.py        # from the repository root, one CUDA device
 
 The benchmark's main path at its own shapes: batches of 16 uint8 frames of
-376x1248 from the synthetic sequence. Six paths run, each with the launch
-counters reset just before it and read just after:
+376x1248 from the synthetic sequence. Seven paths run, each with the
+launch counters reset just before it and read just after:
 
   - the frontend slice: the batched SIFT frontend (FAST_CONFIG, 3 octaves)
     and each consecutive pair of frames matched;
@@ -24,7 +24,9 @@ counters reset just before it and read just after:
     row (`cli accuracy`) through Tracker.process_stream;
   - the full sequence: 500 frames of the loop rectangle through the
     tracker with the matrix-free BA, loop closure and the full-sequence
-    global BA (benchmarks/kitti_scale.py's protocol).
+    global BA (benchmarks/kitti_scale.py's protocol);
+  - the parallel paths over an in-process mesh (parallel/): the
+    data-parallel frontend, four shards of FAST_CONFIG frames on the card.
 
 Phases, each printing its own lines:
 
@@ -118,12 +120,36 @@ Phases, each printing its own lines:
                bit, and the resumed tracker's global BA); the pose file.
                Checked against half / twice the JAX package's figures on
                the same protocol (benchmarks/kitti_scale.json)
- 12. result    one JSON line of per-kernel numbers (the extrema kernels'
+ 12. parallel  a 4-shard virtual mesh of the one card (and cuda:0..3 too
+               where four cards are visible; a virtual mesh runs its
+               shards one after another, so its times are no multi-GPU
+               scaling figure): parallel/dryrun.run_dryrun(4); the
+               data-parallel frontend (FAST_CONFIG, frames 8..23, 4 a
+               shard: launch counts, each shard's features bit for bit
+               against the one-device frontend on its chunk, the psum'd
+               detection count); the matrix-free trajectory-sharded BA
+               at C = 1024, L = 4096 against the same solver on one shard
+               and the one-device run_ba schur_mf (costs, ms per solve, 0
+               host syncs inside the solve); window-size sharded BA
+               (landmark psum / ring, trajectory dense) against run_ba;
+               Tracker(FAST_CONFIG, mesh) over frames 0..55 for RANSAC
+               seeds 0..7 against twice the JAX package's ATE median and
+               maximum over the same seeds (PAR_SEQ_BOUNDS) and
+               SEQ_BOUNDS' ok share, keyframes and inliers, seed 0 also
+               against the one-device tracker with the same synchronous
+               window BA; global BA over the mesh on the KITTI-scale
+               tracker against the same solver on one shard (cost,
+               aligned centres) and the one-device solve (cost, ATE
+               against ground truth); pipelined_process
+               against chunked detect_batch + process_features, bit for
+               bit, with frames/s of both
+ 13. result    one JSON line of per-kernel numbers (the extrema kernels'
                per batch: summed over the 3 octaves, one launch each; the
                others per call at octave 0 or a tracked frame; launches on
-               the sequence and reference sequence for the three frontend
-               kernels, on the engine path for the others), then the last
-               line {"ok": true, "device": {...}}
+               the sequence, the reference sequence and the data-parallel
+               frontend for the three frontend kernels, on the engine
+               path for the others), then the last line
+               {"ok": true, "device": {...}}
 
     python3 chip_smoke.py --save-features engine_feats.npz
 
@@ -1910,7 +1936,7 @@ def state_diffs(a, b) -> list:
     return diffs
 
 
-def phase_full_sequence(card: str, dev) -> dict:
+def phase_full_sequence(card: str, dev) -> tuple:
     """benchmarks/kitti_scale.py's protocol on the port, not cut: 500
     frames of 376x1248 on the loop rectangle (12000 dots), FAST_CONFIG
     with the matrix-free BA, a warmup tracker on 24 frames of another
@@ -1919,7 +1945,7 @@ def phase_full_sequence(card: str, dev) -> dict:
     (cold, then the rebuilt problem warm), the three BA solvers on that
     problem against its float64 dense LM run, a checkpoint round trip and
     the pose file. Returns the three frontend kernels' launches over the
-    stream."""
+    stream, and the tracker."""
     from visualslam_tpu_torch.backend.ba import run_ba
     from visualslam_tpu_torch.io.serialization import (
         load_kitti_poses,
@@ -2137,7 +2163,499 @@ def phase_full_sequence(card: str, dev) -> dict:
           "the pose file gives the same ATE")
     print(f"full_sequence phase wall time: "
           f"{time.perf_counter() - t_phase:.1f} s")
+    return {n: counts[n] for n in FRONTEND_PATH}, tracker
+
+
+# the parallel phase: the port's in-process mesh (parallel/), on a
+# 4-shard virtual mesh of the one card, and on cuda:0..3 as well where
+# four cards are visible
+PAR_SHARDS = 4
+PAR_FRAMES = (8, 24)        # the data-parallel frontend: 4 frames a shard
+PAR_MF_INIT_RTOL = 1e-5     # C = 1024 schur_mf: initial costs
+PAR_MF_RTOL = 1e-2          # final cost vs the same solver on one shard
+# final cost vs the one-device run_ba schur_mf: its block-Jacobi CG and the
+# sharded solver's scalar-Jacobi CG stop at 24 iterations in different
+# places; the JAX package's own pair parts by 10.0% on this problem
+# (CPU: 6.5644e-05 sharded vs 5.9676e-05 one device)
+PAR_MF_SINGLE_RTOL = 0.15
+PAR_WIN_TOL = dict(R=5e-4, t=5e-3, X=2e-2, init=1e-5, drop=1e-3)
+# global BA against the one-device solve (another CG): costs, as
+# tests/test_global_ba.py (monocular scale gauge); against the same
+# sharded solver on 1 shard: final costs and aligned centres
+PAR_GBA_RTOL = 0.2
+PAR_GBA_SHARD_RTOL = 1e-2
+PAR_GBA_CENTRES = 0.03
+PAR_SEQ_FRAMES = 56         # Tracker(mesh) over frames 0..55 (SEQ_BOUNDS)
+# Tracker(mesh), once per RANSAC seed 0..7: its ATE's median and maximum
+# over the seeds, bounded at twice the JAX package's Tracker on the same
+# features with the same synchronous window BA over the same seeds
+# (tests/jax_sequence_bounds.py --sync --seeds 8, on the sequence phase's
+# features: ATE median 0.4546, max 0.8361; 0.2652 at seed 0, 0.5861 at
+# seeds 1, 5 and 7, 0.8361 at seed 2). On these frames the ATE depends on
+# the inlier set the two-view init's RANSAC draws, in both packages
+# (PERF.md, Findings)
+PAR_SEQ_SEEDS = 8
+PAR_SEQ_BOUNDS = dict(ate_median=0.9091, ate_max=1.6722)
+# seed 0: Tracker(mesh) vs the one-device tracker with the same
+# (synchronous) window BA: 3 runs each of both on the H100 parted by
+# 0.14% in ATE and 0% in keyframes (PERF.md, Findings)
+PAR_SEQ_ATE = 0.05
+PAR_SEQ_INLIERS = 0.02
+PAR_PIPE_FRAMES = 24
+PAR_PIPE_BATCH = 8
+
+
+def window_problem(dev, C: int = 10, C_pad: int = 12, L: int = 2048,
+                   per: int = 3, seed: int = 5):
+    """A FAST_CONFIG window-sized BA problem (numpy only): C = 10 cameras on
+    a slow dolly, padded to 12 with invalid identity cameras (as the
+    tracker pads a window for a 4-shard mesh), L = 2048 landmarks each
+    seen by 3 consecutive cameras (O = 6144), noise-free measurements,
+    poses and points perturbed; the first camera is the gauge."""
+    from visualslam_tpu_torch.backend.ba import BAProblem
+    from visualslam_tpu_torch.geometry import se3
+
+    r = np.random.default_rng(seed)
+    a = 0.01 * np.arange(C)
+    R = np.stack([[[np.cos(x), 0, np.sin(x)], [0, 1, 0],
+                   [-np.sin(x), 0, np.cos(x)]] for x in a])
+    cw = np.stack([0.05 * np.arange(C), np.zeros(C), 0.4 * np.arange(C)], -1)
+    t = -np.einsum("cij,cj->ci", R, cw)
+    X = np.stack([r.uniform(-15, 15, L), r.uniform(-6, 6, L),
+                  r.uniform(10, 40, L)], -1)
+    cam_idx = (r.integers(0, C - per + 1, L)[:, None]
+               + np.arange(per)).reshape(-1)
+    lm_idx = np.repeat(np.arange(L), per)
+    Xc = np.einsum("oij,oj->oi", R[cam_idx], X[lm_idx]) + t[cam_idx]
+    uv = Xc[:, :2] / Xc[:, 2:]
+    xi = r.normal(0, 0.01, (C, 6))
+    xi[0] = 0
+    dR, dt = (v.double().numpy() for v in se3.se3_exp(
+        torch.tensor(xi, dtype=torch.float32)))
+    R0 = np.concatenate([dR @ R, np.tile(np.eye(3), (C_pad - C, 1, 1))])
+    t0 = np.concatenate([np.einsum("cij,cj->ci", dR, t) + dt,
+                         np.zeros((C_pad - C, 3))])
+
+    def T(x, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
+
+    return BAProblem(
+        R=T(R0), t=T(t0), X=T(X + r.normal(0, 0.05, X.shape)),
+        cam_idx=T(cam_idx, torch.int32), lm_idx=T(lm_idx, torch.int32),
+        uv=T(uv), obs_valid=T(np.ones(len(cam_idx), bool), torch.bool),
+        cam_valid=T(np.arange(C_pad) < C, torch.bool),
+        lm_valid=T(np.ones(L, bool), torch.bool))
+
+
+def par_frontend(mesh, frontend: SiftFrontend, frames_dev: torch.Tensor,
+                 name: str) -> dict:
+    """The data-parallel frontend at full width (FAST_CONFIG, frames
+    8..23, 4 a shard), launch counts reset just before it and read just
+    after; each shard's features against the one-device frontend on the
+    same 4-frame chunk (the banded blur's reduction order depends on the
+    batch width), the psum'd total against the one-device sum."""
+    from visualslam_tpu_torch.parallel.dryrun import data_parallel_frontend
+    from visualslam_tpu_torch.parallel.mesh import make_mesh
+
+    dmesh = make_mesh(mesh.size, "data", mesh.devices)
+    batch = frames_dev[PAR_FRAMES[0]:PAR_FRAMES[1]]
+    data_parallel_frontend(frontend, batch, dmesh)       # warm every device
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    feats, total = data_parallel_frontend(frontend, batch, dmesh)
+    for d in set(mesh.devices):
+        torch.cuda.synchronize(d)
+    ms = 1e3 * (time.perf_counter() - t0)
+    counts = launch_counts()
+    per = batch.shape[0] // mesh.size
+    worst, n_one = {}, 0
+    for s, f in enumerate(feats):
+        one = frontend(batch[s * per:(s + 1) * per])
+        n_one += int(one.keypoints.valid.sum())
+        check(torch.equal(f.keypoints.valid.cpu(), one.keypoints.valid.cpu()),
+              f"{name} shard {s}: the same keypoints as the one-device "
+              "frontend")
+        for field, a, b in (("yx", f.keypoints.yx, one.keypoints.yx),
+                            ("orientation", f.keypoints.orientation,
+                             one.keypoints.orientation),
+                            ("descriptors", f.descriptors, one.descriptors)):
+            err = float((a.to(b.device) - b).abs().max())
+            worst[field] = max(worst.get(field, 0.0), err)
+    totals = [int(v) for v in total]
+    print(f"parallel {name} data-parallel frontend: {batch.shape[0]} frames "
+          f"of {H}x{W} over {mesh.size} shards, {ms:.3f} ms (host clock + "
+          f"synchronize, {1e3 * batch.shape[0] / ms:.1f} frames/s); "
+          f"launches {({n: counts[n] for n in FRONTEND_PATH})}; psum'd "
+          f"detections {totals} vs one-device {n_one}; max |shard - "
+          f"one-device| {json.dumps(worst)}")
+    for n in FRONTEND_PATH:
+        check(counts[n] == 3 * mesh.size, f"{name}: {n} launched once per "
+              "octave on every shard")
+    check(all(v == n_one for v in totals), f"{name}: the psum'd detection "
+          "count equals the one-device sum on every shard")
+    check(all(v == 0.0 for v in worst.values()), f"{name}: each shard's "
+          "features equal the one-device frontend's bit for bit")
     return {n: counts[n] for n in FRONTEND_PATH}
+
+
+def par_traj_mf(mesh, dev, name: str) -> None:
+    """The dry run's sequence-scale problem (C = 1024, L = 4096, 16k
+    observations; 2 LM iterations of 24 CG steps) through the matrix-free
+    trajectory-sharded solver, against the same solver on a 1-shard mesh
+    and against the one-device run_ba schur_mf."""
+    from visualslam_tpu_torch.parallel.dryrun import (
+        TRAJ_MF_CONFIG,
+        traj_mf_problem,
+    )
+    from visualslam_tpu_torch.parallel.mesh import make_mesh
+    from visualslam_tpu_torch.parallel.traj_ba import (
+        run_ba_traj_sharded,
+        shard_problem_trajectory,
+    )
+
+    p = traj_mf_problem(dev)
+    cfg = TRAJ_MF_CONFIG
+    sp = shard_problem_trajectory(p, mesh.size)
+    sp1 = shard_problem_trajectory(p, 1)
+    one = make_mesh(1, devices=[dev])
+    sharded = run_ba_traj_sharded(sp, cfg, mesh)
+    shard1 = run_ba_traj_sharded(sp1, cfg, one)
+    single = run_ba(p, cfg)
+    c = {k: (float(r.initial_cost), float(r.cost)) for k, r in
+         (("sharded", sharded), ("one_shard", shard1), ("run_ba", single))}
+    syncs = count_syncs(lambda: run_ba_traj_sharded(sp, cfg, mesh))
+    ms_sh = wall_ms(lambda: float(run_ba_traj_sharded(sp, cfg, mesh).cost), 3)
+    ms_one = wall_ms(lambda: float(run_ba_traj_sharded(sp1, cfg, one).cost),
+                     3)
+    ms_single = wall_ms(lambda: float(run_ba(p, cfg).cost), 3)
+    launches, busy, _ = profile_call(
+        lambda: run_ba_traj_sharded(sp, cfg, mesh))
+    rel1 = abs(c["sharded"][1] - c["one_shard"][1]) / c["one_shard"][1]
+    rels = abs(c["sharded"][1] - c["run_ba"][1]) / c["run_ba"][1]
+    print(f"parallel {name} traj-sharded schur_mf C = {p.R.shape[0]}, L = "
+          f"{p.X.shape[0]}, O = {int(p.obs_valid.sum())} valid of "
+          f"{p.uv.shape[0]}, iters {cfg.iters}, cg {cfg.cg_iters}: (initial, "
+          f"final) cost {json.dumps(c)}; final vs 1 shard {rel1:.3e}, vs "
+          f"run_ba {rels:.3e}; ms per solve (host clock + read-back, median "
+          f"of 3): {mesh.size} shards {ms_sh:.3f}, 1 shard {ms_one:.3f}, "
+          f"run_ba {ms_single:.3f}; {syncs} host syncs inside the sharded "
+          f"solve; {launches} device launches, device busy {busy} ms")
+    for k in ("one_shard", "run_ba"):
+        check(abs(c["sharded"][0] - c[k][0]) <= PAR_MF_INIT_RTOL * c[k][0],
+              f"{name}: C = 1024 initial cost within {PAR_MF_INIT_RTOL} of "
+              f"{k}")
+    check(c["sharded"][1] < c["sharded"][0], f"{name}: C = 1024 sharded "
+          "solve lowers the cost")
+    check(rel1 <= PAR_MF_RTOL, f"{name}: C = 1024 final cost within "
+          f"{PAR_MF_RTOL} of the same solver on one shard")
+    check(rels <= PAR_MF_SINGLE_RTOL, f"{name}: C = 1024 final cost within "
+          f"{PAR_MF_SINGLE_RTOL} of the one-device run_ba schur_mf")
+    check(syncs == 0, f"{name}: no host sync inside the sharded C = 1024 "
+          "solve")
+
+
+def par_window(mesh, dev, name: str) -> None:
+    """Window-size sharded BA (FAST_CONFIG.ba on window_problem: C = 10 of
+    12, L = 2048, O = 6144): run_ba_sharded under psum and ring and the
+    dense run_ba_traj_sharded, each against the one-device run_ba with
+    tests/test_dist_ba.py's tolerances."""
+    from visualslam_tpu_torch.parallel.dist_ba import (
+        run_ba_sharded,
+        shard_problem,
+        unshard_points,
+    )
+    from visualslam_tpu_torch.parallel.traj_ba import (
+        run_ba_traj_sharded,
+        shard_problem_trajectory,
+        unshard_traj,
+    )
+
+    p = window_problem(dev)
+    cfg = FAST_CONFIG.ba.replace(max_cameras=int(p.R.shape[0]))
+    single = run_ba(p, cfg)
+    R1, t1, X1 = (v.cpu().numpy() for v in (single.R, single.t, single.X))
+    sp = shard_problem(p, mesh.size)
+    tp = shard_problem_trajectory(p, mesh.size)
+    L = p.X.shape[0]
+    runs = {
+        "landmark psum": lambda: run_ba_sharded(sp, cfg, mesh, reduce="psum"),
+        "landmark ring": lambda: run_ba_sharded(sp, cfg, mesh, reduce="ring"),
+        "trajectory dense": lambda: run_ba_traj_sharded(tp, cfg, mesh),
+    }
+    tol = PAR_WIN_TOL
+    out = {"run_ba": dict(cost=[float(single.initial_cost),
+                                float(single.cost)],
+                          ms=wall_ms(lambda: float(run_ba(p, cfg).cost), 3))}
+    for k, fn in runs.items():
+        r = fn()
+        if k.startswith("landmark"):
+            R, t = r.R.cpu().numpy(), r.t.cpu().numpy()
+            X = unshard_points(r.X, sp.lm_order).cpu().numpy()
+        else:
+            R, t, X = unshard_traj(r.R, r.t, r.X, tp.lm_order, L)
+        err = dict(R=float(np.abs(R - R1).max()),
+                   t=float(np.abs(t - t1).max()),
+                   X=float(np.abs(X - X1).max()))
+        out[k] = dict(cost=[float(r.initial_cost), float(r.cost)], err=err,
+                      ms=wall_ms(lambda: float(fn().cost), 3))
+        c0 = float(r.initial_cost)
+        check(abs(c0 - float(single.initial_cost))
+              <= tol["init"] * float(single.initial_cost),
+              f"{name} {k}: initial cost within {tol['init']}")
+        check(float(r.cost) < tol["drop"] * c0, f"{name} {k}: cost below "
+              f"{tol['drop']} of the initial")
+        for f in ("R", "t", "X"):
+            check(err[f] <= tol[f], f"{name} {k}: |{f} - one-device| <= "
+                  f"{tol[f]}")
+    print(f"parallel {name} window BA (C = 10 of {p.R.shape[0]}, L = {L}, O "
+          f"= {p.uv.shape[0]}, FAST_CONFIG.ba): {json.dumps(out)} (ms per "
+          f"solve, host clock + read-back, median of 3)")
+
+
+def par_tracker(mesh, frames: np.ndarray, seq, dev, name: str) -> None:
+    """Tracker(FAST_CONFIG, mesh=mesh) over frames 0..55 through bench's
+    protocol (process_batch of 0..7, process_stream in batches of 16,
+    finish), once for each RANSAC seed 0..PAR_SEQ_SEEDS-1: two-view init's
+    window BA runs trajectory-sharded and, as in the reference, lands at
+    once. Every run is held to SEQ_BOUNDS' tracking-ok share, keyframes
+    and inliers; the ATE's median and maximum over the seeds to
+    PAR_SEQ_BOUNDS, twice the JAX package's over the same seeds with the
+    same (synchronous) window BA. Seed 0's run is also held to the
+    one-device tracker with that timing (async_ba=False): keyframes equal,
+    ATE and mean inliers within PAR_SEQ_ATE / PAR_SEQ_INLIERS."""
+    from visualslam_tpu_torch.parallel import traj_ba
+
+    calls = []
+    run = traj_ba.run_ba_traj_sharded
+
+    def counted(*a, **kw):
+        calls.append(1)
+        return run(*a, **kw)
+
+    def stream(tracker):
+        t0 = time.perf_counter()
+        tracker.process_batch(frames[:bench.INIT_FRAMES], 0)
+        for k in range(bench.INIT_FRAMES, PAR_SEQ_FRAMES, BATCH):
+            tracker.process_stream(frames[k:min(k + BATCH, PAR_SEQ_FRAMES)],
+                                   k)
+        tracker.finish()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    gt = seq.gt_poses[:, :, 3]
+    runs = []
+    for seed in range(PAR_SEQ_SEEDS):
+        cfg = FAST_CONFIG.replace(
+            ransac=FAST_CONFIG.ransac.replace(seed=seed))
+        calls.clear()
+        traj_ba.run_ba_traj_sharded = counted
+        try:
+            tracker = Tracker(cfg, seq.intrinsics, device=dev, mesh=mesh)
+            wall = stream(tracker)
+        finally:
+            traj_ba.run_ba_traj_sharded = run
+        stats = sequence_stats(tracker, gt, PAR_SEQ_FRAMES)
+        runs.append(dict(seed=seed, s=round(wall, 3), sharded=len(calls),
+                         last_cost=tracker.last_ba_cost, **stats))
+        check(len(calls) > 0 and tracker.last_ba_cost >= 0,
+              f"{name} seed {seed}: the tracker's window BA ran sharded")
+        check(len(tracker.frames) == PAR_SEQ_FRAMES, f"{name} seed {seed}: "
+              "every frame committed")
+        b = SEQ_BOUNDS
+        check(stats["ok"] >= b["ok"], f"{name} seed {seed}: tracking-ok "
+              "share")
+        check(b["keyframes"][0] <= stats["keyframes"] <= b["keyframes"][1],
+              f"{name} seed {seed}: keyframes within {b['keyframes']}")
+        check(b["mean_inliers"][0] <= stats["mean_inliers"]
+              <= b["mean_inliers"][1],
+              f"{name} seed {seed}: mean inliers within "
+              f"{b['mean_inliers']}")
+    sync_cfg = FAST_CONFIG.replace(ba=FAST_CONFIG.ba.replace(async_ba=False))
+    one = Tracker(sync_cfg, seq.intrinsics, device=dev)
+    wall_one = stream(one)
+    ref = sequence_stats(one, gt, PAR_SEQ_FRAMES)
+    ate = [r["ate"] for r in runs]
+    fig = dict(ate_median=float(np.median(ate)), ate_max=max(ate))
+    print(f"parallel {name} Tracker(FAST_CONFIG, mesh): frames 0.."
+          f"{PAR_SEQ_FRAMES - 1}, RANSAC seeds 0..{PAR_SEQ_SEEDS - 1}: "
+          f"{json.dumps(runs)}; {json.dumps(fig)} (bounds "
+          f"{json.dumps(PAR_SEQ_BOUNDS)}; SEQ_BOUNDS {json.dumps(SEQ_BOUNDS)}"
+          f"); seed 0 on one device, async_ba=False, in {wall_one:.3f} s: "
+          f"{json.dumps(ref)}, last cost {one.last_ba_cost:.6e}")
+    for k, v in fig.items():
+        check(v <= PAR_SEQ_BOUNDS[k], f"{name} tracker: ATE {k} over the "
+              f"seeds <= {PAR_SEQ_BOUNDS[k]} (twice the JAX package's)")
+    r0 = runs[0]
+    check(r0["keyframes"] == ref["keyframes"], f"{name}: the mesh and the "
+          "one-device tracker promote the same number of keyframes")
+    check(abs(r0["ate"] - ref["ate"]) <= PAR_SEQ_ATE * ref["ate"],
+          f"{name}: ATE within {PAR_SEQ_ATE} of the one-device tracker's")
+    check(abs(r0["mean_inliers"] - ref["mean_inliers"])
+          <= PAR_SEQ_INLIERS * ref["mean_inliers"],
+          f"{name}: mean inliers within {PAR_SEQ_INLIERS} of the "
+          "one-device tracker's")
+
+
+def par_global_ba(mesh, ks_tracker, dev, name: str) -> None:
+    """global_ba(mesh=mesh) on full_sequence's KITTI-scale tracker (C = 67
+    keyframes padded to a multiple of the shards, schur_mf) against the
+    same trajectory-sharded solver on a 1-shard mesh (the same algorithm:
+    final costs within PAR_GBA_SHARD_RTOL, Sim(3)-aligned camera centres
+    within PAR_GBA_CENTRES) and against the one-device run_global_ba
+    (block- where the sharded CG is scalar-Jacobi: costs within
+    PAR_GBA_RTOL), all of the same map: global BA reads the map and writes
+    only the frame results, so no run sees another's write-back. The
+    trajectory the sharded solve leaves is no worse against ground truth
+    than KS_ATE_VS_TRACKED x the one-device global BA's, which the frames
+    carry on entry."""
+    from visualslam_tpu_torch.parallel.mesh import make_mesh
+    from visualslam_tpu_torch.slam.evaluation import (
+        ate_rmse,
+        centers_from_poses,
+    )
+    from visualslam_tpu_torch.slam.global_ba import run_global_ba
+
+    gt = centers_from_poses(SyntheticSequence(
+        num_frames=KS_FRAMES, trajectory="loop", **KS_WORLD).gt_poses)
+    ate_one = float(ate_rmse(centers_from_poses(ks_tracker.trajectory()),
+                             gt))
+    lc = ks_tracker.loop_closer
+    corrected = None if lc is None or lc.corrected is None else {
+        int(e.frame_id): (np.asarray(R), np.asarray(t))
+        for e, (R, t) in zip(lc.entries, lc.corrected)}
+    # the tracker's global_ba first: it lands any pending window BA in the
+    # map before the other solves read it
+    t0 = time.perf_counter()
+    sh = ks_tracker.global_ba(mesh=mesh)
+    s_sh = time.perf_counter() - t0
+    ate_sh = float(ate_rmse(centers_from_poses(ks_tracker.trajectory()), gt))
+    t0 = time.perf_counter()
+    sh1 = run_global_ba(ks_tracker.map, ks_tracker.cfg.ba, corrected,
+                        mesh=make_mesh(1, devices=[dev]), device=dev)
+    s_sh1 = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    one = run_global_ba(ks_tracker.map, ks_tracker.cfg.ba, corrected,
+                        device=dev)
+    s_one = time.perf_counter() - t0
+
+    def centres(r):
+        return np.stack([-R.T @ t for R, t in zip(r.R, r.t)])
+
+    path = float(np.linalg.norm(np.diff(centres(sh1), axis=0),
+                                axis=1).sum())
+    apart1 = float(ate_rmse(centres(sh), centres(sh1)))
+    apart = float(ate_rmse(centres(sh), centres(one)))
+    rel1 = abs(sh.cost - sh1.cost) / sh1.cost
+    rel = abs(sh.cost - one.cost) / one.cost
+    print(f"parallel {name} global BA: {sh.n_cameras} cameras (padded to a "
+          f"multiple of {mesh.size}), {sh.n_landmarks} landmarks, "
+          f"{sh.n_observations} observations; cost (initial -> final, "
+          f"seconds for build + solve + read-back): {mesh.size} shards "
+          f"{sh.initial_cost:.6e} -> {sh.cost:.6e} in {s_sh:.3f} s, 1 shard "
+          f"{sh1.initial_cost:.6e} -> {sh1.cost:.6e} in {s_sh1:.3f} s, one "
+          f"device {one.initial_cost:.6e} -> {one.cost:.6e} in {s_one:.3f} "
+          f"s; final costs {rel1:.3e} from 1 shard, {rel:.3e} from one "
+          f"device; Sim(3)-aligned centres {apart1:.6f} from 1 shard, "
+          f"{apart:.6f} from one device, over a {path:.3f} keyframe path; "
+          f"ATE against ground truth {ate_sh:.4f} after the sharded solve, "
+          f"{ate_one:.4f} after the one-device one")
+    check(sh.n_cameras == sh1.n_cameras == one.n_cameras
+          and sh.cost < sh.initial_cost,
+          f"{name}: sharded global BA lowers the cost")
+    check(rel1 <= PAR_GBA_SHARD_RTOL, f"{name}: global BA final cost within "
+          f"{PAR_GBA_SHARD_RTOL} of the same solver on 1 shard")
+    check(apart1 < PAR_GBA_CENTRES, f"{name}: global BA Sim(3)-aligned "
+          f"centres within {PAR_GBA_CENTRES} of the same solver on 1 shard")
+    check(rel <= PAR_GBA_RTOL, f"{name}: global BA costs within "
+          f"{PAR_GBA_RTOL} of the one-device solve")
+    check(ate_sh <= KS_ATE_VS_TRACKED * ate_one,
+          f"{name}: ATE after the sharded global BA <= {KS_ATE_VS_TRACKED} "
+          "x the one-device global BA's")
+
+
+def par_pipeline(frames: np.ndarray, seq, dev, name: str) -> None:
+    """pipelined_process over frames 0..23 in batches of 8 against chunked
+    detect_batch + process_features on a second tracker, under
+    deterministic algorithms (index_add_ in a fixed order): the
+    trajectories equal bit for bit; frames/s of both (host clock)."""
+    from visualslam_tpu_torch.parallel.pipeline import pipelined_process
+
+    imgs = frames[:PAR_PIPE_FRAMES]
+    B = PAR_PIPE_BATCH
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        fps = {}
+        for _ in range(2):        # the first turn warms both loops up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            seq_t = Tracker(FAST_CONFIG, seq.intrinsics, device=dev)
+            for k in range(0, len(imgs), B):
+                fb = seq_t.detect_batch(imgs[k:k + B])
+                for i in range(len(imgs[k:k + B])):
+                    seq_t.process_features(Tracker.features_at(fb, i), k + i)
+            torch.cuda.synchronize()
+            fps["sequential"] = len(imgs) / (time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            pipe_t = Tracker(FAST_CONFIG, seq.intrinsics, device=dev)
+            res = pipelined_process(pipe_t, imgs, batch=B)
+            torch.cuda.synchronize()
+            fps["pipelined"] = len(imgs) / (time.perf_counter() - t0)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    same = np.array_equal(seq_t.trajectory(), pipe_t.trajectory())
+    print(f"parallel {name} pipeline: frames 0..{len(imgs) - 1} at {H}x{W} "
+          f"in batches of {B} (host path, deterministic algorithms): "
+          f"frames/s {json.dumps(fps)}; trajectories equal bit for bit: "
+          f"{same}; keyframes "
+          f"{sum(f.is_keyframe for f in pipe_t.frames)}")
+    check([r.frame_id for r in res] == list(range(len(imgs))),
+          f"{name}: the pipeline returns every frame in order")
+    check(same, f"{name}: pipelined and sequential trajectories equal bit "
+          "for bit")
+
+
+def phase_parallel(frames: np.ndarray, frontend: SiftFrontend, card: str,
+                   dev, ks_tracker) -> dict:
+    """The parallel paths over a 4-shard virtual mesh of the one card (and
+    over cuda:0..3 where four cards are visible): the dry run, the
+    data-parallel frontend at full width, the C = 1024 matrix-free
+    trajectory-sharded BA, window-size sharded BA (landmark psum / ring,
+    trajectory dense), Tracker(mesh) over frames 0..55, global BA over the
+    mesh on the KITTI-scale tracker, and the stage-overlapped pipeline.
+    Returns the frontend kernels' launches on the data-parallel path."""
+    from visualslam_tpu_torch.parallel.dryrun import run_dryrun
+    from visualslam_tpu_torch.parallel.mesh import make_mesh
+
+    t_phase = time.perf_counter()
+    print(f"parallel: {card}")
+    # bench's world, frames 0..55 (frame k depends on k alone)
+    seq = SyntheticSequence(num_frames=PAR_SEQ_FRAMES, h=H, w=W, n_dots=8000,
+                            step=0.4)
+    extra = [seq.frame(k) for k in range(len(frames), PAR_SEQ_FRAMES)]
+    if extra:
+        extra = np.clip(np.stack(extra) * 255.0, 0, 255).astype(np.uint8)
+        frames = np.concatenate([frames, extra])
+    frames_dev = torch.from_numpy(frames[:PAR_FRAMES[1]]).to(dev)
+    meshes = [("virtual", make_mesh(PAR_SHARDS, devices=[dev] * PAR_SHARDS))]
+    if torch.cuda.device_count() >= PAR_SHARDS:
+        meshes.append(("cards", make_mesh(PAR_SHARDS)))
+    names = [(n, [str(d) for d in m.devices]) for n, m in meshes]
+    print(f"parallel meshes: {names} (a virtual mesh runs its shards one "
+          f"after another on one card: its times are no multi-GPU scaling "
+          f"figure)")
+    counts = dict.fromkeys(FRONTEND_PATH, 0)
+    for name, mesh in meshes:
+        run_dryrun(PAR_SHARDS, devices=list(mesh.devices))
+        for k, v in par_frontend(mesh, frontend, frames_dev, name).items():
+            counts[k] += v
+        par_traj_mf(mesh, dev, name)
+        par_window(mesh, dev, name)
+        par_tracker(mesh, frames, seq, dev, name)
+        par_global_ba(mesh, ks_tracker, dev, name)
+    par_pipeline(frames, seq, dev, "virtual")
+    print(f"parallel phase wall time: {time.perf_counter() - t_phase:.1f} s")
+    return counts
 
 
 def main() -> None:
@@ -2169,12 +2687,15 @@ def main() -> None:
     reference_counts = phase_reference(frames_dev, card, dev, save_ref)
     phase_orb(frames_dev, card, dev, save_orb)
     del frames_dev
-    phase_full_sequence(card, dev)
+    _, ks_tracker = phase_full_sequence(card, dev)
+    parallel_counts = phase_parallel(frames, frontend, card, dev, ks_tracker)
+    del ks_tracker
     # each kernel's launches on the paths that run it: the main path (the
-    # sequence) and the reference sequence for the three frontend kernels,
-    # the engine path for the three opt-in ones
+    # sequence), the reference sequence and the data-parallel frontend for
+    # the three frontend kernels, the engine path for the three opt-in ones
     launches = dict(engine_counts, **{
-        n: sequence_counts[n] + reference_counts[n] for n in FRONTEND_PATH})
+        n: sequence_counts[n] + reference_counts[n] + parallel_counts[n]
+        for n in FRONTEND_PATH})
     check(all(launches[name] > 0 for name in SOURCES),
           "every kernel launched on the sequence or the engine path")
     check(track["extrema_winners"] > 0, "extrema_winners on the track path")

@@ -9,6 +9,9 @@ and twice of them).
     python tests/jax_sequence_bounds.py seq_feats.npz
     python tests/jax_sequence_bounds.py ref_feats.npz --profile reference
     python tests/jax_sequence_bounds.py orb_feats.npz --frontend orb
+    python tests/jax_sequence_bounds.py seq_feats.npz --sync --seeds 8
+    python tests/jax_sequence_bounds.py seq_feats.npz --sync --seeds 8 \
+        --tracker port
 
 The npz holds the kernel-path features of the bench sequence's frames
 0..55 as the port's tracker detected them (a batch of 8, then batches of
@@ -21,6 +24,14 @@ process_batch_features over the first batch (bootstrap and two-view init,
 then the engine), then over each 16-frame batch (process_stream's result
 equals process_batch's, tests/test_torch_tracker.py). Prints one JSON line
 of the figures and the bounds derived from them.
+
+--sync runs the window BA synchronously (async_ba=False: the timing of a
+Tracker given a mesh). --seeds N runs RANSAC seeds 0..N-1 in place of the
+config's one and prints each run's figures, the ATE's median and maximum
+over the seeds and the bounds on them (twice each): on these features the
+tracker's ATE depends on which inlier set the two-view init's RANSAC
+draws, in both packages. --tracker port runs the port's Tracker on the CPU
+(its own RANSAC draws) in place of the JAX package's, for comparison.
 """
 
 import argparse
@@ -42,36 +53,69 @@ from visualslam_tpu.utils.config import (  # noqa: E402
 )
 
 
-def main(path: str, profile: str = "fast", frontend: str = "sift") -> None:
-    z = np.load(path)
+def run(z, cfg, tracker: str) -> dict:
+    """One tracker over the saved batches; the figures of frames 0..n-1."""
     sizes = [int(s) for s in z["sizes"]]
-    cfg = FAST_CONFIG if profile == "fast" else DEFAULT_CONFIG
-    tracker = Tracker(cfg.replace(frontend=frontend), z["intrinsics"])
+    if tracker == "jax":
+        t = Tracker(cfg, z["intrinsics"])
+    else:
+        import torch
+
+        from visualslam_tpu_torch.models.types import Features as PFeatures
+        from visualslam_tpu_torch.models.types import Keypoints as PKeypoints
+        from visualslam_tpu_torch.slam.tracker import Tracker as PTracker
+        from visualslam_tpu_torch.utils.config import SlamConfig
+
+        t = PTracker(SlamConfig.from_json(cfg.to_json()), z["intrinsics"],
+                     device="cpu")
     first = 0
     for b, size in enumerate(sizes):
-        kps = Keypoints(*(jnp.asarray(z[f"b{b}_{k}"])
-                          for k in Keypoints._fields))
-        fb = Features(kps, jnp.asarray(z[f"b{b}_descriptors"]))
-        tracker.process_batch_features(fb, first, 0, size)
+        if tracker == "jax":
+            kps = Keypoints(*(jnp.asarray(z[f"b{b}_{k}"])
+                              for k in Keypoints._fields))
+            fb = Features(kps, jnp.asarray(z[f"b{b}_descriptors"]))
+        else:
+            kps = PKeypoints(*(torch.as_tensor(z[f"b{b}_{k}"])
+                               for k in PKeypoints._fields))
+            fb = PFeatures(kps, torch.as_tensor(z[f"b{b}_descriptors"]))
+        t.process_batch_features(fb, first, 0, size)
         first += size
     n = first
-    frames = tracker.frames[:n]
+    frames = t.frames[:n]
     assert [f.frame_id for f in frames] == list(range(n))
-    est = tracker.trajectory()[:n, :, 3]
+    est = t.trajectory()[:n, :, 3]
     inl = [f.num_inliers for f in frames if f.num_inliers > 0]
-    fig = dict(frames=n,
-               ok=float(np.mean([f.tracking_ok for f in frames])),
-               ate=ate_rmse(est, z["gt_poses"][:n, :, 3]),
-               keyframes=int(sum(f.is_keyframe for f in frames)),
-               mean_inliers=float(np.mean(inl)), min_inliers=int(min(inl)),
-               landmarks=int(tracker.map.lm_valid.sum()),
-               loop_closures=tracker.num_loop_closures,
-               relocalizations=tracker.relocalizations)
+    return dict(frames=n,
+                ok=float(np.mean([f.tracking_ok for f in frames])),
+                ate=ate_rmse(est, z["gt_poses"][:n, :, 3]),
+                keyframes=int(sum(f.is_keyframe for f in frames)),
+                mean_inliers=float(np.mean(inl)), min_inliers=int(min(inl)),
+                landmarks=int(t.map.lm_valid.sum()),
+                loop_closures=t.num_loop_closures,
+                relocalizations=t.relocalizations)
+
+
+def main(path: str, profile: str = "fast", frontend: str = "sift",
+         sync: bool = False, seeds: int = 0, tracker: str = "jax") -> None:
+    z = np.load(path)
+    cfg = FAST_CONFIG if profile == "fast" else DEFAULT_CONFIG
+    cfg = cfg.replace(frontend=frontend)
+    if sync:
+        cfg = cfg.replace(ba=cfg.ba.replace(async_ba=False))
+    if seeds:
+        runs = [run(z, cfg.replace(ransac=cfg.ransac.replace(seed=s)),
+                    tracker) for s in range(seeds)]
+        ate = [r["ate"] for r in runs]
+        out = dict(ate_median=float(np.median(ate)), ate_max=max(ate))
+        print(json.dumps({tracker: runs, **out,
+                          "bounds": {k: 2.0 * v for k, v in out.items()}}))
+        return
+    fig = run(z, cfg, tracker)
     bounds = dict(ok=0.5 * fig["ok"], ate=2.0 * fig["ate"],
                   keyframes=[fig["keyframes"] // 2, 2 * fig["keyframes"]],
                   mean_inliers=[0.5 * fig["mean_inliers"],
                                 2.0 * fig["mean_inliers"]])
-    print(json.dumps({"jax": fig, "bounds": bounds}))
+    print(json.dumps({tracker: fig, "bounds": bounds}))
 
 
 if __name__ == "__main__":
@@ -79,5 +123,8 @@ if __name__ == "__main__":
     p.add_argument("features")
     p.add_argument("--profile", default="fast", choices=["fast", "reference"])
     p.add_argument("--frontend", default="sift", choices=["sift", "orb"])
+    p.add_argument("--sync", action="store_true")
+    p.add_argument("--seeds", type=int, default=0)
+    p.add_argument("--tracker", default="jax", choices=["jax", "port"])
     a = p.parse_args()
-    main(a.features, a.profile, a.frontend)
+    main(a.features, a.profile, a.frontend, a.sync, a.seeds, a.tracker)

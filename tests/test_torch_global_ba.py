@@ -62,8 +62,14 @@ def test_global_ba_problem_and_unported_paths(tracked):
     p, fids = build_global_problem(tracked.map, device="cpu")
     assert p.R.device.type == "cpu" and len(fids) == p.R.shape[0]
     assert bool(p.obs_valid.all()) and p.cam_idx.dtype == torch.int32
-    with pytest.raises(NotImplementedError, match="A.10"):
-        trun(tracked.map, PCFG.ba, mesh=object(), device="cpu")
+    # a mesh of n shards pads the cameras to a multiple of n with invalid
+    # identity cameras
+    q, _ = build_global_problem(tracked.map, pad_cameras_to=4, device="cpu")
+    K = len(fids)
+    assert q.R.shape[0] % 4 == 0 and q.R.shape[0] - K < 4
+    assert not bool(q.cam_valid[K:].any()) and bool(q.cam_valid[:K].all())
+    torch.testing.assert_close(q.R[K:], torch.eye(3).expand(
+        q.R.shape[0] - K, 3, 3))
 
 
 def test_tracker_global_ba_adopts_the_poses(tracked):
@@ -168,3 +174,56 @@ def test_tracker_global_ba_runs_above_64_keyframes(monkeypatch):
     assert res.n_cameras == 80 and res.cost < res.initial_cost
     for k, f in enumerate(tracker.frames):
         np.testing.assert_array_equal(f.R, res.R[k].astype(np.float32))
+
+
+def test_global_ba_sharded_matches_single_and_jax(tracked):
+    """As tests/test_global_ba.py's test_global_ba_sharded_matches_single:
+    Tracker.global_ba(mesh=...) over a virtual 4-shard CPU mesh against the
+    one-device solve and the JAX package's sharded solve of the same map.
+    Monocular scale is a gauge freedom the solvers may pick differently:
+    costs within 20%, Sim(3)-aligned camera centres within 0.03."""
+    from visualslam_tpu.parallel.mesh import make_mesh as jmake_mesh
+    from visualslam_tpu_torch.parallel.mesh import make_mesh
+    from visualslam_tpu_torch.slam.evaluation import ate_rmse
+
+    single = trun(tracked.map, PCFG.ba, device="cpu")
+    ref = jrun(tracked.map, CFG.ba, mesh=jmake_mesh(4, axis="shard"))
+    mesh = make_mesh(4, devices=[torch.device("cpu")] * 4)
+    got = tracked.global_ba(mesh=mesh)
+    assert got.n_cameras == single.n_cameras == ref.n_cameras
+    assert got.cost < got.initial_cost
+    assert got.initial_cost == pytest.approx(single.initial_cost, rel=1e-5)
+
+    def centres(r):
+        return np.stack([-R.T @ t for R, t in zip(r.R, r.t)])
+
+    for other in (single, ref):
+        np.testing.assert_allclose(got.cost, other.cost, rtol=0.2)
+        assert ate_rmse(centres(got), centres(other)) < 0.03
+    kf = {f.frame_id: f for f in tracked.frames}
+    for i, fid in enumerate(got.frame_ids):
+        np.testing.assert_allclose(kf[int(fid)].R, got.R[i], atol=1e-6)
+
+
+def test_global_ba_above_64_cameras_sharded_matches_single():
+    """The 80-keyframe map (schur_mf) over a virtual 4-shard CPU mesh:
+    the matrix-free trajectory-sharded solve (scalar-Jacobi CG, one psum
+    per matvec) against the one-device run_global_ba (block-Jacobi CG):
+    the same initial cost, final costs within 1e-3 relative, camera
+    centres within 0.01 (Sim(3)-aligned) over the ~40-unit path."""
+    from visualslam_tpu_torch.parallel.mesh import make_mesh
+    from visualslam_tpu_torch.slam.evaluation import ate_rmse
+
+    m, _, _ = _long_map()
+    one = trun(m, PCFG.ba, device="cpu")
+    sh = trun(m, PCFG.ba, mesh=make_mesh(4, devices=[torch.device("cpu")]
+                                         * 4), device="cpu")
+    assert sh.n_cameras == one.n_cameras == 80
+    assert sh.initial_cost == pytest.approx(one.initial_cost, rel=1e-5)
+    assert sh.cost < 0.1 * sh.initial_cost
+    assert sh.cost == pytest.approx(one.cost, rel=1e-3)
+
+    def centres(r):
+        return np.stack([-R.T @ t for R, t in zip(r.R, r.t)])
+
+    assert ate_rmse(centres(sh), centres(one)) < 0.01

@@ -18,6 +18,7 @@ from visualslam_tpu.slam.tracker import Tracker as JTracker
 from visualslam_tpu_torch.geometry import ransac as trs
 from visualslam_tpu_torch.io.synthetic import SyntheticSequence
 from visualslam_tpu_torch.models.types import Features, Keypoints
+from visualslam_tpu_torch.parallel.mesh import make_mesh
 from visualslam_tpu_torch.slam.evaluation import (
     ate_rmse,
     centers_from_poses,
@@ -263,8 +264,11 @@ def test_tracker_raises_without_a_card_and_for_unported_options():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             Tracker(PCFG, INTR)
-    with pytest.raises(NotImplementedError, match="A.10"):
-        Tracker(PCFG, INTR, device="cpu", mesh=object())
+    # the window BA shards over a mesh's 'shard' axis: a mesh without one
+    # is refused
+    data_mesh = make_mesh(2, axis="data", devices=[torch.device("cpu")] * 2)
+    with pytest.raises(ValueError, match="'shard' axis"):
+        Tracker(PCFG, INTR, device="cpu", mesh=data_mesh)
 
 
 # ---------------------------------------------------------------------
@@ -363,3 +367,36 @@ def test_tracker_matches_jax_on_the_same_features(replayed, engine):
     assert ate_rmse(Tp[:, :, 3], Tj[:, :, 3]) < 0.05
     s, _, _ = umeyama_alignment(Tp[:, :, 3], Tj[:, :, 3])
     assert abs(s - 1.0) < 0.03, s
+
+
+def test_tracker_distributed_window_ba():
+    """As tests/test_tracker.py's test_tracker_distributed_window_ba:
+    Tracker(mesh=...) runs the window BA trajectory-sharded over a virtual
+    4-shard CPU mesh (8 cameras in blocks of 2); its trajectory stays
+    within the band of the one-device tracker and of the JAX package's
+    Tracker(mesh=...) on conftest's virtual devices, on the same
+    features."""
+    from visualslam_tpu.parallel.mesh import make_mesh as jmake_mesh
+
+    cfg = CFG.replace(ba=CFG.ba.replace(max_cameras=8, cg_iters=48))
+    pcfg = SlamConfig.from_json(cfg.to_json())
+    scene = SyntheticScene(np.random.default_rng(5))
+    mesh = make_mesh(4, devices=[torch.device("cpu")] * 4)
+    t_single = Tracker(pcfg, INTR, device="cpu")
+    t_dist = Tracker(pcfg, INTR, device="cpu", mesh=mesh)
+    t_jax = JTracker(cfg, INTR, mesh=jmake_mesh(4, axis="shard"))
+    gt = []
+    for k in range(12):
+        f, (R, t) = scene.features(k)
+        t_single.process_features(port_features(f), k)
+        t_dist.process_features(port_features(f), k)
+        t_jax.process_features(jax_features(f), k)
+        gt.append(gt_pose(R, t))
+    gt = np.stack(gt)
+    a1, a2, aj = (_ate(t, gt) for t in (t_single, t_dist, t_jax))
+    assert t_dist.last_ba_cost >= 0 and t_jax.last_ba_cost >= 0, \
+        "distributed BA never ran"
+    assert a2 < max(2.0 * a1, 0.05), (a1, a2)
+    assert a2 < max(2.0 * aj, 0.05), (aj, a2)
+    assert sum(f.is_keyframe for f in t_dist.frames) == sum(
+        f.is_keyframe for f in t_jax.frames)

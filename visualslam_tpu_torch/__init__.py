@@ -9,8 +9,10 @@ two-view init (8- and 5-point RANSAC), loop closure and global BA, the
 three BA solvers, checkpoint / resume, the I/O modules and the command
 line (`python -m visualslam_tpu_torch.cli`). The six TPU kernels are
 hand-written in CUDA for sm_90a (`ops/cuda/`, sources in `csrc/`). The
-parallel paths come later (ROADMAP.md A.10). The port imports torch and
-never jax.
+parallel paths (`parallel/`) run over an in-process mesh of torch devices:
+landmark- and trajectory-sharded BA, sharded 2-NN, the data-parallel
+frontend, the stage-overlapped pipeline and the multi-process bootstrap.
+The port imports torch and never jax.
 """
 
 from visualslam_tpu_torch.frontend import (

@@ -9,10 +9,10 @@
 `run`, `two-view`, `accuracy` and `detect` take `--device` (default
 `cuda`: the card; `cpu` runs the port's plain versions on the CPU).
 `detect` runs the DEFAULT (reference) profile with any of the three
-frontends; `run` takes `--profile fast|reference` and `--frontend`. What
-the port cannot run yet raises NotImplementedError naming its ROADMAP.md
-item: `run --pipeline` (A.10) and `benchmark` (the JAX package's
-benchmarks/harness.py, not ported).
+frontends; `run` takes `--profile fast|reference`, `--frontend` and
+`--pipeline` (stage-overlapped detection, parallel/pipeline.py).
+`benchmark` raises NotImplementedError: the JAX package's
+benchmarks/harness.py is not ported.
 """
 
 from __future__ import annotations
@@ -83,10 +83,6 @@ def cmd_run(args) -> None:
     from visualslam_tpu_torch.slam.viz import draw_trajectory
     from visualslam_tpu_torch.utils.config import DEFAULT_CONFIG, FAST_CONFIG
 
-    if args.pipeline:
-        raise NotImplementedError(
-            "run --pipeline (parallel/pipeline.pipelined_batches) is not "
-            "ported yet; see ROADMAP.md A.10")
     seq = _make_sequence(args)
     info = seq.info()
     base = FAST_CONFIG if args.profile == "fast" else DEFAULT_CONFIG
@@ -168,14 +164,25 @@ def cmd_run(args) -> None:
                 return
             yield item
 
-    def run_batches():
-        # the lag-1 stream: each batch's engine call is dispatched before
-        # the previous batch's telemetry is read (Tracker.process_stream)
-        for ids, imgs in rendered_batches():
-            if len(ids) > 1:
-                yield ids, tracker.process_stream(imgs, ids[0])
-            else:
-                yield ids, [tracker.process(imgs[0], ids[0])]
+    if args.pipeline:
+        # stage-overlapped: detection of batch k+1 is dispatched before
+        # tracking / BA consumes batch k (parallel/pipeline.py)
+        from visualslam_tpu_torch.parallel.pipeline import pipelined_batches
+
+        def run_batches():
+            yield from pipelined_batches(
+                tracker, ((ids[0], imgs) for ids, imgs in
+                          rendered_batches()))
+    else:
+        def run_batches():
+            # the lag-1 stream: each batch's engine call is dispatched
+            # before the previous batch's telemetry is read
+            # (Tracker.process_stream)
+            for ids, imgs in rendered_batches():
+                if len(ids) > 1:
+                    yield ids, tracker.process_stream(imgs, ids[0])
+                else:
+                    yield ids, [tracker.process(imgs[0], ids[0])]
 
     try:
         for ids, results in run_batches():
@@ -477,8 +484,8 @@ def main(argv=None) -> None:
                    help="write per-frame metrics JSON lines here "
                         "(default metrics.jsonl; '' writes none)")
     r.add_argument("--pipeline", action="store_true",
-                   help="stage-overlapped execution (not ported: "
-                        "ROADMAP.md A.10)")
+                   help="stage-overlapped execution: detection of "
+                        "batch k+1 dispatched before batch k is tracked")
     r.add_argument("--batch", type=int, default=8,
                    help="frames per batched detection call (1 = per-frame)")
     r.add_argument("--no-prewarm", action="store_true",

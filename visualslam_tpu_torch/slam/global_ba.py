@@ -11,8 +11,9 @@ the complete observation graph is recoverable:
 
 The problem goes to backend/ba.run_ba on the device. As in the reference,
 the dense Schur solver hands over to the matrix-free "schur_mf" above 64
-cameras. The trajectory-sharded solve over a device mesh is ROADMAP.md
-A.10.
+cameras. With a mesh (parallel/mesh.Mesh) the trajectory axis is sharded
+over its devices (parallel/traj_ba.run_ba_traj_sharded), cameras padded
+to a multiple of the shard count.
 """
 
 from __future__ import annotations
@@ -23,6 +24,12 @@ import numpy as np
 import torch
 
 from visualslam_tpu_torch.backend.ba import BAProblem, run_ba
+from visualslam_tpu_torch.parallel.traj_ba import (
+    pad_cameras,
+    run_ba_traj_sharded,
+    shard_problem_trajectory,
+    unshard_traj,
+)
 from visualslam_tpu_torch.utils.config import BAConfig
 
 
@@ -106,12 +113,8 @@ def build_global_problem(slam_map, corrected: Optional[dict] = None,
     uv = np.concatenate(uvs).astype(np.float32)
     O = len(cam_idx)
 
-    C = -(-K // pad_cameras_to) * pad_cameras_to
-    R = np.tile(np.eye(3, dtype=np.float32), (C, 1, 1))
-    t = np.zeros((C, 3), np.float32)
-    for c, (_, Rc, tc, _, _) in enumerate(kfs):
-        R[c] = Rc
-        t[c] = tc
+    R = np.stack([Rc for _, Rc, _, _, _ in kfs]).astype(np.float32)
+    t = np.stack([tc for _, _, tc, _, _ in kfs]).astype(np.float32)
     X = np.stack([pos[u] for u in uids]).astype(np.float32)
 
     def T(x):
@@ -122,18 +125,21 @@ def build_global_problem(slam_map, corrected: Optional[dict] = None,
         cam_idx=T(cam_idx.astype(np.int32)),
         lm_idx=T(lm_idx.astype(np.int32)),
         uv=T(uv), obs_valid=T(np.ones(O, bool)),
-        cam_valid=T(np.arange(C) < K), lm_valid=T(np.ones(L, bool)))
-    return p, np.asarray([fid for fid, *_ in kfs])
+        cam_valid=T(np.ones(K, bool)), lm_valid=T(np.ones(L, bool)))
+    return pad_cameras(p, pad_cameras_to), np.asarray(
+        [fid for fid, *_ in kfs])
 
 
 def run_global_ba(slam_map, cfg: BAConfig, corrected: Optional[dict] = None,
-                  mesh=None, device="cuda") -> GlobalBAResult:
-    """Optimize the full keyframe history on `device`."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "the trajectory-sharded global BA over a device mesh is not "
-            "ported yet; see ROADMAP.md A.10")
-    p, frame_ids = build_global_problem(slam_map, corrected, device=device)
+                  mesh=None, mesh_axis: str = "shard",
+                  device="cuda") -> GlobalBAResult:
+    """Optimize the full keyframe history, built on `device`. With `mesh`
+    (parallel/mesh.Mesh), the trajectory axis is sharded across its devices
+    (parallel/traj_ba.py); otherwise the single-device Schur solver runs."""
+    n_shards = 1 if mesh is None else mesh.shape[mesh_axis]
+    p, frame_ids = build_global_problem(slam_map, corrected,
+                                        pad_cameras_to=n_shards,
+                                        device=device)
     K = len(frame_ids)
     # as the reference: the dense default hands over to the matrix-free
     # Schur CG once the reduced system outgrows direct factorization
@@ -144,9 +150,17 @@ def run_global_ba(slam_map, cfg: BAConfig, corrected: Optional[dict] = None,
                           max_landmarks=int(p.X.shape[0]),
                           max_observations=int(p.uv.shape[0]),
                           solver=solver)
-    res = run_ba(p, run_cfg)
+    if mesh is None:
+        res = run_ba(p, run_cfg)
+        R = res.R[:K].cpu().numpy()
+        t = res.t[:K].cpu().numpy()
+    else:
+        sp = shard_problem_trajectory(p, n_shards)
+        res = run_ba_traj_sharded(sp, run_cfg, mesh, axis=mesh_axis)
+        R, t, _ = unshard_traj(res.R, res.t, res.X, sp.lm_order,
+                               int(p.X.shape[0]))
+        R, t = R[:K], t[:K]
     return GlobalBAResult(
-        frame_ids=frame_ids, R=res.R[:K].cpu().numpy(),
-        t=res.t[:K].cpu().numpy(), cost=float(res.cost),
+        frame_ids=frame_ids, R=R, t=t, cost=float(res.cost),
         initial_cost=float(res.initial_cost), n_cameras=K,
         n_landmarks=int(p.X.shape[0]), n_observations=int(p.uv.shape[0]))

@@ -139,11 +139,14 @@ class Tracker:
 
         device: where every tensor lives, the card unless the caller passes
         device="cpu"; without a card the default raises. kernels:
-        ops.cuda.KERNELS (default) or ops.cuda.PLAIN."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "the trajectory-sharded window BA over a device mesh is not "
-                "ported yet; see ROADMAP.md A.10")
+        ops.cuda.KERNELS (default) or ops.cuda.PLAIN.
+
+        mesh: optional parallel/mesh.Mesh with a 'shard' axis: the host
+        path's window BA (and global_ba unless overridden) runs
+        trajectory-sharded over its devices (parallel/traj_ba.py)."""
+        if mesh is not None and "shard" not in mesh.shape:
+            raise ValueError("Tracker: the mesh needs a 'shard' axis")
+        self.mesh = mesh
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -1118,6 +1121,9 @@ class Tracker:
             cam_idx=T(cam_idx, np.int32), lm_idx=T(lm_idx, np.int32),
             uv=T(uv, np.float32), obs_valid=T(valid),
             cam_valid=T(np.arange(C) < nC), lm_valid=T(np.arange(L) < nL))
+        if self.mesh is not None:
+            self._run_window_ba_sharded(p, cfg, slots, lm_slots, nC, nL)
+            return
         res, ev = self._readback(run_ba_packed(p, cfg))
         if cfg.async_ba:
             # the solve runs on the device while the next frames track;
@@ -1130,6 +1136,27 @@ class Tracker:
         Rf, tf, Xf, cost, _ = unpack_ba_result(self._fetch((res, ev)), C, L)
         self.last_ba_cost = cost
         self.map.writeback_ba(slots, lm_slots, Rf[:nC], tf[:nC], Xf[:nL])
+
+    def _run_window_ba_sharded(self, p: BAProblem, cfg, slots, lm_slots,
+                               nC: int, nL: int) -> None:
+        """Trajectory-sharded window BA over the mesh (camera blocks per
+        shard, ring Schur reduce-scatter, distributed CG), synchronous as
+        in the reference: the result is written back at once."""
+        from visualslam_tpu_torch.parallel.traj_ba import (
+            pad_cameras,
+            run_ba_traj_sharded,
+            shard_problem_trajectory,
+            unshard_traj,
+        )
+
+        n = self.mesh.shape["shard"]
+        p = pad_cameras(p, n)
+        sp = shard_problem_trajectory(p, n)
+        dres = run_ba_traj_sharded(sp, cfg, self.mesh)
+        Rn, tn, Xn = unshard_traj(dres.R, dres.t, dres.X, sp.lm_order,
+                                  int(p.X.shape[0]))
+        self.last_ba_cost = float(dres.cost)
+        self.map.writeback_ba(slots, lm_slots, Rn[:nC], tn[:nC], Xn[:nL])
 
     def _flush_pending_ba(self, wait: bool = True) -> None:
         """Apply an in-flight async window BA. With wait=False the flush is
@@ -1166,9 +1193,12 @@ class Tracker:
         (slam/global_ba.py). Keyframe FrameResults adopt their optimized
         poses; frames between keyframes are carried rigidly by their
         preceding keyframe's correction. As in the reference, the engine's
-        device state is left as it was."""
+        device state is left as it was. With `mesh` (default: the
+        tracker's), the trajectory axis is sharded across its devices."""
         from visualslam_tpu_torch.slam.global_ba import run_global_ba
 
+        if mesh is None:
+            mesh = self.mesh
         self._flush_pending_ba()
         corrected = None
         lc = self.loop_closer

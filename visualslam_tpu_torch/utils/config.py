@@ -6,10 +6,6 @@ tree, its defaults and its JSON form are the same, so
 `SlamConfig.from_json(jax_cfg.to_json())` rebuilds a JAX config here
 (tests/test_torch_pyramid.py holds the two equal). One difference:
 `SiftConfig.hist_compute_dtype` returns a torch dtype.
-
-Option values the port does not implement yet (the Tracker's `mesh`,
-ROADMAP.md A.10) are rejected by the module that would run them
-(NotImplementedError).
 """
 
 from __future__ import annotations
