@@ -3,7 +3,7 @@
     python3 chip_smoke.py        # from the repository root, one CUDA device
 
 The benchmark's main path at its own shapes: batches of 16 uint8 frames of
-376x1248 from the synthetic sequence. Seven paths run, each with the
+376x1248 from the synthetic sequence. Eight paths run, each with the
 launch counters reset just before it and read just after:
 
   - the frontend slice: the batched SIFT frontend (FAST_CONFIG, 3 octaves)
@@ -22,9 +22,12 @@ launch counters reset just before it and read just after:
   - the reference profile: DEFAULT_CONFIG (2x upsample to 752x2496, 4
     octaves, float32 patch kernels), the frontend and bench-96's reference
     row (`cli accuracy`) through Tracker.process_stream;
+  - the per-stage harness (`cli benchmark`, harness.py): DEFAULT_CONFIG's
+    pyramid, SIFT and ORB frontends, matching, RANSAC, one BA iteration,
+    rotated patches and PnP at the JAX harness's shapes;
   - the full sequence: 500 frames of the loop rectangle through the
     tracker with the matrix-free BA, loop closure and the full-sequence
-    global BA (benchmarks/kitti_scale.py's protocol);
+    global BA (kitti_scale.py, benchmarks/kitti_scale.py's protocol);
   - the parallel paths over an in-process mesh (parallel/): the
     data-parallel frontend, four shards of FAST_CONFIG frames on the card.
 
@@ -106,8 +109,13 @@ Phases, each printing its own lines:
                (keypoint sets, Hamming distance per coincident keypoint);
                frames 0..55 through process_stream, timed once, with the
                same sync rule, plain-path run and bounds (ORB_BOUNDS)
- 11. full_sequence  benchmarks/kitti_scale.py's protocol on the port, not
-               cut: 500 frames of 376x1248 on the loop rectangle (rendered
+ 11. harness   harness.run_benchmarks on the card (`cli benchmark`): each
+               row printed with the card's name, every row finite and
+               positive, the three frontend kernels launched (in the SIFT
+               row, on their float32 branch) and the opt-in ones not,
+               benchmarks/results.json byte for byte as before
+ 12. full_sequence  kitti_scale.run, benchmarks/kitti_scale.py's protocol
+               on the port, not cut: 500 frames of 376x1248 on the loop rectangle (rendered
                in a process pool, untimed), FAST_CONFIG with
                ba.solver="schur_mf"; frames/s over the 492 streamed frames,
                the time by stage, host syncs per process_stream call and
@@ -120,7 +128,7 @@ Phases, each printing its own lines:
                bit, and the resumed tracker's global BA); the pose file.
                Checked against half / twice the JAX package's figures on
                the same protocol (benchmarks/kitti_scale.json)
- 12. parallel  a 4-shard virtual mesh of the one card (and cuda:0..3 too
+ 13. parallel  a 4-shard virtual mesh of the one card (and cuda:0..3 too
                where four cards are visible; a virtual mesh runs its
                shards one after another, so its times are no multi-GPU
                scaling figure): parallel/dryrun.run_dryrun(4); the
@@ -143,12 +151,12 @@ Phases, each printing its own lines:
                against ground truth); pipelined_process
                against chunked detect_batch + process_features, bit for
                bit, with frames/s of both
- 13. result    one JSON line of per-kernel numbers (the extrema kernels'
+ 14. result    one JSON line of per-kernel numbers (the extrema kernels'
                per batch: summed over the 3 octaves, one launch each; the
                others per call at octave 0 or a tracked frame; launches on
-               the sequence, the reference sequence and the data-parallel
-               frontend for the three frontend kernels, on the engine
-               path for the others), then the last line
+               the sequence, the reference sequence, the harness and the
+               data-parallel frontend for the three frontend kernels, on
+               the engine path for the others), then the last line
                {"ok": true, "device": {...}}
 
     python3 chip_smoke.py --save-features engine_feats.npz
@@ -170,7 +178,6 @@ from __future__ import annotations
 
 import json
 import os
-import subprocess
 import sys
 import tempfile
 import time
@@ -180,7 +187,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from visualslam_tpu_torch import bench
+from visualslam_tpu_torch import bench, kitti_scale
 from visualslam_tpu_torch.backend.ba import run_ba
 from visualslam_tpu_torch.frontend import SiftFrontend, make_frontend
 from visualslam_tpu_torch.geometry.ransac import generator
@@ -227,6 +234,7 @@ from visualslam_tpu_torch.slam.window import (
     world_to_camera,
 )
 from visualslam_tpu_torch.utils.config import DEFAULT_CONFIG, FAST_CONFIG
+from visualslam_tpu_torch.utils.card import card_name
 from visualslam_tpu_torch.utils.masked import block_top_k_select
 from visualslam_tpu_torch.utils.profiling import StageTimer
 
@@ -411,11 +419,7 @@ def phase_device():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device "
                          "(torch.cuda.is_available() is False)")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    card = smi.stdout.strip().splitlines()[0]
+    card = card_name()
     print(f"device: {card}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.device_count()} device(s), using "
@@ -1798,11 +1802,54 @@ def phase_harris_5pt(frames_dev: torch.Tensor, frontend: SiftFrontend,
           f"{time.perf_counter() - t_phase:.1f} s")
 
 
-# the full_sequence phase: benchmarks/kitti_scale.py's protocol on the port
-KS_FRAMES = 500
-KS_WORLD = dict(h=H, w=W, n_dots=12000, step=0.4)
-KS_CONFIG = FAST_CONFIG.replace(ba=FAST_CONFIG.ba.replace(solver="schur_mf"))
-KS_INIT = 8
+# the harness phase: `cli benchmark`'s per-stage rows (harness.py) on the
+# card; it must leave the JAX package's committed results untouched
+JAX_RESULTS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "benchmarks", "results.json")
+
+
+def phase_harness(card: str) -> dict:
+    """harness.run_benchmarks on the card (DEFAULT_CONFIG, 376x1248; the
+    kernels are built): every row finite and positive, the frontend
+    kernels launched (the SIFT row is the only one that runs them: the
+    pyramid row blurs with banded products and the match row is the dense
+    matcher), benchmarks/results.json byte for byte as before. Returns
+    the kernels' launches over the harness."""
+    from visualslam_tpu_torch.harness import run_benchmarks
+
+    t_phase = time.perf_counter()
+    print(f"harness: {card}")
+    before = open(JAX_RESULTS, "rb").read()
+    reset_launch_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "HARNESS_TORCH.json")
+        rows = run_benchmarks(device="cuda", out=out)
+        written = json.load(open(out))
+    counts = launch_counts()
+    for k, v in rows.items():
+        print(f"harness {k}: {v:.4f} ({card})")
+    print(f"harness launches: {counts}")
+    check(written["device"] == card, "harness: the card named in its JSON")
+    check(len(rows) == 9 and all(np.isfinite(v) and v > 0
+                                 for v in rows.values()),
+          "harness: every row finite and positive")
+    for name in FRONTEND_PATH:
+        check(counts[name] > 0, f"harness: {name} launched in the SIFT row")
+    for name in ("blur_stack", "l2_2nn", "extrema_score"):
+        check(counts[name] == 0, f"harness: {name} not launched under "
+              "DEFAULT_CONFIG")
+    check(open(JAX_RESULTS, "rb").read() == before,
+          "harness: benchmarks/results.json unchanged")
+    print(f"harness phase wall time: {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
+# the full_sequence phase: kitti_scale.run, the port's KITTI-scale protocol
+# (benchmarks/kitti_scale.py's), with this phase's measurements added at
+# its hook points
+KS_FRAMES = kitti_scale.FRAMES
+KS_WORLD = kitti_scale.WORLD
+KS_CONFIG = kitti_scale.CONFIG
 # Bands: half / twice the JAX package's own figures on this protocol
 # (benchmarks/kitti_scale.json: 80 keyframes, 1 loop closure, ATE 5.1663
 # after global BA). These are accuracy figures on the reference's own
@@ -1831,31 +1878,6 @@ KS_SOLVER_REPS = 8           # runs of each solver on the problem
 KS_RESUME_RTOL = 1e-3       # resumed vs original global-BA cost (equal
 #                             bits expected: both run deterministically)
 KS_POSE_FILE_TOL = 1e-6     # ATE from the pose file vs in memory
-
-
-def loop_diagnostics(tracker, top: int = 5):
-    """benchmarks/kitti_scale._loop_diagnostics on the port's tensors: for
-    keyframe pairs far apart in time, nearest in (estimated) space first,
-    the cosine similarity the device loop database records."""
-    lc = tracker.loop_closer
-    p = tracker._eng_persist
-    if lc is None or p is None or len(lc.entries) < 4:
-        return None
-    n = min(int(tracker._eng_db_n), p.db_g.shape[0], len(lc.entries))
-    G = p.db_g[:n].cpu().numpy()
-    fids = np.asarray([e.frame_id for e in lc.entries[:n]])
-    centers = np.stack([-e.R.T @ e.t for e in lc.entries[:n]])
-    sims = G @ G.T
-    out = []
-    for i in range(n):
-        for j in range(i + 1, n):
-            if fids[j] - fids[i] < 100:
-                continue
-            d = float(np.linalg.norm(centers[j] - centers[i]))
-            out.append((d, float(sims[i, j]), int(fids[i]), int(fids[j])))
-    out.sort()
-    return [{"gt_dist_est_m": round(d, 2), "cosine": round(c, 3),
-             "frames": [a, b]} for d, c, a, b in out[:top]]
 
 
 def state_diffs(a, b) -> list:
@@ -1936,170 +1958,158 @@ def state_diffs(a, b) -> list:
     return diffs
 
 
+class FullSequenceHooks(kitti_scale.Hooks):
+    """The full_sequence phase's measurements inside kitti_scale.run: the
+    stage timer, launch counts and host syncs of the timed stream, the
+    stream's checks and the checkpoint round trip before the global BA,
+    the deterministic global-BA comparison after it."""
+
+    def __init__(self, card: str, dev):
+        self.card, self.dev = card, dev
+        self.calls = []
+
+    def stream(self, tracker):
+        self.timer = tracker.timer = StageTimer()
+        reset_launch_counts()
+        self.rec = SyncRecorder()
+        return self.rec
+
+    def step(self, call):
+        s0 = self.rec.syncs()
+        call()
+        self.calls.append(self.rec.syncs() - s0)
+
+    def tracked(self, tracker):
+        tracker.timer = None
+        self.counts = launch_counts()
+        rules = self.rec.rules()
+        stream, timer = self.calls, self.timer
+        print(f"full_sequence time by stage (host clock, StageTimer): "
+              + ", ".join(f"{k} {v['total_s']:.3f} s / {v['count']}"
+                          for k, v in timer.summary().items()))
+        print(f"full_sequence launches over the stream: "
+              f"{ {n: self.counts[n] for n in FRONTEND_PATH} }")
+        for name in FRONTEND_PATH:
+            check(self.counts[name] > 0,
+                  f"{name} launched on the full sequence")
+        print(f"full_sequence host syncs per process_stream call: "
+              f"{stream[:-1]} (finish: {stream[-1]})")
+        broke = [(i, r) for i, r in enumerate(rules) if r[0] != r[1] + r[2]]
+        print(f"full_sequence engine batches: {len(rules)}, promotions "
+              f"{sum(r[2] for r in rules)}; batches off the sync rule "
+              f"(index, (syncs, active, promotions)): {broke}")
+        check(not broke, "every engine batch syncs once per active frame "
+              "and once per promotion, through the closures")
+        check(len(tracker.frames) == KS_FRAMES and [f.frame_id for f in
+              tracker.frames] == list(range(KS_FRAMES)),
+              "full_sequence: every frame committed once")
+        self.ok = float(np.mean([f.tracking_ok for f in tracker.frames]))
+        kf_ids = [f.frame_id for f in tracker.frames if f.is_keyframe]
+        gaps = np.bincount(np.diff(kf_ids))
+        print(f"full_sequence tracking-ok share {self.ok:.4f}; keyframe "
+              f"gaps (frames: count): "
+              f"{ {g: int(n) for g, n in enumerate(gaps) if n} }")
+
+        # checkpoint round trip, before global BA touches the frame results
+        from visualslam_tpu_torch.slam.checkpoint import (
+            load_checkpoint,
+            save_checkpoint,
+        )
+
+        with tempfile.TemporaryDirectory() as tmp:
+            ckpt = os.path.join(tmp, "slam_ckpt.npz")
+            t0 = time.perf_counter()
+            save_checkpoint(ckpt, tracker)
+            t_save = time.perf_counter() - t0
+            self.resumed = Tracker(KS_CONFIG, tracker.intr.cpu().numpy(),
+                                   device=self.dev)
+            t0 = time.perf_counter()
+            load_checkpoint(ckpt, self.resumed)
+            t_load = time.perf_counter() - t0
+            size = os.path.getsize(ckpt)
+        diffs = state_diffs(tracker, self.resumed)
+        print(f"full_sequence checkpoint: {size / 2 ** 20:.1f} MiB, save "
+              f"{t_save:.2f} s, load {t_load:.2f} s; state that differs "
+              f"after the round trip: {diffs[:10]}")
+        check(not diffs, "the checkpoint round trip restores the state bit "
+              "for bit")
+
+    def global_ba(self, tracker, res):
+        # the resumed tracker's global BA against the same solve on the
+        # original's state, both under deterministic algorithms (index_add_
+        # in a fixed order, else its sums change from run to run)
+        from visualslam_tpu_torch.slam.global_ba import run_global_ba
+
+        self.res = res
+        lc = tracker.loop_closer
+        corrected = None if lc.corrected is None else {
+            int(e.frame_id): (np.asarray(R), np.asarray(t))
+            for e, (R, t) in zip(lc.entries, lc.corrected)}
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            res_o = run_global_ba(tracker.map, KS_CONFIG.ba, corrected,
+                                  device=self.dev)
+            res_r = self.resumed.global_ba()
+        finally:
+            torch.use_deterministic_algorithms(False)
+        del self.resumed
+        print(f"full_sequence global BA: {res.n_cameras} cameras, "
+              f"{res.n_landmarks} landmarks, {res.n_observations} "
+              f"observations, cost {res.initial_cost:.6e} -> "
+              f"{res.cost:.6e}; deterministic algorithms, original "
+              f"{res_o.n_cameras} / {res_o.n_landmarks} / "
+              f"{res_o.n_observations}, cost {res_o.initial_cost:.9e} -> "
+              f"{res_o.cost:.9e}, resumed {res_r.n_cameras} / "
+              f"{res_r.n_landmarks} / {res_r.n_observations}, cost "
+              f"{res_r.initial_cost:.9e} -> {res_r.cost:.9e}")
+        check((res_r.n_cameras, res_r.n_landmarks, res_r.n_observations)
+              == (res.n_cameras, res.n_landmarks, res.n_observations)
+              == (res_o.n_cameras, res_o.n_landmarks, res_o.n_observations)
+              and abs(res_r.cost - res_o.cost)
+              <= KS_RESUME_RTOL * res_o.cost,
+              "the resumed tracker's global BA matches the original's")
+
+
 def phase_full_sequence(card: str, dev) -> tuple:
-    """benchmarks/kitti_scale.py's protocol on the port, not cut: 500
+    """The port's KITTI-scale protocol (kitti_scale.run, not cut): 500
     frames of 376x1248 on the loop rectangle (12000 dots), FAST_CONFIG
     with the matrix-free BA, a warmup tracker on 24 frames of another
     seed, process_batch of frames 0..7, process_stream in batches of 16 +
     finish (timed; host syncs counted), then the full-sequence global BA
-    (cold, then the rebuilt problem warm), the three BA solvers on that
-    problem against its float64 dense LM run, a checkpoint round trip and
+    (cold, then the rebuilt problem warm); this phase adds the checkpoint
+    round trip, the deterministic global-BA comparison, the three BA
+    solvers on the rebuilt problem against its float64 dense LM run and
     the pose file. Returns the three frontend kernels' launches over the
     stream, and the tracker."""
-    from visualslam_tpu_torch.backend.ba import run_ba
     from visualslam_tpu_torch.io.serialization import (
         load_kitti_poses,
         save_kitti_poses,
     )
-    from visualslam_tpu_torch.io.synthetic import render_uint8
-    from visualslam_tpu_torch.slam.checkpoint import (
-        load_checkpoint,
-        save_checkpoint,
-    )
-    from visualslam_tpu_torch.slam.evaluation import centers_from_poses, rpe
-    from visualslam_tpu_torch.slam.global_ba import (
-        build_global_problem,
-        run_global_ba,
-    )
+    from visualslam_tpu_torch.slam.evaluation import centers_from_poses
+    from visualslam_tpu_torch.slam.global_ba import build_global_problem
 
     t_phase = time.perf_counter()
     print(f"full_sequence: {card}")
-    cfg = KS_CONFIG
-    seq = SyntheticSequence(num_frames=KS_FRAMES, trajectory="loop",
-                            **KS_WORLD)
-    warm_seq = SyntheticSequence(num_frames=24, seed=7, **KS_WORLD)
-    workers = len(os.sched_getaffinity(0))
-    t0 = time.perf_counter()
-    frames = render_uint8(seq, range(KS_FRAMES), workers)
-    wf = render_uint8(warm_seq, range(24), workers)
-    print(f"full_sequence frames: {frames.shape} uint8 rendered in "
-          f"{time.perf_counter() - t0:.1f} s ({workers} processes)")
+    seq, frames, warm_seq, wf = kitti_scale.render(KS_FRAMES)
+    print(f"full_sequence frames: {frames.shape} uint8 rendered")
     gt = seq.gt_poses
+    hooks = FullSequenceHooks(card, dev)
+    out, tracker = kitti_scale.run(seq, frames, warm_seq, wf, dev, hooks)
+    res = hooks.res
+    print(f"full_sequence frames/s ({card}): {out['sequence_fps']} "
+          f"({KS_FRAMES - kitti_scale.INIT} frames of process_stream in "
+          f"batches of {kitti_scale.BATCH} + finish, "
+          f"{out['track_wall_s']} s, host clock + synchronize, sync debug "
+          f"mode on)")
+    print(f"full_sequence KITTI-scale result: {json.dumps(out)}")
+    ate_track, ate_gba = out["ate_tracked_m"], out["ate_after_gba_m"]
+    n_kf = out["keyframes"]
 
-    warm = Tracker(cfg, warm_seq.intrinsics, device=dev)
-    warm.process_batch(wf[:KS_INIT], 0)
-    warm.process_stream(wf[KS_INIT:24], KS_INIT)
-    warm.finish()
-    del warm
-
-    tracker = Tracker(cfg, seq.intrinsics, device=dev)
-    tracker.process_batch(frames[:KS_INIT], 0)
-    torch.cuda.synchronize()
-    timer = tracker.timer = StageTimer()
-    reset_launch_counts()
-    stream = []
-    with SyncRecorder() as rec:
-        t0 = time.perf_counter()
-        for k in range(KS_INIT, KS_FRAMES, BATCH):
-            s0 = rec.syncs()
-            tracker.process_stream(frames[k:k + BATCH], k)
-            stream.append(rec.syncs() - s0)
-        s0 = rec.syncs()
-        tracker.finish()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        stream.append(rec.syncs() - s0)
-    rules = rec.rules()
-    tracker.timer = None
-    counts = launch_counts()
-    fps = (KS_FRAMES - KS_INIT) / wall
-    print(f"full_sequence frames/s ({card}): {fps:.3f} ({KS_FRAMES - KS_INIT}"
-          f" frames of process_stream in batches of {BATCH} + finish, "
-          f"{wall:.3f} s, host clock + synchronize, sync debug mode on)")
-    print("full_sequence time by stage (host clock, StageTimer): " + ", ".join(
-        f"{k} {v['total_s']:.3f} s / {v['count']}"
-        for k, v in timer.summary().items()))
-    print(f"full_sequence launches over the stream: "
-          f"{ {n: counts[n] for n in FRONTEND_PATH} }")
-    for name in FRONTEND_PATH:
-        check(counts[name] > 0, f"{name} launched on the full sequence")
-    print(f"full_sequence host syncs per process_stream call: {stream[:-1]} "
-          f"(finish: {stream[-1]})")
-    broke = [(i, r) for i, r in enumerate(rules) if r[0] != r[1] + r[2]]
-    print(f"full_sequence engine batches: {len(rules)}, promotions "
-          f"{sum(r[2] for r in rules)}; batches off the sync rule (index, "
-          f"(syncs, active, promotions)): {broke}")
-    check(not broke, "every engine batch syncs once per active frame and "
-          "once per promotion, through the closures")
-    check(len(tracker.frames) == KS_FRAMES and [f.frame_id for f in
-          tracker.frames] == list(range(KS_FRAMES)),
-          "full_sequence: every frame committed once")
-
-    est = tracker.trajectory()
-    ate_track = ate_rmse(centers_from_poses(est), centers_from_poses(gt))
-    inl = [f.num_inliers for f in tracker.frames if f.num_inliers > 0]
-    n_kf = int(sum(f.is_keyframe for f in tracker.frames))
-    ok = float(np.mean([f.tracking_ok for f in tracker.frames]))
-    figures = dict(keyframes=n_kf, loop_closures=tracker.num_loop_closures,
-                   relocalizations=tracker.relocalizations,
-                   landmarks_live=int(tracker.map.lm_valid.sum()),
-                   mean_inliers=float(np.mean(inl or [0])),
-                   tracking_ok=ok, ate_tracked=float(ate_track))
-    kf_ids = [f.frame_id for f in tracker.frames if f.is_keyframe]
-    gaps = np.bincount(np.diff(kf_ids))
-    print(f"full_sequence tracker: {json.dumps(figures)}; keyframe gaps "
-          f"(frames: count): { {g: int(n) for g, n in enumerate(gaps) if n} }")
-    if tracker.num_loop_closures == 0:
-        print(f"full_sequence loop retrieval diagnostics: "
-              f"{json.dumps(loop_diagnostics(tracker))}")
-
-    # checkpoint round trip, before global BA touches the frame results
-    with tempfile.TemporaryDirectory() as tmp:
-        ckpt = os.path.join(tmp, "slam_ckpt.npz")
-        t0 = time.perf_counter()
-        save_checkpoint(ckpt, tracker)
-        t_save = time.perf_counter() - t0
-        resumed = Tracker(cfg, seq.intrinsics, device=dev)
-        t0 = time.perf_counter()
-        load_checkpoint(ckpt, resumed)
-        t_load = time.perf_counter() - t0
-        size = os.path.getsize(ckpt)
-    diffs = state_diffs(tracker, resumed)
-    print(f"full_sequence checkpoint: {size / 2 ** 20:.1f} MiB, save "
-          f"{t_save:.2f} s, load {t_load:.2f} s; state that differs after "
-          f"the round trip: {diffs[:10]}")
-    check(not diffs, "the checkpoint round trip restores the state bit "
-          "for bit")
-
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    res = tracker.global_ba()
-    gba_cold = time.perf_counter() - t0
-    est2 = tracker.trajectory()
-    ate_gba = float(ate_rmse(centers_from_poses(est2),
-                             centers_from_poses(gt)))
-    t_rmse, r_rmse = rpe(est2, gt)
-    # the resumed tracker's global BA against the same solve on the
-    # original's state, both under deterministic algorithms (index_add_ in
-    # a fixed order, else its sums change from run to run)
-    lc = tracker.loop_closer
-    corrected = None if lc.corrected is None else {
-        int(e.frame_id): (np.asarray(R), np.asarray(t))
-        for e, (R, t) in zip(lc.entries, lc.corrected)}
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
-        res_o = run_global_ba(tracker.map, cfg.ba, corrected, device=dev)
-        res_r = resumed.global_ba()
-    finally:
-        torch.use_deterministic_algorithms(False)
-    print(f"full_sequence global BA: {res.n_cameras} cameras, "
-          f"{res.n_landmarks} landmarks, {res.n_observations} observations, "
-          f"cost {res.initial_cost:.6e} -> {res.cost:.6e}, {gba_cold:.3f} s "
-          f"cold (build + solve + read-back); deterministic algorithms, "
-          f"original {res_o.n_cameras} / {res_o.n_landmarks} / "
-          f"{res_o.n_observations}, cost {res_o.initial_cost:.9e} -> "
-          f"{res_o.cost:.9e}, resumed {res_r.n_cameras} / "
-          f"{res_r.n_landmarks} / {res_r.n_observations}, cost "
-          f"{res_r.initial_cost:.9e} -> {res_r.cost:.9e}")
-    print(f"full_sequence ATE tracked {ate_track:.4f}, after global BA "
-          f"{ate_gba:.4f}; RPE {t_rmse:.4f} / {r_rmse:.4f} deg")
-    del resumed
-
-    # the rebuilt problem (as benchmarks/kitti_scale.py rebuilds it), warm
+    # the rebuilt problem (as kitti_scale.run rebuilds it), warm
     p2, _ = build_global_problem(tracker.map, device=dev)
-    base = cfg.ba.replace(max_cameras=int(p2.R.shape[0]),
-                          max_landmarks=int(p2.X.shape[0]),
-                          max_observations=int(p2.uv.shape[0]))
+    base = KS_CONFIG.ba.replace(max_cameras=int(p2.R.shape[0]),
+                                max_landmarks=int(p2.X.shape[0]),
+                                max_observations=int(p2.uv.shape[0]))
     warm_ms = wall_ms(lambda: run_ba(p2, base), 3)
     syncs = count_syncs(lambda: run_ba(p2, base))
     launches, busy, _ = profile_call(lambda: run_ba(p2, base))
@@ -2133,20 +2143,23 @@ def phase_full_sequence(card: str, dev) -> tuple:
               f"within {KS_SOLVER_RTOL} of the float64 dense solve's in "
               f"each of {KS_SOLVER_REPS} runs")
 
+    est2 = tracker.trajectory()
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "poses.txt")
         save_kitti_poses(path, est2)
         back = load_kitti_poses(path)
+    ate_mem = float(ate_rmse(centers_from_poses(est2),
+                             centers_from_poses(gt[:len(est2)])))
     ate_file = float(ate_rmse(centers_from_poses(back),
-                              centers_from_poses(gt)))
+                              centers_from_poses(gt[:len(back)])))
     print(f"full_sequence pose file: {len(back)} poses, ATE {ate_file:.9f} "
-          f"against {ate_gba:.9f} in memory")
+          f"against {ate_mem:.9f} in memory")
 
     b = KS_KEYFRAMES
-    check(ok >= KS_OK, f"full_sequence tracking-ok share >= {KS_OK}")
+    check(hooks.ok >= KS_OK, f"full_sequence tracking-ok share >= {KS_OK}")
     check(b[0] <= n_kf <= b[1] and n_kf > KS_MF_CAMERAS,
           f"full_sequence keyframes within {b} and above {KS_MF_CAMERAS}")
-    check(tracker.num_loop_closures >= KS_LOOPS,
+    check(out["loop_closures"] >= KS_LOOPS,
           f"full_sequence closes >= {KS_LOOPS} loop")
     check(res.n_cameras > KS_MF_CAMERAS and res.cost < res.initial_cost,
           "global BA (schur_mf) lowers the cost")
@@ -2154,16 +2167,11 @@ def phase_full_sequence(card: str, dev) -> tuple:
           f"ATE after global BA <= {KS_ATE_GBA} and <= {KS_ATE_VS_TRACKED} "
           "x the tracked ATE")
     check(syncs == 0, "run_ba syncs the host only to read its result")
-    check((res_r.n_cameras, res_r.n_landmarks, res_r.n_observations)
-          == (res.n_cameras, res.n_landmarks, res.n_observations)
-          == (res_o.n_cameras, res_o.n_landmarks, res_o.n_observations)
-          and abs(res_r.cost - res_o.cost) <= KS_RESUME_RTOL * res_o.cost,
-          "the resumed tracker's global BA matches the original's")
-    check(abs(ate_file - ate_gba) <= KS_POSE_FILE_TOL * max(1.0, ate_gba),
+    check(abs(ate_file - ate_mem) <= KS_POSE_FILE_TOL * max(1.0, ate_mem),
           "the pose file gives the same ATE")
     print(f"full_sequence phase wall time: "
           f"{time.perf_counter() - t_phase:.1f} s")
-    return {n: counts[n] for n in FRONTEND_PATH}, tracker
+    return {n: hooks.counts[n] for n in FRONTEND_PATH}, tracker
 
 
 # the parallel phase: the port's in-process mesh (parallel/), on a
@@ -2686,16 +2694,18 @@ def main() -> None:
     phase_harris_5pt(frames_dev, frontend, seq, card, dev)
     reference_counts = phase_reference(frames_dev, card, dev, save_ref)
     phase_orb(frames_dev, card, dev, save_orb)
+    harness_counts = phase_harness(card)
     del frames_dev
     _, ks_tracker = phase_full_sequence(card, dev)
     parallel_counts = phase_parallel(frames, frontend, card, dev, ks_tracker)
     del ks_tracker
     # each kernel's launches on the paths that run it: the main path (the
-    # sequence), the reference sequence and the data-parallel frontend for
-    # the three frontend kernels, the engine path for the three opt-in ones
+    # sequence), the reference sequence, the harness's SIFT row and the
+    # data-parallel frontend for the three frontend kernels, the engine
+    # path for the three opt-in ones
     launches = dict(engine_counts, **{
-        n: sequence_counts[n] + reference_counts[n] + parallel_counts[n]
-        for n in FRONTEND_PATH})
+        n: sequence_counts[n] + reference_counts[n] + harness_counts[n]
+        + parallel_counts[n] for n in FRONTEND_PATH})
     check(all(launches[name] > 0 for name in SOURCES),
           "every kernel launched on the sequence or the engine path")
     check(track["extrema_winners"] > 0, "extrema_winners on the track path")

@@ -1,6 +1,6 @@
 """The port's CLI (python -m visualslam_tpu_torch.cli) on the CPU: run +
 eval, checkpoints and resume, global BA, detect with each frontend, the
-subcommands that raise with their ROADMAP item, the accuracy table (a
+subcommands that raise without a card, the accuracy table (a
 reference-profile row included), two-view, the overlays and the debug
 helpers. The runs use FAST_CONFIG with its keypoint capacities cut to
 256 / 128 per octave and 120x160 frames (FAST_CONFIG's own capacities
@@ -116,16 +116,15 @@ def test_cli_resume_continues_from_the_checkpoint(ran, tmp_path,
     assert all(r["tracking_ok"] for r in rows[10:])
 
 
-def test_cli_unported_paths_raise_with_their_roadmap_item(tmp_path,
-                                                          monkeypatch):
-    from PIL import Image
-
+def test_cli_without_a_card_raises(tmp_path, monkeypatch):
+    """The card is the default device: without one, run and benchmark
+    raise and never fall back to the CPU."""
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="harness"):
-        main(["benchmark"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             main(["run", "--synthetic", "4", "--no-prewarm", *WORLD])
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main(["benchmark"])
 
 
 def test_cli_run_pipeline(tmp_path, monkeypatch):

@@ -292,3 +292,43 @@ def test_3xtf32_products_are_exact_on_the_quarter_grid(rng):
                                              torch.from_numpy(b)[None])]
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("metric", ["l2", "hamming"])
+def test_distance_matrix_equals_jax(rng, metric):
+    """models/matching.distance_matrix against the JAX package's on the
+    same descriptors: squared L2 on float descriptors (within a few ulps
+    of the largest distance: another summation order), Hamming on packed
+    uint32 words (equal)."""
+    from visualslam_tpu.models.matching import distance_matrix as jax_dm
+    from visualslam_tpu_torch.models.matching import distance_matrix
+
+    if metric == "l2":
+        da = rng.standard_normal((200, 128)).astype(np.float32)
+        db = rng.standard_normal((300, 128)).astype(np.float32)
+    else:
+        da = rng.integers(0, 2 ** 32, (200, 8), dtype=np.uint64).astype(
+            np.uint32)
+        db = rng.integers(0, 2 ** 32, (300, 8), dtype=np.uint64).astype(
+            np.uint32)
+
+    def feats(d, K, F, kps):
+        return F(kps.empty(K), d)
+
+    got = distance_matrix(
+        feats(torch.from_numpy(da), 200, Features, Keypoints),
+        feats(torch.from_numpy(db), 300, Features, Keypoints),
+        metric).numpy()
+    want = np.asarray(jax_dm(
+        feats(jnp.asarray(da), 200, JFeatures, JKeypoints),
+        feats(jnp.asarray(db), 300, JFeatures, JKeypoints), metric))
+    if metric == "l2":
+        np.testing.assert_allclose(got, want, rtol=0,
+                                   atol=REL * (1.0 + np.abs(want).max()))
+    else:
+        np.testing.assert_array_equal(got, want)
+    with pytest.raises(ValueError, match="unknown metric"):
+        distance_matrix(feats(torch.from_numpy(da), 200, Features,
+                              Keypoints),
+                        feats(torch.from_numpy(da), 200, Features,
+                              Keypoints), "cosine")

@@ -1,0 +1,151 @@
+"""ROADMAP C.1: under the same RANSAC draws, the two packages' two-view
+initializations differ only where float32 decides a near-tie.
+
+On the card's bench features (frames 0..55) the port's tracker with the
+JAX package's draws replayed read ATE 0.8711 against the JAX package's
+0.2652 (both with the synchronous window BA); with the JAX package's
+two-view result put in its place, the port's tracker reads 0.2651
+(`tests/jax_sequence_bounds.py --sync --two-view`). The whole gap is the
+init's float32 8-point solves: the packages pick different hypotheses among
+near-tied inlier counts (hypotheses 12 / 74: 665 / 668 in the JAX
+package, 668 / 668 in the port and in float64 in both), and the final
+masks then differ in 13 cheirality flags of near-epipole points. In float64
+the packages agree.
+
+Here a SyntheticScene world goes through both packages' trackers, the
+port's with the JAX draws replayed; each two-view init is rerun step by
+step in both packages on the same inputs and samples, in float32 and in
+float64 (the JAX package under jax_enable_x64 in a child process), and:
+
+  - the trackers' own init masks are those of the steps;
+  - in float64 the packages choose the same hypothesis and the same mask;
+  - each package's float32 winner is within COUNT_TIE inliers of the
+    float64 maximum;
+  - every final flag that differs in float32 lies within EPS x delta of
+    its test's threshold (jsb.final_flips), delta being the angle between
+    the two packages' relative poses: a Sampson flag by |sqrt(err) -
+    sqrt(thr)|, a cheirality flag by |1 / depth| (unit baseline).
+
+The scenes add 3 px of noise and a little descriptor noise per frame, so
+that flags sit near the Sampson threshold and the matchers rank alike.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import jax_sequence_bounds as jsb
+from tracker_scene import CFG, INTR, SyntheticScene
+from visualslam_tpu.geometry import ransac as jrs
+from visualslam_tpu.models.types import Features as JFeatures
+from visualslam_tpu.models.types import Keypoints as JKeypoints
+from visualslam_tpu.slam.tracker import Tracker as JTracker
+from visualslam_tpu_torch.geometry import ransac as trs
+from visualslam_tpu_torch.models.types import Features, Keypoints
+from visualslam_tpu_torch.slam.tracker import Tracker
+from visualslam_tpu_torch.utils.config import SlamConfig
+
+# a differing flag's distance from its threshold (jsb.final_flips) over
+# delta, the angle between the packages' poses; measured over scenes 11..20
+# at most 0.134 (Sampson) and 1.78 (cheirality)
+EPS = {"sampson": 0.5, "cheirality": 4.0}
+COUNT_TIE = 3
+FRAMES = 8
+PIX_NOISE = 3.0
+
+
+def _features(f, rng):
+    """Both packages' Features of one frame. The scene gives a point the
+    same descriptor in every frame; a little noise per frame keeps the
+    match distances apart, so both matchers rank the matches alike (equal
+    float32 distances have no order to agree on, hazard 5)."""
+    yx, desc, valid = f
+    desc = desc + 0.05 * rng.standard_normal(desc.shape).astype(np.float32)
+    desc /= np.linalg.norm(desc, axis=1, keepdims=True)
+    p = Features(Keypoints.empty(len(valid))._replace(
+        yx=torch.tensor(yx), valid=torch.tensor(valid)), torch.tensor(desc))
+    j = JFeatures(JKeypoints.empty(len(valid))._replace(
+        yx=jnp.asarray(yx), valid=jnp.asarray(valid)), jnp.asarray(desc))
+    return j, p
+
+
+@pytest.mark.parametrize("seed", [11, 12, 13])
+def test_two_view_inits_differ_only_at_float32_near_ties(seed):
+    cfg = CFG.replace(ba=CFG.ba.replace(async_ba=False))
+    scene = SyntheticScene(np.random.default_rng(seed))
+    thr = cfg.ransac.inlier_threshold
+    N, n = cfg.ransac.num_hypotheses, cfg.ransac.sample_size
+
+    jt = JTracker(cfg, INTR, engine=False)
+    prog = jt._ransac
+    jcalls, pcalls = [], []
+
+    def jrec(x1, x2, valid, key):
+        out = prog(x1, x2, valid, key)
+        jcalls.append((np.asarray(x1), np.asarray(x2), np.asarray(valid),
+                       np.asarray(key), np.asarray(out[3])))
+        return out
+
+    jt._ransac = jrec
+    orig = trs.estimate_relative_pose
+
+    def prec(x1, x2, valid, rcfg, gen=None):
+        out = orig(x1, x2, valid, rcfg, gen)
+        pcalls.append((x1.numpy(), x2.numpy(), valid.numpy(),
+                       out[3].numpy()))
+        return out
+
+    pt = Tracker(SlamConfig.from_json(cfg.to_json()), INTR, engine=False,
+                 device="cpu")
+    trs.estimate_relative_pose = prec
+    try:
+        with jsb.replayed_draws(cfg.ransac.seed):
+            for k in range(FRAMES):
+                j, p = _features(scene.features(k, PIX_NOISE)[0], scene.rng)
+                jt.process_features(j, k)
+                pt.process_features(p, k)
+    finally:
+        trs.estimate_relative_pose = orig
+    assert len(jcalls) == len(pcalls) >= 1
+
+    inits = []
+    for x1, x2, valid, key, _ in jcalls:
+        v = jnp.asarray(valid)
+        idx = np.asarray(jax.vmap(lambda k: jrs._gumbel_sample_indices(
+            k, v, n))(jax.random.split(jnp.asarray(key), N)))
+        inits.append((x1, x2, valid, idx))
+    j64s = jsb.jax_steps_x64(inits, thr)
+
+    for i, ((x1, x2, valid, idx), jc, pc) in enumerate(
+            zip(inits, jcalls, pcalls)):
+        j32 = jsb.jax_ransac_steps(x1, x2, valid, idx, thr)
+        p32 = jsb.port_ransac_steps(x1, x2, valid, idx, thr)
+        p64 = jsb.port_ransac_steps(x1.astype(np.float64),
+                                    x2.astype(np.float64), valid, idx, thr)
+        j64 = j64s[i]
+        # the steps are the trackers' inits; the trackers' inputs hold the
+        # same correspondences (two matches of near-equal distance may
+        # swap ranks, hazard 5: the cross-package comparison below runs
+        # both packages on the JAX tracker's inputs)
+        np.testing.assert_array_equal(j32["inl"], jc[4])
+        np.testing.assert_array_equal(pc[2], valid)
+        rows = np.concatenate([x1, x2], 1)[valid]
+        prows = np.concatenate([pc[0], pc[1]], 1)[pc[2]]
+        np.testing.assert_array_equal(np.unique(prows, axis=0),
+                                      np.unique(rows, axis=0))
+        np.testing.assert_array_equal(
+            jsb.port_ransac_steps(pc[0], pc[1], pc[2], idx, thr)["inl"],
+            pc[3])
+        # float64: one answer
+        assert int(j64["best"]) == int(p64["best"])
+        np.testing.assert_array_equal(j64["inl"], p64["inl"])
+        # float32 winners among the float64 near-ties
+        c64 = p64["counts"]
+        for w in (int(j32["best"]), int(p32["best"])):
+            assert c64[w] >= c64.max() - COUNT_TIE, (i, w, c64[w], c64.max())
+        # every final flag that differs is a threshold case
+        delta = jsb.pose_angle(j32, p32)
+        for kind, k, d in jsb.final_flips(j32, p32, thr):
+            assert d <= EPS[kind] * delta, (i, kind, k, d, delta)

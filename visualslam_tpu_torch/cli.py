@@ -4,15 +4,17 @@
     python -m visualslam_tpu_torch.cli run {--synthetic N | --kitti ROOT --seq 00}
     python -m visualslam_tpu_torch.cli two-view IMAGE1 IMAGE2
     python -m visualslam_tpu_torch.cli eval EST_POSES GT_POSES
+    python -m visualslam_tpu_torch.cli benchmark [--out HARNESS_TORCH.json]
     python -m visualslam_tpu_torch.cli accuracy [--out ACCURACY_TORCH.md]
 
-`run`, `two-view`, `accuracy` and `detect` take `--device` (default
-`cuda`: the card; `cpu` runs the port's plain versions on the CPU).
-`detect` runs the DEFAULT (reference) profile with any of the three
+`run`, `two-view`, `benchmark`, `accuracy` and `detect` take `--device`
+(default `cuda`: the card; `cpu` runs the port's plain versions on the
+CPU). `detect` runs the DEFAULT (reference) profile with any of the three
 frontends; `run` takes `--profile fast|reference`, `--frontend` and
 `--pipeline` (stage-overlapped detection, parallel/pipeline.py).
-`benchmark` raises NotImplementedError: the JAX package's
-benchmarks/harness.py is not ported.
+`benchmark` runs the per-stage harness (harness.py); `accuracy` appends
+the KITTI-scale row from KITTI_SCALE_TORCH.json when that file is present
+(`python -m visualslam_tpu_torch.kitti_scale` writes it).
 """
 
 from __future__ import annotations
@@ -290,10 +292,9 @@ def cmd_eval(args) -> None:
 
 
 def cmd_benchmark(args) -> None:
-    raise NotImplementedError(
-        "the benchmark harness (the JAX package's benchmarks/harness.py) is "
-        "not ported; the port's benchmark entry is python -m "
-        "visualslam_tpu_torch.bench")
+    from visualslam_tpu_torch.harness import run_benchmarks
+
+    run_benchmarks(full=args.full, device=args.device, out=args.out)
 
 
 # The reference's scenario set (visualslam_tpu/cli.py, cmd_accuracy):
@@ -341,13 +342,19 @@ def cmd_accuracy(args) -> None:
     from visualslam_tpu_torch.slam.tracker import Tracker
     from visualslam_tpu_torch.utils.config import DEFAULT_CONFIG, FAST_CONFIG
 
-    try:
-        commit = subprocess.run(
-            ["git", "rev-parse", "--short", "HEAD"], capture_output=True,
-            text=True, cwd=os.path.dirname(os.path.dirname(
-                os.path.abspath(__file__)))).stdout.strip() or "unknown"
-    except OSError:
-        commit = "unknown"
+    from visualslam_tpu_torch.kitti_scale import DEFAULT_OUT
+    from visualslam_tpu_torch.utils.card import device_label, require_device
+
+    label = device_label(require_device(args.device, "accuracy"))
+    commit = args.commit
+    if commit is None:
+        try:
+            commit = subprocess.run(
+                ["git", "rev-parse", "--short", "HEAD"], capture_output=True,
+                text=True, cwd=os.path.dirname(os.path.dirname(
+                    os.path.abspath(__file__)))).stdout.strip() or "unknown"
+        except OSError:
+            commit = "unknown"
 
     rows = []
     for name, profile, kw, use_gba, batch in SCENARIOS:
@@ -421,13 +428,35 @@ def cmd_accuracy(args) -> None:
         if name.startswith("loop") and tracker.num_loop_closures == 0:
             print("WARNING: loop scenario closed no loops", file=sys.stderr)
 
+    # the KITTI-scale artifact contributes its row when present (too slow
+    # to re-run on every table; `python -m visualslam_tpu_torch.kitti_scale`
+    # writes it)
+    ks_path = args.kitti_scale or DEFAULT_OUT
+    if os.path.exists(ks_path):
+        with open(ks_path) as f:
+            ks = json.load(f)
+        rows.append({
+            "scenario": f"kitti-{ks['frames']} (end-to-end+gba)",
+            "profile": ks["profile"], "commit": "see json",
+            "frames": ks["frames"], "batch": ks.get("batch", "-"),
+            "fps": ks["sequence_fps"],
+            "ate_m": ks["ate_after_gba_m"],
+            "rpe_trans_m": ks["rpe_trans_m"],
+            "rpe_rot_deg": ks["rpe_rot_deg"],
+            "mean_inliers": ks["mean_inliers"], "min_inliers": "-",
+            "keyframes": ks["keyframes"],
+            "loop_closures": ks["loop_closures"],
+            "note": f"from {os.path.basename(ks_path)} ({ks['device']})",
+        })
+        print(json.dumps(rows[-1]), flush=True)
+
     out = args.out or "ACCURACY_TORCH.md"
     with open(out, "w") as f:
         f.write("# ACCURACY_TORCH — the port's sequence-level results\n\n")
         f.write("Regenerate with: `python -m visualslam_tpu_torch.cli "
                 f"accuracy --device {args.device}`\n\nEvery row is produced "
-                "by that command on the commit and the device shown "
-                f"({args.device}).\n\n")
+                "by that command on the commit shown.\n\n"
+                f"Device: {label}. The fps column is this device's own.\n\n")
         f.write("| " + " | ".join(_ROW_KEYS) + " |\n")
         f.write("|" + "---|" * len(_ROW_KEYS) + "\n")
         for r in rows:
@@ -514,9 +543,13 @@ def main(argv=None) -> None:
     e.add_argument("gt")
     e.set_defaults(fn=cmd_eval)
 
-    b = sub.add_parser("benchmark", help="run the benchmark harness "
-                                         "(not ported)")
+    b = sub.add_parser("benchmark", help="run the per-stage benchmark "
+                                         "harness")
     b.add_argument("--full", action="store_true")
+    b.add_argument("--out", default=None,
+                   help="output file (default HARNESS_TORCH.json at the "
+                        "repository root)")
+    device_arg(b)
     b.set_defaults(fn=cmd_benchmark)
 
     a = sub.add_parser("accuracy",
@@ -525,6 +558,13 @@ def main(argv=None) -> None:
                    help="output file (default ACCURACY_TORCH.md)")
     a.add_argument("--photo", default=None,
                    help="the reference's home.jpg, for photo-loop-100")
+    a.add_argument("--kitti-scale", default=None,
+                   help="the KITTI-scale artifact whose row is appended "
+                        "(default KITTI_SCALE_TORCH.json at the repository "
+                        "root)")
+    a.add_argument("--commit", default=None,
+                   help="the commit column (default: git rev-parse --short "
+                        "HEAD)")
     device_arg(a)
     a.set_defaults(fn=cmd_accuracy)
 

@@ -27,6 +27,17 @@ _BIG = 1e12
 _MASKED = 1e3       # descriptor value of invalid rows on the 2-NN path
 
 
+def distance_matrix(fa: Features, fb: Features,
+                    metric: str) -> torch.Tensor:
+    """Dense [..., Ka, Kb] distances: squared L2, or Hamming on ORB's
+    bit-packed descriptors."""
+    if metric == "l2":
+        return l2sq_distance_matrix(fa.descriptors, fb.descriptors)
+    if metric == "hamming":
+        return hamming_distance_matrix(fa.descriptors, fb.descriptors)
+    raise ValueError(f"unknown metric {metric!r}")
+
+
 def _l2_2nn(kernels: Kernels, a: torch.Tensor, b: torch.Tensor):
     """kernels.l2_2nn over any leading axes: [..., Ka, D] x [..., Kb, D]."""
     lead = a.shape[:-2]
@@ -67,10 +78,7 @@ def match_features(fa: Features, fb: Features, cfg: MatchConfig,
             rows = torch.arange(fa.capacity, device=va.device)
             ok &= col_nn.gather(-1, nn) == rows
     else:
-        if cfg.metric == "l2":
-            dist = l2sq_distance_matrix(fa.descriptors, fb.descriptors)
-        else:
-            dist = hamming_distance_matrix(fa.descriptors, fb.descriptors)
+        dist = distance_matrix(fa, fb, cfg.metric)
         big = torch.full_like(dist, _BIG)
         dist = torch.where(va[..., :, None] & vb[..., None, :], dist, big)
         best = dist.amin(dim=-1)

@@ -61,6 +61,7 @@ from visualslam_tpu_torch.slam.track_step import (
     track_step_lite,
     unpack_keyframe_products,
 )
+from visualslam_tpu_torch.utils.card import require_device
 from visualslam_tpu_torch.utils.config import SlamConfig
 
 
@@ -147,10 +148,7 @@ class Tracker:
         if mesh is not None and "shard" not in mesh.shape:
             raise ValueError("Tracker: the mesh needs a 'shard' axis")
         self.mesh = mesh
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "Tracker: no CUDA device (pass device='cpu' to run on the CPU)")
+        self.device = require_device(device, "Tracker")
         if cfg.frontend == "orb" and cfg.match.metric != "hamming":
             # ORB descriptors are bit-packed uint32: match on Hamming
             cfg = cfg.replace(match=cfg.match.replace(metric="hamming"))

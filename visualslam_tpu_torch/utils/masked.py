@@ -1,4 +1,9 @@
-"""Fixed-capacity masked-set selection (visualslam_tpu/utils/masked.py).
+"""Fixed-capacity masked-set utilities (visualslam_tpu/utils/masked.py).
+
+A set of at most K things is a struct-of-arrays with a boolean validity
+mask: `top_k_select` / `block_top_k_select` pick the top K of a score map,
+`compact` moves the valid entries to the front (stable), `merge` keeps the
+K best of two masked sets, `masked_mean` averages the valid entries.
 
 Both selectors work on the last axis and batch over any leading axes (one
 row per frame). `jax.lax.top_k` puts the lower index first on ties and
@@ -66,3 +71,38 @@ def block_top_k_select(scores: torch.Tensor, valid: torch.Tensor, k: int):
     top, bidx = top_k(bmax, min(k, bmax.shape[-1]))
     top, idx = _pad_to(top, bidx * block + barg.gather(-1, bidx), k)
     return idx.clamp(max=n - 1), top > NEG_INF
+
+
+def compact(mask: torch.Tensor, *arrays: torch.Tensor):
+    """Stable-compact along the first axis: the valid entries first, in
+    their order, then the invalid ones in theirs. Returns (new_mask,
+    *reordered_arrays)."""
+    order = torch.sort((~mask).to(torch.uint8), stable=True)[1]
+    new_mask = torch.arange(mask.shape[0], device=mask.device) < mask.sum()
+    return (new_mask,) + tuple(a[order] for a in arrays)
+
+
+def merge(score_a, mask_a, score_b, mask_b, k: int, *array_pairs):
+    """Merge two masked sets, keeping the k best by score (ties to the
+    lower index of a ++ b). array_pairs is a flat sequence (a0, b0, a1,
+    b1, ...) of matching arrays. Returns (scores [k], mask [k],
+    *merged_arrays); the scores of masked slots are 0."""
+    assert len(array_pairs) % 2 == 0
+    scores = torch.cat([
+        torch.where(mask_a, score_a, torch.full_like(score_a, NEG_INF)),
+        torch.where(mask_b, score_b, torch.full_like(score_b, NEG_INF))])
+    top, idx = top_k(scores, k)
+    mask = top > NEG_INF
+    merged = tuple(torch.cat([array_pairs[i], array_pairs[i + 1]])[idx]
+                   for i in range(0, len(array_pairs), 2))
+    return (torch.where(mask, top, torch.zeros_like(top)), mask) + merged
+
+
+def masked_mean(x: torch.Tensor, mask: torch.Tensor, axis=None,
+                eps: float = 1e-12) -> torch.Tensor:
+    """Mean of x over the True entries of mask (eps keeps an empty mask
+    at 0)."""
+    m = mask.to(x.dtype)
+    if axis is None:
+        return (x * m).sum() / (m.sum() + eps)
+    return (x * m).sum(dim=axis) / (m.sum(dim=axis) + eps)
