@@ -53,7 +53,12 @@ Phases, each printing its own lines:
                call) beside its bound and, where one PyTorch call
                computes the same function, that call's time; the time of
                the patch stack / cast / crop / re-gather the kernel path
-               no longer runs
+               no longer runs; the fixed-order segment sum of BA and the
+               pose graph against CPU index_add_ bit for bit, in float32
+               and float64, at the global BA's, the window grid's and the
+               256-node pose graph's shapes, equal run to run, each
+               float32 sum timed per call and alone beside its bound, the
+               plain version and one index_add_ call
   4. slice     the frontend + matching through the public entry points;
                the plain path on the same batch as the reference; keypoint
                and match floors; frames/s of both paths; the frontend's
@@ -76,7 +81,8 @@ Phases, each printing its own lines:
                frames/s of frontend + engine
   7. sequence  the bench protocol on the kernel path: sequence frames/s
                (median of 3 runs) and frontend frames/s, the time by stage
-               (StageTimer); an instrumented kernel-path run: launch
+               (StageTimer), the three runs' trajectories compared bit for
+               bit (printed); an instrumented kernel-path run: launch
                counts, host syncs per process_stream call and inside
                every engine batch (checked: one per active frame + one per
                promotion); an untimed plain-path run; every frame
@@ -122,8 +128,9 @@ Phases, each printing its own lines:
                the engine's sync rule through the closures, the frontend
                kernels' launches, keyframes, loop closures, ATE / RPE; the
                full-sequence global BA (schur_mf) cold and warm, with its
-               host syncs and launches; the three BA solvers on that
-               problem, 8 runs each, against the float64 dense LM run;
+               host syncs, launches and segment_sum launches; the three BA
+               solvers on that problem, 8 runs each, equal bit for bit in
+               the default mode and against the float64 dense LM run;
                a checkpoint round trip (bit for
                bit, and the resumed tracker's global BA); the pose file.
                Checked against half / twice the JAX package's figures on
@@ -150,13 +157,14 @@ Phases, each printing its own lines:
                aligned centres) and the one-device solve (cost, ATE
                against ground truth); pipelined_process
                against chunked detect_batch + process_features, bit for
-               bit, with frames/s of both
+               bit in the default mode, with frames/s of both
  14. result    one JSON line of per-kernel numbers (the extrema kernels'
                per batch: summed over the 3 octaves, one launch each; the
                others per call at octave 0 or a tracked frame; launches on
                the sequence, the reference sequence, the harness and the
                data-parallel frontend for the three frontend kernels, on
-               the engine path for the others), then the last line
+               the main path for segment_sum, on the engine path for the
+               others), then the last line
                {"ok": true, "device": {...}}
 
     python3 chip_smoke.py --save-features engine_feats.npz
@@ -214,6 +222,12 @@ from visualslam_tpu_torch.ops.cuda import (
 from visualslam_tpu_torch.ops.cuda.descriptor import staged_boxes
 from visualslam_tpu_torch.ops.cuda.distance import split_plan
 from visualslam_tpu_torch.ops.cuda.extrema import NONE, TILE_H
+from visualslam_tpu_torch.ops.cuda.segment import (
+    long_path as segment_long_path,
+    segment_plan,
+    segment_sum,
+    segment_sum_ref,
+)
 from visualslam_tpu_torch.ops.extrema import (
     detect_extrema,
     extrema_candidates,
@@ -284,7 +298,8 @@ PEAK_TF32_S = 495e12        # dense, tensor cores
 DEVICE_NAMES = {"extrema_winners": "extrema_winners_kernel",
                 "extrema_score": "extrema_score_kernel",
                 "orient_hist": "patch_hist", "descriptor": "patch_hist",
-                "blur_stack": "blur", "l2_2nn": "l2_2nn"}
+                "blur_stack": "blur", "l2_2nn": "l2_2nn",
+                "segment_sum": "segment_sum"}
 SOURCES = {
     "extrema_winners": ("visualslam_tpu_torch/csrc/extrema.cu",
                         "visualslam_tpu/ops/pallas/extrema.py:256"),
@@ -298,6 +313,10 @@ SOURCES = {
                "visualslam_tpu/ops/pallas/distance.py:79"),
     "extrema_score": ("visualslam_tpu_torch/csrc/extrema.cu",
                       "visualslam_tpu/ops/pallas/extrema.py:157"),
+    # no Pallas kernel: the JAX package's sums are jax.ops.segment_sum
+    # (XLA's scatter), first at the BA's normal equations
+    "segment_sum": ("visualslam_tpu_torch/csrc/segment.cu",
+                    "visualslam_tpu/backend/ba.py:154"),
 }
 
 
@@ -729,6 +748,98 @@ def kernel_patches(ss, cfg, dev) -> dict:
     return out
 
 
+def segment_sets(name: str) -> list:
+    """The segment sums' index arrays at the main paths' shapes (numpy):
+    [(what, idx [O], n, widths)]. global_ba: the KITTI-scale global BA
+    (C = 67, L = 6007, O = 27420; cameras in ascending runs, as
+    build_global_problem lays them out): U / bc and the matvec's camera
+    sums, V / bl and its landmark sums, the dense solvers' pair sum;
+    window_grid: engine._window_ba's [Kl, W] = [2048, 10] observation
+    grid; pose_graph: the 256-node padded graph's 1024 edges (padding on
+    node 0), D = 6 and 7, and the dense solve's N * N block index."""
+    r = np.random.default_rng(12)
+    if name == "global_ba":
+        C, L, O = 67, 6007, 27420
+        cam = np.sort(r.integers(0, C, O))
+        lm = r.integers(0, L, O)
+        return [("cam", cam, C, (36, 6)), ("lm", lm, L, (9, 3)),
+                ("pair", cam * L + lm, C * L, (18,))]
+    if name == "window_grid":
+        Kl, Wn = 2048, 10
+        o = np.arange(Kl * Wn)
+        cam, lm = o % Wn, o // Wn
+        return [("cam", cam, Wn, (36, 6)), ("lm", lm, Kl, (9, 3)),
+                ("pair", cam * Kl + lm, Wn * Kl, (18,))]
+    N, E, ne = 256, 1024, 300
+    i = np.zeros(E, np.int64)
+    j = np.zeros(E, np.int64)
+    i[:ne] = r.integers(0, N, ne)
+    j[:ne] = r.integers(0, N, ne)
+    return [("i", i, N, (6, 7, 36, 49)), ("j", j, N, (6, 7, 36, 49)),
+            ("ij", i * N + j, N * N, (36, 49))]
+
+
+SEGMENT_SETS = ("global_ba", "window_grid", "pose_graph")
+# the kernels line's segment_sum row: the CG matvec's camera sum of the
+# global BA ([27420, 6] -> [67, 6]), its most frequent call
+SEGMENT_ROW = ("global_ba", "cam", 6)
+
+
+def kernel_segment(dev) -> dict:
+    """segment_sum against CPU index_add_ (its plain version), bit for bit
+    and equal on a second call, in float32 and float64 at the three shape
+    sets; each float32 sum timed per call and alone beside its bound (x,
+    perm and offsets read once, the output written once), the plain
+    version on the card (zeros + index_add_) and one index_add_ call into
+    a zero buffer (the library call)."""
+    r = np.random.default_rng(7)
+    rows, out = [], None
+    for name in SEGMENT_SETS:
+        for what, idx, n, widths in segment_sets(name):
+            plan = segment_plan(torch.from_numpy(idx).to(dev), n)
+            plan_cpu = segment_plan(torch.from_numpy(idx), n)
+            for w in widths:
+                for dtype in (torch.float32, torch.float64):
+                    x = torch.from_numpy(
+                        r.standard_normal((len(idx), w))
+                        * 10.0 ** r.uniform(-3, 3, (len(idx), w))).to(dtype)
+                    want = segment_sum(x, plan_cpu)
+                    xd = x.to(dev)
+                    got = segment_sum(xd, plan)
+                    again = segment_sum(xd, plan)
+                    check(torch.equal(got.cpu(), want),
+                          f"segment_sum equals CPU index_add_ bit for bit "
+                          f"({name} {what} width {w} {dtype})")
+                    check(torch.equal(got, again), f"segment_sum repeats "
+                          f"bit for bit ({name} {what} width {w} {dtype})")
+                xd = xd.float()
+                ms = time_ms(lambda: segment_sum(xd, plan), 20)
+                plain_ms = time_ms(lambda: segment_sum_ref(xd, plan), 20)
+                buf = torch.zeros((n, w), device=dev)
+                lib_ms = time_ms(lambda: buf.index_add_(0, plan.idx, xd), 20)
+                kms = kernel_alone("segment_sum",
+                                   lambda: segment_sum(xd, plan), ms,
+                                   f" ({name} {what}, [{len(idx)}, {w}] -> "
+                                   f"[{n}, {w}])")
+                io = nbytes(xd, plan.perm, plan.offsets) + 4 * n * w
+                bms, by = least_ms(io, float(xd.numel()))
+                path = ("block per segment"
+                        if segment_long_path(len(idx), n, w)
+                        else "thread per output")
+                rows.append(dict(set=name, sum=what, rows=len(idx), n=n,
+                                 width=w, path=path, ms=ms, kernel_ms=kms,
+                                 plain_ms=plain_ms, library_ms=lib_ms,
+                                 bound_ms=bms, bound_by=by))
+                if (name, what, w) == SEGMENT_ROW:
+                    out = dict(err=0.0, ms=ms, kernel_ms=kms,
+                               plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                               library_ms=lib_ms)
+    print(f"kernel segment_sum: equal to CPU index_add_ bit for bit and "
+          f"run to run in float32 and float64 at {SEGMENT_SETS}; float32 "
+          f"times (ms): {json.dumps(rows)}")
+    return out
+
+
 def phase_kernels(batch: torch.Tensor, frontend: SiftFrontend, dev) -> dict:
     """Each kernel against its plain version at the main path's shapes."""
     cfg = FAST_CONFIG
@@ -742,6 +853,7 @@ def phase_kernels(batch: torch.Tensor, frontend: SiftFrontend, dev) -> dict:
 
     out["blur_stack"] = kernel_blur(batch, frontend, dev)
     out["l2_2nn"] = kernel_2nn(frontend(batch), dev)
+    out["segment_sum"] = kernel_segment(dev)
     for name, r in out.items():
         lib = ("none" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms")
@@ -962,6 +1074,12 @@ def centres(R: np.ndarray, t: np.ndarray) -> np.ndarray:
     return -np.einsum("fji,fj->fi", R, t)
 
 
+def switched(counts: dict) -> dict:
+    """The launch counts of the kernels that `KERNELS` / `PLAIN` switch
+    (every kernel but segment_sum, which a CUDA tensor always takes)."""
+    return {n: counts[n] for n in KERNELS._fields}
+
+
 def count_syncs(fn) -> int:
     """Host syncs torch reports while fn() runs (sync debug mode)."""
     torch.cuda.synchronize()
@@ -1001,9 +1119,13 @@ def phase_track(frames_dev: torch.Tensor, seq: SyntheticSequence,
             want = dict.fromkeys(FRONTEND_KERNELS, cfg.pyramid.num_octaves)
             want.update(blur_stack=cfg.pyramid.num_octaves,
                         l2_2nn=2 * (BATCH + n_kf_steps), extrema_score=0)
-            check(counts == want, f"kernel path launches {want}")
+            check(switched(counts) == want, f"kernel path launches {want}")
         else:
-            check(not any(counts.values()), "plain path launches no kernel")
+            check(not any(switched(counts).values()),
+                  "plain path launches none of the switched kernels")
+        # the window BA's sums have no plain switch on the card
+        check(counts["segment_sum"] > 0, f"{name}: the window BA's segment "
+              "sums launch the kernel")
         tracked = np.arange(BATCH) >= 5
         rerr = rot_deg(run.R, R_gt)[tracked]
         perr = np.linalg.norm(centres(run.R, run.t) - centres(R_gt, t_gt),
@@ -1203,7 +1325,7 @@ def phase_engine(frames_dev: torch.Tensor, seq: SyntheticSequence, card: str,
             # the dense matcher, as the reference's _sub_match_cfg
             want.update(extrema_winners=0,
                         l2_2nn=2 * int(active.sum()) + 2 * sum(n_prom) + 4)
-            check(counts == want, f"kernel path launches {want}")
+            check(switched(counts) == want, f"kernel path launches {want}")
             if save_features:
                 np.savez(save_features, intrinsics=seq.intrinsics,
                          R_gt=R_gt, t_gt=t_gt, **{
@@ -1214,7 +1336,10 @@ def phase_engine(frames_dev: torch.Tensor, seq: SyntheticSequence, card: str,
                                  f.descriptors,))})
                 print(f"engine: features saved to {save_features}")
         else:
-            check(not any(counts.values()), "plain path launches no kernel")
+            check(not any(switched(counts).values()),
+                  "plain path launches none of the switched kernels")
+        check(counts["segment_sum"] > 0, f"{name}: the window BA's segment "
+              "sums launch the kernel")
         check(bool((inl >= run.ok_min).all()),
               f"{name}: every active frame tracked")
         check(inl.min() >= ENGINE_MIN_INLIERS,
@@ -1447,13 +1572,14 @@ def phase_sequence(card: str, dev, save_features: str | None) -> dict:
     n = len(frames)
     gt = seq.gt_poses[:, :, 3]
     bench.warmup(FAST_CONFIG, dev, KERNELS)
-    fps_runs, timers = [], []
+    fps_runs, timers, trajs = [], [], []
     for _ in range(3):
         timer = StageTimer()
         tracker, seconds = bench.run_once(frames, seq.intrinsics,
                                           FAST_CONFIG, dev, KERNELS, timer)
         fps_runs.append(bench.SEQ_FRAMES / seconds)
         timers.append((seconds, timer))
+        trajs.append(tracker.trajectory())
     fps = float(np.median(fps_runs))
     frontend_fps = bench.bench_frontend(FAST_CONFIG, dev, KERNELS)
     diag = bench.diagnostics(tracker)
@@ -1461,6 +1587,13 @@ def phase_sequence(card: str, dev, save_features: str | None) -> dict:
           f"{[round(v, 2) for v in fps_runs]}, {bench.SEQ_FRAMES} frames of "
           f"process_stream in batches of {BATCH} + finish), frontend "
           f"frames/s {frontend_fps:.1f}; {json.dumps(diag)}")
+    # printed, not checked: the tracker's lazy flush of an async window BA
+    # (tracker.py _flush_pending_ba with wait=False) applies a result when
+    # the card has finished it, which depends on timing
+    same = [bool(np.array_equal(trajs[0], t)) for t in trajs[1:]]
+    print(f"sequence: the three timed trackers' trajectories equal to the "
+          f"first's bit for bit: {same} (max |difference| "
+          f"{[float(np.abs(trajs[0] - t).max()) for t in trajs[1:]]})")
     seconds, timer = sorted(timers, key=lambda x: x[0])[1]
     summ = timer.summary()
     print(f"sequence time by stage (median run, {seconds:.3f} s; host "
@@ -1876,7 +2009,7 @@ KS_ATE_VS_TRACKED = 1.05    # global BA no worse than the tracked ATE
 KS_SOLVER_RTOL = 1e-2
 KS_SOLVER_REPS = 8           # runs of each solver on the problem
 KS_RESUME_RTOL = 1e-3       # resumed vs original global-BA cost (equal
-#                             bits expected: both run deterministically)
+#                             bits expected: fixed-order sums)
 KS_POSE_FILE_TOL = 1e-6     # ATE from the pose file vs in memory
 
 
@@ -2036,8 +2169,8 @@ class FullSequenceHooks(kitti_scale.Hooks):
 
     def global_ba(self, tracker, res):
         # the resumed tracker's global BA against the same solve on the
-        # original's state, both under deterministic algorithms (index_add_
-        # in a fixed order, else its sums change from run to run)
+        # original's state, in the default mode (the segment sums add in a
+        # fixed order on the card)
         from visualslam_tpu_torch.slam.global_ba import run_global_ba
 
         self.res = res
@@ -2045,23 +2178,20 @@ class FullSequenceHooks(kitti_scale.Hooks):
         corrected = None if lc.corrected is None else {
             int(e.frame_id): (np.asarray(R), np.asarray(t))
             for e, (R, t) in zip(lc.entries, lc.corrected)}
-        torch.use_deterministic_algorithms(True, warn_only=True)
-        try:
-            res_o = run_global_ba(tracker.map, KS_CONFIG.ba, corrected,
-                                  device=self.dev)
-            res_r = self.resumed.global_ba()
-        finally:
-            torch.use_deterministic_algorithms(False)
+        res_o = run_global_ba(tracker.map, KS_CONFIG.ba, corrected,
+                              device=self.dev)
+        res_r = self.resumed.global_ba()
         del self.resumed
         print(f"full_sequence global BA: {res.n_cameras} cameras, "
               f"{res.n_landmarks} landmarks, {res.n_observations} "
               f"observations, cost {res.initial_cost:.6e} -> "
-              f"{res.cost:.6e}; deterministic algorithms, original "
+              f"{res.cost:.6e}; default mode, original "
               f"{res_o.n_cameras} / {res_o.n_landmarks} / "
               f"{res_o.n_observations}, cost {res_o.initial_cost:.9e} -> "
               f"{res_o.cost:.9e}, resumed {res_r.n_cameras} / "
               f"{res_r.n_landmarks} / {res_r.n_observations}, cost "
-              f"{res_r.initial_cost:.9e} -> {res_r.cost:.9e}")
+              f"{res_r.initial_cost:.9e} -> {res_r.cost:.9e} (equal bits: "
+              f"{res_r.cost == res_o.cost})")
         check((res_r.n_cameras, res_r.n_landmarks, res_r.n_observations)
               == (res.n_cameras, res.n_landmarks, res.n_observations)
               == (res_o.n_cameras, res_o.n_landmarks, res_o.n_observations)
@@ -2113,11 +2243,16 @@ def phase_full_sequence(card: str, dev) -> tuple:
     warm_ms = wall_ms(lambda: run_ba(p2, base), 3)
     syncs = count_syncs(lambda: run_ba(p2, base))
     launches, busy, _ = profile_call(lambda: run_ba(p2, base))
+    reset_launch_counts()
+    run_ba(p2, base)
+    seg = launch_counts()["segment_sum"]
     print(f"full_sequence global BA warm (schur_mf, rebuilt problem C = "
           f"{p2.R.shape[0]}, L = {p2.X.shape[0]}, O = {p2.uv.shape[0]}): "
           f"{warm_ms:.3f} ms per run_ba ({warm_ms / base.iters:.3f} ms per "
           f"LM iteration, median of 3); {syncs} host syncs inside run_ba; "
-          f"{launches} device launches, device busy {busy} ms")
+          f"{launches} device launches, device busy {busy} ms; "
+          f"{seg} segment_sum launches")
+    check(seg > 0, "the global BA's segment sums launch the kernel")
     # the exact LM path: the same problem and steps in float64, dense
     p64 = p2._replace(R=p2.R.double(), t=p2.t.double(), X=p2.X.double(),
                       uv=p2.uv.double())
@@ -2125,19 +2260,26 @@ def phase_full_sequence(card: str, dev) -> tuple:
     c64 = float(r64.cost)
     check(c64 < float(r64.initial_cost), "the float64 dense LM lowers the "
           "rebuilt problem's cost")
-    costs, rel, ms = {}, {}, {}
+    costs, rel, ms, same = {}, {}, {}, {}
     for solver in ("schur_dense", "schur_cg", "schur_mf"):
         c = base.replace(solver=solver)
         ms[solver] = wall_ms(lambda: run_ba(p2, c), 2)
-        costs[solver] = [float(run_ba(p2, c).cost)
-                         for _ in range(KS_SOLVER_REPS)]
+        reps = [run_ba(p2, c) for _ in range(KS_SOLVER_REPS)]
+        costs[solver] = [float(r.cost) for r in reps]
         rel[solver] = [abs(x - c64) / c64 for x in costs[solver]]
+        same[solver] = all(torch.equal(a, b) for r in reps[1:]
+                           for a, b in zip(reps[0], r))
+        del reps
     print(f"full_sequence solvers on the card, cg_iters {base.cg_iters}, "
           f"initial cost {float(r64.initial_cost):.9e}, float64 dense "
           f"final cost {c64:.9e}; float32 final costs of "
           f"{KS_SOLVER_REPS} runs each: {json.dumps(costs)}; ms per "
           f"run_ba: {json.dumps(ms)}; relative to the float64 dense: "
-          f"{json.dumps(rel)}")
+          f"{json.dumps(rel)}; the runs equal bit for bit (R, t, X, cost, "
+          f"lambda), default mode: {json.dumps(same)}")
+    for solver in ("schur_dense", "schur_cg", "schur_mf"):
+        check(same[solver], f"{solver}: the {KS_SOLVER_REPS} runs equal bit "
+              "for bit in the default mode")
     for solver in ("schur_cg", "schur_mf"):
         check(max(rel[solver]) <= KS_SOLVER_RTOL, f"{solver} final cost "
               f"within {KS_SOLVER_RTOL} of the float64 dense solve's in "
@@ -2584,36 +2726,32 @@ def par_global_ba(mesh, ks_tracker, dev, name: str) -> None:
 
 def par_pipeline(frames: np.ndarray, seq, dev, name: str) -> None:
     """pipelined_process over frames 0..23 in batches of 8 against chunked
-    detect_batch + process_features on a second tracker, under
-    deterministic algorithms (index_add_ in a fixed order): the
-    trajectories equal bit for bit; frames/s of both (host clock)."""
+    detect_batch + process_features on a second tracker, in the default
+    mode: the trajectories equal bit for bit; frames/s of both (host
+    clock)."""
     from visualslam_tpu_torch.parallel.pipeline import pipelined_process
 
     imgs = frames[:PAR_PIPE_FRAMES]
     B = PAR_PIPE_BATCH
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
-        fps = {}
-        for _ in range(2):        # the first turn warms both loops up
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            seq_t = Tracker(FAST_CONFIG, seq.intrinsics, device=dev)
-            for k in range(0, len(imgs), B):
-                fb = seq_t.detect_batch(imgs[k:k + B])
-                for i in range(len(imgs[k:k + B])):
-                    seq_t.process_features(Tracker.features_at(fb, i), k + i)
-            torch.cuda.synchronize()
-            fps["sequential"] = len(imgs) / (time.perf_counter() - t0)
-            t0 = time.perf_counter()
-            pipe_t = Tracker(FAST_CONFIG, seq.intrinsics, device=dev)
-            res = pipelined_process(pipe_t, imgs, batch=B)
-            torch.cuda.synchronize()
-            fps["pipelined"] = len(imgs) / (time.perf_counter() - t0)
-    finally:
-        torch.use_deterministic_algorithms(False)
+    fps = {}
+    for _ in range(2):            # the first turn warms both loops up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        seq_t = Tracker(FAST_CONFIG, seq.intrinsics, device=dev)
+        for k in range(0, len(imgs), B):
+            fb = seq_t.detect_batch(imgs[k:k + B])
+            for i in range(len(imgs[k:k + B])):
+                seq_t.process_features(Tracker.features_at(fb, i), k + i)
+        torch.cuda.synchronize()
+        fps["sequential"] = len(imgs) / (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        pipe_t = Tracker(FAST_CONFIG, seq.intrinsics, device=dev)
+        res = pipelined_process(pipe_t, imgs, batch=B)
+        torch.cuda.synchronize()
+        fps["pipelined"] = len(imgs) / (time.perf_counter() - t0)
     same = np.array_equal(seq_t.trajectory(), pipe_t.trajectory())
     print(f"parallel {name} pipeline: frames 0..{len(imgs) - 1} at {H}x{W} "
-          f"in batches of {B} (host path, deterministic algorithms): "
+          f"in batches of {B} (host path, default mode): "
           f"frames/s {json.dumps(fps)}; trajectories equal bit for bit: "
           f"{same}; keyframes "
           f"{sum(f.is_keyframe for f in pipe_t.frames)}")
@@ -2702,10 +2840,11 @@ def main() -> None:
     # each kernel's launches on the paths that run it: the main path (the
     # sequence), the reference sequence, the harness's SIFT row and the
     # data-parallel frontend for the three frontend kernels, the engine
-    # path for the three opt-in ones
+    # path for the three opt-in ones, the main path for segment_sum
     launches = dict(engine_counts, **{
         n: sequence_counts[n] + reference_counts[n] + harness_counts[n]
         + parallel_counts[n] for n in FRONTEND_PATH})
+    launches["segment_sum"] = sequence_counts["segment_sum"]
     check(all(launches[name] > 0 for name in SOURCES),
           "every kernel launched on the sequence or the engine path")
     check(track["extrema_winners"] > 0, "extrema_winners on the track path")

@@ -2,12 +2,17 @@
 (Schur) elimination (visualslam_tpu/backend/ba.py, solver "schur_dense").
 
 Observations are a fixed-capacity SoA (cam_idx, lm_idx, uv, valid); the
-sparse sums are `index_add_` scatter-adds (the JAX package's segment_sum),
-the camera-landmark coupling Wd is dense [C, L, 6, 3], 3x3 landmark blocks
-invert in closed form, the reduced 6C x 6C camera system solves dense, and
-Levenberg-Marquardt runs a fixed number of iterations with a masked accept.
-On CUDA `index_add_` sums with atomics, in an order that changes from run
-to run: hold results to tolerances on cost and pose, not to bits.
+sparse sums are fixed-order segment sums (the JAX package's segment_sum;
+`ops/cuda/segment.py`), the camera-landmark coupling Wd is dense
+[C, L, 6, 3], 3x3 landmark blocks invert in closed form, the reduced
+6C x 6C camera system solves dense, and Levenberg-Marquardt runs a fixed
+number of iterations with a masked accept. Each sum adds a segment's rows
+in ascending observation order, on the CPU (the plain version) and on the
+card (the kernel) alike, so a solve repeats bit for bit on either device.
+The CPU and the card still round float32 products apart (cuBLAS against
+the CPU's BLAS): hold one device's results to the other's by tolerances.
+`run_ba` builds the sums' plans (`BAPlans`) once per problem and passes
+them down; the functions below build their own when called without.
 
 Three solvers, as the reference: "schur_dense" (the reduced 6C x 6C system
 solved directly), "schur_cg" (the same system by Jacobi-preconditioned
@@ -31,6 +36,11 @@ import torch
 
 from visualslam_tpu_torch.backend.pnp import solve_masked
 from visualslam_tpu_torch.geometry import se3
+from visualslam_tpu_torch.ops.cuda.segment import (
+    SegmentPlan,
+    segment_plan,
+    segment_sum,
+)
 from visualslam_tpu_torch.utils.config import BAConfig
 from visualslam_tpu_torch.utils.precision import f32_matmul
 
@@ -47,6 +57,23 @@ class BAProblem(NamedTuple):
     obs_valid: torch.Tensor  # [O] bool
     cam_valid: torch.Tensor  # [C] bool
     lm_valid: torch.Tensor   # [L] bool
+
+
+class BAPlans(NamedTuple):
+    """The segment-sum plans of one problem's indices."""
+
+    cam: SegmentPlan            # cam_idx over C cameras
+    lm: SegmentPlan             # lm_idx over L landmarks
+    pair: SegmentPlan | None    # cam_idx * L + lm_idx over C * L (dense Wd)
+
+
+def ba_plans(cam_idx: torch.Tensor, lm_idx: torch.Tensor, C: int, L: int,
+             pair: bool = True) -> BAPlans:
+    """Plans of the camera, landmark and (with `pair`) pair indices, on
+    the indices' device: built once per problem, used by every sum."""
+    return BAPlans(segment_plan(cam_idx, C), segment_plan(lm_idx, L),
+                   segment_plan(cam_idx * L + lm_idx, C * L) if pair
+                   else None)
 
 
 class BAResult(NamedTuple):
@@ -126,38 +153,35 @@ def _inv3x3(M: torch.Tensor) -> torch.Tensor:
     return adj / det[..., None, None]
 
 
-def _segment_sum(x: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
-    """sum of the rows of x per index in [0, n) (jax.ops.segment_sum)."""
-    return torch.zeros((n,) + x.shape[1:], dtype=x.dtype,
-                       device=x.device).index_add_(0, idx, x)
-
-
-def normal_equations_mf(p: BAProblem, R, t, X, cfg: BAConfig):
+def normal_equations_mf(p: BAProblem, R, t, X, cfg: BAConfig,
+                        plans: BAPlans | None = None):
     """Normal-equation factors with the camera-landmark coupling per
     observation (Wo [O, 6, 3]): the matrix-free solver applies the reduced
     system from them and never materializes it (O(O) memory at any
     scale).
     Returns (U [C,6,6], V [L,3,3], bc [C,6], bl [L,3], Wo [O,6,3])."""
-    C = R.shape[0]
-    L = X.shape[0]
+    if plans is None:
+        plans = ba_plans(p.cam_idx, p.lm_idx, R.shape[0], X.shape[0], False)
     r, Jc, Jl, _ = _residuals_jacobians(p, R, t, X, cfg.huber_delta)
-    U = _segment_sum(torch.einsum("oai,oaj->oij", Jc, Jc), p.cam_idx, C)
-    V = _segment_sum(torch.einsum("oai,oaj->oij", Jl, Jl), p.lm_idx, L)
-    bc = -_segment_sum(torch.einsum("oai,oa->oi", Jc, r), p.cam_idx, C)
-    bl = -_segment_sum(torch.einsum("oai,oa->oi", Jl, r), p.lm_idx, L)
+    U = segment_sum(torch.einsum("oai,oaj->oij", Jc, Jc), plans.cam)
+    V = segment_sum(torch.einsum("oai,oaj->oij", Jl, Jl), plans.lm)
+    bc = -segment_sum(torch.einsum("oai,oa->oi", Jc, r), plans.cam)
+    bl = -segment_sum(torch.einsum("oai,oa->oi", Jl, r), plans.lm)
     Wo = torch.einsum("oai,oaj->oij", Jc, Jl)            # [O, 6, 3]
     return U, V, bc, bl, Wo
 
 
-def normal_equations(p: BAProblem, R, t, X, cfg: BAConfig):
+def normal_equations(p: BAProblem, R, t, X, cfg: BAConfig,
+                     plans: BAPlans | None = None):
     """Assemble (U [C,6,6], V [L,3,3], bc [C,6], bl [L,3], Wd [C,L,6,3]):
     normal_equations_mf's factors with the per-observation coupling
-    scatter-added over the fused (cam, lm) pair index."""
+    summed over the fused (cam, lm) pair index."""
     C = R.shape[0]
     L = X.shape[0]
-    U, V, bc, bl, Wo = normal_equations_mf(p, R, t, X, cfg)
-    pair = p.cam_idx * L + p.lm_idx                      # [O]
-    Wd = _segment_sum(Wo, pair, C * L).reshape(C, L, 6, 3)
+    if plans is None:
+        plans = ba_plans(p.cam_idx, p.lm_idx, C, L)
+    U, V, bc, bl, Wo = normal_equations_mf(p, R, t, X, cfg, plans)
+    Wd = segment_sum(Wo, plans.pair).reshape(C, L, 6, 3)
     return U, V, bc, bl, Wd
 
 
@@ -239,24 +263,25 @@ def apply_increments(R, t, X, dc, dl):
     return dR @ R, (dR @ t[..., None])[..., 0] + dt, X + dl
 
 
-def schur_matvec_mf(v, U, V_inv, Wo, cam_idx, lm_idx, lam, free6):
+def schur_matvec_mf(v, U, V_inv, Wo, cam_idx, lm_idx, lam, free6,
+                    plans: BAPlans | None = None):
     """S v = (U + lam I) v - W V^-1 W^T v without materializing S or W: two
     gathers and two segment sums over the observations. v, free6: [C, 6]
     (free6 zero on frozen / gauge cameras, which act as identity)."""
-    C = U.shape[0]
-    L = V_inv.shape[0]
+    if plans is None:
+        plans = ba_plans(cam_idx, lm_idx, U.shape[0], V_inv.shape[0], False)
     vm = v * free6
     a = torch.einsum("oij,oi->oj", Wo, vm[cam_idx])      # [O, 3] W^T v rows
-    q = _segment_sum(a, lm_idx, L)                       # [L, 3]
+    q = segment_sum(a, plans.lm)                         # [L, 3]
     y = torch.einsum("lij,lj->li", V_inv, q)             # V^-1 W^T v
     b = torch.einsum("oij,oj->oi", Wo, y[lm_idx])        # [O, 6]
-    s = _segment_sum(b, cam_idx, C)                      # [C, 6]
+    s = segment_sum(b, plans.cam)                        # [C, 6]
     Sv = torch.einsum("cij,cj->ci", U, vm) + lam * vm - s
     return Sv * free6 + v * (1.0 - free6)
 
 
 def solve_cameras_mf(p: BAProblem, U, V_inv, bc, bl, Wo, lam,
-                     cfg: BAConfig):
+                     cfg: BAConfig, plans: BAPlans):
     """Matrix-free CG on the reduced camera system, preconditioned by the
     block-Jacobi inverse of U + lam I (6x6 blocks by `inv_ex`: no status
     read on the host)."""
@@ -268,8 +293,8 @@ def solve_cameras_mf(p: BAProblem, U, V_inv, bc, bl, Wo, lam,
 
     # reduced right-hand side b = bc - W V^-1 bl (the matvec's structure)
     ybl = torch.einsum("lij,lj->li", V_inv, bl)
-    wyb = _segment_sum(torch.einsum("oij,oj->oi", Wo, ybl[p.lm_idx]),
-                       p.cam_idx, C)
+    wyb = segment_sum(torch.einsum("oij,oj->oi", Wo, ybl[p.lm_idx]),
+                      plans.cam)
     b = (bc - wyb) * free6
 
     eye6 = torch.eye(6, dtype=U.dtype, device=U.device)
@@ -278,7 +303,7 @@ def solve_cameras_mf(p: BAProblem, U, V_inv, bc, bl, Wo, lam,
 
     def mv(v):
         return schur_matvec_mf(v, U, V_inv, Wo, p.cam_idx, p.lm_idx, lam,
-                               free6)
+                               free6, plans)
 
     def prec(v):
         return torch.einsum("cij,cj->ci", Minv, v) * free6
@@ -286,24 +311,29 @@ def solve_cameras_mf(p: BAProblem, U, V_inv, bc, bl, Wo, lam,
     return cg(mv, b, prec, cfg.cg_iters) * free6
 
 
-def backsub_landmarks_mf(p: BAProblem, V_inv, bl, Wo, dc, lm_valid):
+def backsub_landmarks_mf(p: BAProblem, V_inv, bl, Wo, dc, lm_valid,
+                         plans: BAPlans):
     """dl = V^-1 (bl - W^T dc) through the per-observation coupling."""
     a = torch.einsum("oij,oi->oj", Wo, dc[p.cam_idx])
-    WtD = _segment_sum(a, p.lm_idx, V_inv.shape[0])
+    WtD = segment_sum(a, plans.lm)
     dl = torch.einsum("lij,lj->li", V_inv, bl - WtD)
     return dl * lm_valid[:, None]
 
 
-def ba_step(p: BAProblem, R, t, X, lam, cfg: BAConfig):
+def ba_step(p: BAProblem, R, t, X, lam, cfg: BAConfig,
+            plans: BAPlans | None = None):
     """One damped-GN (LM) step: returns proposed (R, t, X)."""
+    if plans is None:
+        plans = ba_plans(p.cam_idx, p.lm_idx, R.shape[0], X.shape[0],
+                         cfg.solver != "schur_mf")
     if cfg.solver == "schur_mf":
-        U, V, bc, bl, Wo = normal_equations_mf(p, R, t, X, cfg)
+        U, V, bc, bl, Wo = normal_equations_mf(p, R, t, X, cfg, plans)
         eye3 = torch.eye(3, dtype=U.dtype, device=U.device)
         V_inv = _inv3x3(V + lam * eye3)
-        dc = solve_cameras_mf(p, U, V_inv, bc, bl, Wo, lam, cfg)
-        dl = backsub_landmarks_mf(p, V_inv, bl, Wo, dc, p.lm_valid)
+        dc = solve_cameras_mf(p, U, V_inv, bc, bl, Wo, lam, cfg, plans)
+        dl = backsub_landmarks_mf(p, V_inv, bl, Wo, dc, p.lm_valid, plans)
         return apply_increments(R, t, X, dc, dl)
-    U, V, bc, bl, Wd = normal_equations(p, R, t, X, cfg)
+    U, V, bc, bl, Wd = normal_equations(p, R, t, X, cfg, plans)
     S, b, V_inv = schur_camera_system(U, V, bc, bl, Wd, lam)
     dc = solve_cameras(S, b, p.cam_valid, lam, cfg)
     dl = backsub_landmarks(V_inv, bl, Wd, dc, p.lm_valid)
@@ -315,11 +345,13 @@ def run_ba(p: BAProblem, cfg: BAConfig) -> BAResult:
     float32 matmul precision (TF32 off) as the reference."""
     f32_matmul()
     R, t, X = p.R, p.t, p.X
+    plans = ba_plans(p.cam_idx, p.lm_idx, R.shape[0], X.shape[0],
+                     cfg.solver != "schur_mf")
     lam = torch.full((), cfg.damping_init, dtype=X.dtype, device=X.device)
     cost = robust_cost(p, R, t, X, cfg.huber_delta)
     init_cost = cost
     for _ in range(cfg.iters):
-        Rn, tn, Xn = ba_step(p, R, t, X, lam, cfg)
+        Rn, tn, Xn = ba_step(p, R, t, X, lam, cfg, plans)
         new_cost = robust_cost(p, Rn, tn, Xn, cfg.huber_delta)
         accept = new_cost < cost
         R = torch.where(accept, Rn, R)

@@ -5,8 +5,11 @@ Fixed-capacity edge SoA; per-edge Jacobians by forward-mode autodiff of the
 residual at the identity perturbation (`torch.func.jvp` of the batched
 residual under `torch.func.vmap` over the unit directions, where the JAX
 package uses jax.jacfwd under jax.vmap over edges);
-the normal equations assembled with `index_add_` over node and (i, j)
-block-pair indices; node 0 frozen as the gauge. Two solvers, as the
+the normal equations assembled with fixed-order segment sums over node and
+(i, j) block-pair indices (`ops/cuda/segment.py`: each node's edges added
+in ascending edge order, on the CPU and on the card alike, so a solve
+repeats bit for bit; the plans are built once per optimize call); node 0
+frozen as the gauge. Two solvers, as the
 reference's `resolve_solver` picks them:
 
   "dense"  H [N*D, N*D] materialized and solved directly (`solve_ex`);
@@ -32,6 +35,11 @@ import torch
 from torch.func import jvp, vmap
 
 from visualslam_tpu_torch.geometry import se3, sim3
+from visualslam_tpu_torch.ops.cuda.segment import (
+    SegmentPlan,
+    segment_plan,
+    segment_sum,
+)
 from visualslam_tpu_torch.utils.config import PoseGraphConfig
 from visualslam_tpu_torch.utils.precision import f32_matmul
 
@@ -155,34 +163,50 @@ def sim3_graph_cost(g: Sim3Graph, R, t, s) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _segment_sum(x: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
-    return x.new_zeros((n,) + x.shape[1:]).index_add_(0, idx, x)
+class GraphPlans(NamedTuple):
+    """The segment-sum plans of one graph's edge ends."""
+
+    i: SegmentPlan                  # source node over N
+    j: SegmentPlan                  # target node over N
+    pairs: tuple | None             # the dense solve's (i,i), (i,j), (j,i),
+    #                                 (j,j) block indices over N * N
+
+
+def graph_plans(i: torch.Tensor, j: torch.Tensor, N: int,
+                dense: bool) -> GraphPlans:
+    """Plans of the edge ends (and, for the dense solve, of the four block
+    indices), on the indices' device: built once per optimize call."""
+    pairs = None
+    if dense:
+        pairs = tuple(segment_plan(pr, N * N) for pr in
+                      (i * N + i, i * N + j, j * N + i, j * N + j))
+    return GraphPlans(segment_plan(i, N), segment_plan(j, N), pairs)
 
 
 def _solve_graph_system(r, Ji, Jj, i, j, weight, frozen, lam, N: int, D: int,
-                        solver: str, cg_iters: int):
+                        solver: str, cg_iters: int, plans: GraphPlans):
     """Solve the damped GN normal equations of an edge graph.
 
     r [E, D]; Ji/Jj [E, D, D]; i/j [E] node ids; weight [E] (0 for invalid
-    edges); frozen [N] gauge/invalid mask. Returns dx [N, D]."""
+    edges); frozen [N] gauge/invalid mask; plans: graph_plans(i, j, N,
+    solver == "dense"). Returns dx [N, D]."""
     w = weight[:, None, None]
     Jiw = Ji * w
     Jjw = Jj * w
-    b = (-_segment_sum(torch.einsum("eai,ea->ei", Jiw, r), i, N)
-         - _segment_sum(torch.einsum("eai,ea->ei", Jjw, r), j, N))
+    b = (-segment_sum(torch.einsum("eai,ea->ei", Jiw, r), plans.i)
+         - segment_sum(torch.einsum("eai,ea->ei", Jjw, r), plans.j))
     free = (~frozen).to(r.dtype)
     b = b * free[:, None]
     eyeD = torch.eye(D, dtype=r.dtype, device=r.device)
 
     if solver == "dense":
-        pairs = (i * N + i, i * N + j, j * N + i, j * N + j)
         blocks = (torch.einsum("eai,eaj->eij", Jiw, Ji),
                   torch.einsum("eai,eaj->eij", Jiw, Jj),
                   torch.einsum("eai,eaj->eij", Jjw, Ji),
                   torch.einsum("eai,eaj->eij", Jjw, Jj))
         H = r.new_zeros((N * N, D, D))
-        for blk, pr in zip(blocks, pairs):
-            H = H + _segment_sum(blk, pr, N * N)
+        for blk, pr in zip(blocks, plans.pairs):
+            H = H + segment_sum(blk, pr)
         H = H.reshape(N, N, D, D).permute(0, 2, 1, 3).reshape(N * D, N * D)
         m = free.repeat_interleave(D)
         H = H * m[:, None] * m[None, :] + torch.diag(1.0 - m)
@@ -201,14 +225,14 @@ def _solve_graph_system(r, Ji, Jj, i, j, weight, frozen, lam, N: int, D: int,
         vf = v * free[:, None]         # zero frozen columns
         yi = (torch.einsum("eab,eb->ea", Ji, vf[i])
               + torch.einsum("eab,eb->ea", Jj, vf[j]))   # J v per edge
-        out = (_segment_sum(torch.einsum("eai,ea->ei", Jiw, yi), i, N)
-               + _segment_sum(torch.einsum("eai,ea->ei", Jjw, yi), j, N))
+        out = (segment_sum(torch.einsum("eai,ea->ei", Jiw, yi), plans.i)
+               + segment_sum(torch.einsum("eai,ea->ei", Jjw, yi), plans.j))
         out = out * free[:, None] + v * (1.0 - free[:, None])
         return out + lam * vf
 
     # block-Jacobi preconditioner: per-node D x D diagonal blocks
-    Hii = (_segment_sum(torch.einsum("eai,eaj->eij", Jiw, Ji), i, N)
-           + _segment_sum(torch.einsum("eai,eaj->eij", Jjw, Jj), j, N))
+    Hii = (segment_sum(torch.einsum("eai,eaj->eij", Jiw, Ji), plans.i)
+           + segment_sum(torch.einsum("eai,eaj->eij", Jjw, Jj), plans.j))
     Hii = Hii + (lam + 1e-8) * eyeD
     Hii = Hii * free[:, None, None] + eyeD * (1.0 - free[:, None, None])
     # inv_ex: no status check on the host (torch.linalg.inv waits for it)
@@ -249,13 +273,13 @@ def _frozen(node_valid: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _gn_step(g: PoseGraph, R, t, lam, solver: str = "dense",
-             cg_iters: int = 64):
+def _gn_step(g: PoseGraph, R, t, lam, solver: str, cg_iters: int,
+             plans: GraphPlans):
     N = R.shape[0]
     r, Ji, Jj = _with_jacobians(_edge_residual, 6, *_edge_args(g, R, t))
     dx = _solve_graph_system(r, Ji, Jj, g.i, g.j, g.weight * g.edge_valid,
                              _frozen(g.node_valid), lam, N, 6, solver,
-                             cg_iters)
+                             cg_iters, plans)
     dR, dt = se3.se3_exp(dx)
     return dR @ R, (dR @ t[..., None])[..., 0] + dt
 
@@ -269,10 +293,11 @@ def optimize_pose_graph(g: PoseGraph, cfg: PoseGraphConfig) -> PoseGraphResult:
     f32_matmul()
     R, t = g.R, g.t
     solver = resolve_solver(cfg, R.shape[0])
+    plans = graph_plans(g.i, g.j, R.shape[0], solver == "dense")
     lam = torch.full((), cfg.damping, dtype=R.dtype, device=R.device)
     cost = init = pose_graph_cost(g, R, t)
     for _ in range(cfg.iters):
-        Rn, tn = _gn_step(g, R, t, lam, solver, cfg.cg_iters)
+        Rn, tn = _gn_step(g, R, t, lam, solver, cfg.cg_iters, plans)
         cn = pose_graph_cost(g, Rn, tn)
         acc = cn < cost
         R = torch.where(acc, Rn, R)
@@ -288,14 +313,14 @@ def optimize_pose_graph(g: PoseGraph, cfg: PoseGraphConfig) -> PoseGraphResult:
 # ---------------------------------------------------------------------------
 
 
-def _sim3_gn_step(g: Sim3Graph, R, t, s, lam, solver: str = "dense",
-                  cg_iters: int = 64):
+def _sim3_gn_step(g: Sim3Graph, R, t, s, lam, solver: str, cg_iters: int,
+                  plans: GraphPlans):
     N = R.shape[0]
     r, Ji, Jj = _with_jacobians(_sim3_edge_residual, 7,
                                 *_sim3_edge_args(g, R, t, s))
     dx = _solve_graph_system(r, Ji, Jj, g.i, g.j, g.weight * g.edge_valid,
                              _frozen(g.node_valid), lam, N, 7, solver,
-                             cg_iters)
+                             cg_iters, plans)
     return sim3.compose(*sim3.sim3_exp(dx), R, t, s)
 
 
@@ -304,10 +329,12 @@ def optimize_sim3_graph(g: Sim3Graph, cfg: PoseGraphConfig) -> Sim3GraphResult:
     f32_matmul()
     R, t, s = g.R, g.t, g.s
     solver = resolve_solver(cfg, R.shape[0])
+    plans = graph_plans(g.i, g.j, R.shape[0], solver == "dense")
     lam = torch.full((), cfg.damping, dtype=R.dtype, device=R.device)
     cost = init = sim3_graph_cost(g, R, t, s)
     for _ in range(cfg.iters):
-        Rn, tn, sn = _sim3_gn_step(g, R, t, s, lam, solver, cfg.cg_iters)
+        Rn, tn, sn = _sim3_gn_step(g, R, t, s, lam, solver, cfg.cg_iters,
+                                   plans)
         cn = sim3_graph_cost(g, Rn, tn, sn)
         acc = cn < cost
         R = torch.where(acc, Rn, R)

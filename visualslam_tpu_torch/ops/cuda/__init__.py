@@ -9,14 +9,22 @@ import.
 `KERNELS` is the set the frontend, the matcher and tracking call by
 default. `PLAIN` is the same set of plain versions: passing it runs the
 plain path on any device, which is how a run on the card compares the
-kernel path with the plain path.
+kernel path with the plain path. `segment.segment_sum`, the fixed-order
+sums of BA and the pose graph, is outside that set: it has no switch, and
+a CUDA tensor always takes the kernel. The launch counts cover all seven.
 """
 
 from __future__ import annotations
 
 from typing import Callable, NamedTuple
 
-from visualslam_tpu_torch.ops.cuda import blur, descriptor, distance, extrema
+from visualslam_tpu_torch.ops.cuda import (
+    blur,
+    descriptor,
+    distance,
+    extrema,
+    segment,
+)
 
 
 class Kernels(NamedTuple):
@@ -37,10 +45,13 @@ PLAIN = Kernels(extrema.extrema_winners_ref,
                 distance.l2_2nn_ref, extrema.extrema_score_ref)
 
 
+COUNTED = dict(KERNELS._asdict(), segment_sum=segment.segment_sum)
+
+
 def launch_counts() -> dict:
-    return {name: fn.launches for name, fn in KERNELS._asdict().items()}
+    return {name: fn.launches for name, fn in COUNTED.items()}
 
 
 def reset_launch_counts() -> None:
-    for fn in KERNELS:
+    for fn in COUNTED.values():
         fn.launches = 0

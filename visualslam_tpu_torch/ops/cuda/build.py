@@ -66,7 +66,7 @@ def build(name: str) -> Path:
     return out
 
 
-SOURCES = ("extrema", "descriptor", "blur", "distance")
+SOURCES = ("extrema", "descriptor", "blur", "distance", "segment")
 
 
 def build_all(names=SOURCES) -> list[Path]:

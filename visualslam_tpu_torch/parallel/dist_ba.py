@@ -28,6 +28,7 @@ from visualslam_tpu_torch.backend.ba import (
     BAProblem,
     BAResult,
     apply_increments,
+    ba_plans,
     backsub_landmarks,
     normal_equations,
     robust_cost,
@@ -200,6 +201,9 @@ def run_ba_sharded(sp: ShardedBAProblem, cfg: BAConfig, mesh: Mesh,
     R = rep(sp.R)
     t = rep(sp.t)
     X = [sp.X[s].to(d) for s, d in enumerate(devs)]
+    # one set of segment-sum plans per shard, built once
+    plans = [ba_plans(p.cam_idx, p.lm_idx, R[s].shape[0], X[s].shape[0])
+             for s, p in enumerate(shards)]
     lam = [torch.full((), cfg.damping_init, dtype=x.dtype, device=x.device)
            for x in X]
     cost = col.psum([robust_cost(p, R[s], t[s], X[s], cfg.huber_delta)
@@ -209,7 +213,8 @@ def run_ba_sharded(sp: ShardedBAProblem, cfg: BAConfig, mesh: Mesh,
     for _ in range(cfg.iters):
         S, b, V_inv, bl, Wd = [], [], [], [], []
         for s, p in enumerate(shards):
-            U, V, bc, bl_s, Wd_s = normal_equations(p, R[s], t[s], X[s], cfg)
+            U, V, bc, bl_s, Wd_s = normal_equations(p, R[s], t[s], X[s], cfg,
+                                                    plans[s])
             S_s, b_s, Vi = schur_camera_system(U, V, bc, bl_s, Wd_s, lam[s])
             S.append(S_s)
             b.append(b_s)

@@ -36,7 +36,7 @@ from visualslam_tpu_torch.backend.ba import (
     BAProblem,
     BAResult,
     _inv3x3,
-    _segment_sum,
+    ba_plans,
     backsub_landmarks,
     backsub_landmarks_mf,
     normal_equations,
@@ -45,6 +45,7 @@ from visualslam_tpu_torch.backend.ba import (
     schur_camera_system,
 )
 from visualslam_tpu_torch.geometry import se3
+from visualslam_tpu_torch.ops.cuda.segment import segment_sum
 from visualslam_tpu_torch.parallel import collectives as col
 from visualslam_tpu_torch.parallel.dist_ba import _np, lm_update
 from visualslam_tpu_torch.parallel.mesh import Mesh, axis_devices
@@ -239,14 +240,15 @@ def _distributed_cg(S_rows, b_rows, frozen_rows, lam, cg_iters: int):
     return [v.reshape(Cs, 6) for v in x]
 
 
-def _step_mf(shards, R_all, t_all, X, lam, cv_all, Cs: int, cfg: BAConfig):
+def _step_mf(shards, R_all, t_all, X, lam, cv_all, Cs: int, cfg: BAConfig,
+             plans):
     """Matrix-free distributed step: U [C, 6, 6] and the right-hand side
     psum'd and replicated, one [C, 6] psum per CG matvec; the CG state is
-    replicated (every shard runs it on equal values). Returns each shard's
-    (dc_blk [Cs, 6], dl [Ls, 3])."""
+    replicated (every shard runs it on equal values). `plans`: each
+    shard's BAPlans. Returns each shard's (dc_blk [Cs, 6], dl [Ls, 3])."""
     n = len(shards)
     C = R_all[0].shape[0]
-    parts = [normal_equations_mf(p, R_all[s], t_all[s], X[s], cfg)
+    parts = [normal_equations_mf(p, R_all[s], t_all[s], X[s], cfg, plans[s])
              for s, p in enumerate(shards)]
     U_all = col.psum([pt[0] for pt in parts])              # [C, 6, 6]
     V_inv, wyb_p = [], []
@@ -254,8 +256,8 @@ def _step_mf(shards, R_all, t_all, X, lam, cv_all, Cs: int, cfg: BAConfig):
         eye3 = torch.eye(3, dtype=V.dtype, device=V.device)
         Vi = _inv3x3(V + lam[s] * eye3)                    # local landmarks
         ybl = torch.einsum("lij,lj->li", Vi, bl)
-        wyb = _segment_sum(torch.einsum("oij,oj->oi", Wo, ybl[p.lm_idx]),
-                           p.cam_idx, C)
+        wyb = segment_sum(torch.einsum("oij,oj->oi", Wo, ybl[p.lm_idx]),
+                          plans[s].cam)
         V_inv.append(Vi)
         wyb_p.append(bc_p - wyb)
     b_all = col.psum(wyb_p)                                # [C, 6]
@@ -279,10 +281,10 @@ def _step_mf(shards, R_all, t_all, X, lam, cv_all, Cs: int, cfg: BAConfig):
             Wo = pt[4]
             vm = v[s] * free6[s]
             a = torch.einsum("oij,oi->oj", Wo, vm[p.cam_idx])
-            q = _segment_sum(a, p.lm_idx, V_inv[s].shape[0])
+            q = segment_sum(a, plans[s].lm)
             y = torch.einsum("lij,lj->li", V_inv[s], q)
             bo = torch.einsum("oij,oj->oi", Wo, y[p.lm_idx])
-            partial.append(_segment_sum(bo, p.cam_idx, C))
+            partial.append(segment_sum(bo, plans[s].cam))
         ssum = col.psum(partial)
         out = []
         for s in range(n):
@@ -314,22 +316,22 @@ def _step_mf(shards, R_all, t_all, X, lam, cv_all, Cs: int, cfg: BAConfig):
     for s, (p, pt) in enumerate(zip(shards, parts)):
         dc_all = x[s] * free6[s]                           # replicated
         dl = backsub_landmarks_mf(p, V_inv[s], pt[3], pt[4], dc_all,
-                                  p.lm_valid)
+                                  p.lm_valid, plans[s])
         out.append((dc_all[s * Cs:(s + 1) * Cs], dl))
     return out
 
 
 def _step_dense(shards, R_all, t_all, X, lam, cv_blk, Cs: int,
-                cfg: BAConfig):
+                cfg: BAConfig, plans):
     """Dense distributed step: ring reduce-scatter of the [Cs, 6, C, 6]
-    Schur rows, then block-row Jacobi CG. Returns each shard's
-    (dc_blk [Cs, 6], dl [Ls, 3])."""
+    Schur rows, then block-row Jacobi CG. `plans`: each shard's BAPlans.
+    Returns each shard's (dc_blk [Cs, 6], dl [Ls, 3])."""
     n = len(shards)
     C = R_all[0].shape[0]
     S, b, V_inv, bl, Wd = [], [], [], [], []
     for s, p in enumerate(shards):
         U, V, bc, bl_s, Wd_s = normal_equations(p, R_all[s], t_all[s], X[s],
-                                                cfg)
+                                                cfg, plans[s])
         S_s, b_s, Vi = schur_camera_system(U, V, bc, bl_s, Wd_s, lam[s])
         S.append(S_s.reshape(n, Cs, 6, C, 6))
         b.append(b_s.reshape(n, Cs, 6))
@@ -378,6 +380,10 @@ def run_ba_traj_sharded(sp: TrajShardedBAProblem, cfg: BAConfig,
         lm_idx=sp.lm_idx[s].to(d), uv=sp.uv[s].to(d),
         obs_valid=sp.obs_valid[s].to(d), cam_valid=cv_all[s],
         lm_valid=sp.lm_valid[s].to(d)) for s, d in enumerate(devs)]
+    # one set of segment-sum plans per shard, built once
+    plans = [ba_plans(p.cam_idx, p.lm_idx, C, X[s].shape[0],
+                      cfg.solver != "schur_mf")
+             for s, p in enumerate(shards)]
 
     def gather_poses(R_blk, t_blk):
         R_all = [v.reshape(C, 3, 3) for v in col.ring_all_gather(R_blk)]
@@ -397,10 +403,11 @@ def run_ba_traj_sharded(sp: TrajShardedBAProblem, cfg: BAConfig,
     for _ in range(cfg.iters):
         R_all, t_all = gather_poses(R_blk, t_blk)
         if cfg.solver == "schur_mf":
-            steps = _step_mf(shards, R_all, t_all, X, lam, cv_all, Cs, cfg)
+            steps = _step_mf(shards, R_all, t_all, X, lam, cv_all, Cs, cfg,
+                             plans)
         else:
             steps = _step_dense(shards, R_all, t_all, X, lam, cv_blk, Cs,
-                                cfg)
+                                cfg, plans)
         Rn, tn, Xn = [], [], []
         for s, (dc_blk, dl) in enumerate(steps):
             dR, dt = se3.se3_exp(dc_blk)
