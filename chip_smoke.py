@@ -56,9 +56,16 @@ Phases, each printing its own lines:
                no longer runs; the fixed-order segment sum of BA and the
                pose graph against CPU index_add_ bit for bit, in float32
                and float64, at the global BA's, the window grid's and the
-               256-node pose graph's shapes, equal run to run, each
-               float32 sum timed per call and alone beside its bound, the
-               plain version and one index_add_ call
+               256-node pose graph's shapes, one segment of 100000 rows
+               and power-law segment lengths (widths 1 to 300), equal run
+               to run and replayed from a CUDA graph at the window BA's
+               and pose graph's shapes; the dependent-add latency of
+               float32 and float64 (cycles, ns); each float32 sum timed
+               per call and alone beside its bound (the larger of its
+               bytes and its longest segment's chain of adds), the plain
+               version, the deterministic index_add_ (per call, alone,
+               equal bits on the three main shape sets) and the atomic
+               index_add_
   4. slice     the frontend + matching through the public entry points;
                the plain path on the same batch as the reference; keypoint
                and match floors; frames/s of both paths; the frontend's
@@ -167,6 +174,16 @@ Phases, each printing its own lines:
                others), then the last line
                {"ok": true, "device": {...}}
 
+    python3 chip_smoke.py --segment-turns PARENT
+
+takes the segment sum of the checkout at PARENT (another commit's, for
+example `git archive <commit> | tar -x -C PARENT`) through its own plan
+and wrapper, builds it beside this one, times both alone at every segment
+shape set in turns (parent, change, change, parent), sweeps this kernel's
+long-segment threshold over 16..256 rows on the power-law set (patched
+copies of its kernel and wrapper), and exits after printing both as JSON
+lines.
+
     python3 chip_smoke.py --save-features engine_feats.npz
 
 also writes the engine phase's kernel-path features (numpy), for running
@@ -184,11 +201,15 @@ Without a CUDA device it exits non-zero before doing anything.
 
 from __future__ import annotations
 
+import ctypes
+import importlib
 import json
 import os
+import subprocess
 import sys
 import tempfile
 import time
+import types
 import warnings
 
 import numpy as np
@@ -223,7 +244,7 @@ from visualslam_tpu_torch.ops.cuda.descriptor import staged_boxes
 from visualslam_tpu_torch.ops.cuda.distance import split_plan
 from visualslam_tpu_torch.ops.cuda.extrema import NONE, TILE_H
 from visualslam_tpu_torch.ops.cuda.segment import (
-    long_path as segment_long_path,
+    LONG_ROWS,
     segment_plan,
     segment_sum,
     segment_sum_ref,
@@ -362,9 +383,9 @@ def time_ms(fn, reps: int) -> float:
 
 
 def device_ms(fn, reps: int, kernel: str) -> tuple:
-    """(device ms per call of the launches whose name holds `kernel`, those
-    launches per call, every device launch per call) of fn() over `reps`
-    runs under the profiler: the kernel alone, with no host work of the
+    """(device ms per call of the launches whose name holds `kernel` (every
+    launch for None), those launches per call, every device launch per
+    call) of fn() over `reps` runs under the profiler: the kernel alone, with no host work of the
     wrapper. Per kernel name, the median launch times the launches per call
     (the profiler may drop an event). (nan, 0, 0) if it saw none."""
     from torch.profiler import ProfilerActivity, profile
@@ -379,7 +400,7 @@ def device_ms(fn, reps: int, kernel: str) -> tuple:
              if e.device_type == torch.autograd.DeviceType.CUDA]
     by_name: dict = {}
     for e in every:
-        if kernel in e.name:
+        if kernel is None or kernel in e.name:
             by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
     if not by_name:
         return float("nan"), 0.0, len(every) / reps
@@ -756,7 +777,10 @@ def segment_sets(name: str) -> list:
     sums, V / bl and its landmark sums, the dense solvers' pair sum;
     window_grid: engine._window_ba's [Kl, W] = [2048, 10] observation
     grid; pose_graph: the 256-node padded graph's 1024 edges (padding on
-    node 0), D = 6 and 7, and the dense solve's N * N block index."""
+    node 0), D = 6 and 7, and the dense solve's N * N block index;
+    one_long: one segment of 100000 rows; power_law: 4096 segments of
+    power-law lengths (2 to 20000 rows, 84 of them long), rows shuffled,
+    widths 1 to 300."""
     r = np.random.default_rng(12)
     if name == "global_ba":
         C, L, O = 67, 6007, 27420
@@ -770,6 +794,15 @@ def segment_sets(name: str) -> list:
         cam, lm = o % Wn, o // Wn
         return [("cam", cam, Wn, (36, 6)), ("lm", lm, Kl, (9, 3)),
                 ("pair", cam * Kl + lm, Wn * Kl, (18,))]
+    if name == "one_long":
+        return [("one", np.zeros(100_000, np.int64), 1, (1, 6))]
+    if name == "power_law":
+        r = np.random.default_rng(5)
+        lengths = np.minimum((r.pareto(1.1, 4096) + 1) * 2,
+                             20000).astype(np.int64)
+        idx = np.repeat(np.arange(4096), lengths)
+        r.shuffle(idx)
+        return [("mix", idx, 4096, (1, 6, 36, 300))]
     N, E, ne = 256, 1024, 300
     i = np.zeros(E, np.int64)
     j = np.zeros(E, np.int64)
@@ -779,25 +812,128 @@ def segment_sets(name: str) -> list:
             ("ij", i * N + j, N * N, (36, 49))]
 
 
-SEGMENT_SETS = ("global_ba", "window_grid", "pose_graph")
+SEGMENT_SETS = ("global_ba", "window_grid", "pose_graph", "one_long",
+                "power_law")
 # the kernels line's segment_sum row: the CG matvec's camera sum of the
 # global BA ([27420, 6] -> [67, 6]), its most frequent call
 SEGMENT_ROW = ("global_ba", "cam", 6)
+# the shapes a CUDA graph captures the sum at: the window BA's and the
+# pose graph's
+SEGMENT_GRAPHED = (("window_grid", "cam"), ("window_grid", "lm"),
+                   ("pose_graph", "i"))
+
+
+def add_chain(lib, dtype: torch.dtype, n: int, dev) -> tuple:
+    """One thread on the card adds a value to itself n times (n a multiple
+    of 64), each add waiting on the last (tests/add_chain.cu): (SM cycles
+    the chain took, ms between CUDA events around the launch)."""
+    v = torch.ones(1, dtype=dtype, device=dev)
+    out = torch.empty(1, dtype=dtype, device=dev)
+    cycles = torch.empty(1, dtype=torch.int64, device=dev)
+    fn = getattr(lib, "add_chain_f32" if dtype == torch.float32
+                 else "add_chain_f64")
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p]
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    rc = fn(v.data_ptr(), n, out.data_ptr(), cycles.data_ptr(),
+            build.stream_handle(v.device))
+    end.record()
+    build.check_launch(rc, "add_chain")
+    end.synchronize()
+    return int(cycles.item()), start.elapsed_time(end)
+
+
+def add_latency(dev) -> dict:
+    """The dependent-add latency of float32 and float64 on the card: one
+    thread adds a value to itself 2^24 times, each add waiting on the last
+    (add_chain). Cycles per add from the SM's clock counter, ns per add
+    from CUDA events around the launch, beside the SM clock nvidia-smi
+    reports just after. A long segment's sum can go no faster than its
+    rows times the ns per add."""
+    lib = build.BUILD_DIR / "libadd_chain.so"
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                       "add_chain.cu")
+    proc = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(lib),
+                           src], capture_output=True, text=True)
+    check(proc.returncode == 0, f"nvcc builds {src}: {proc.stderr}")
+    chain = ctypes.CDLL(str(lib))
+    n = 1 << 24
+    out = {}
+    card = card_name()
+    for dtype in (torch.float32, torch.float64):
+        add_chain(chain, dtype, 64, dev)          # warm the launch path
+        cycles, ms = add_chain(chain, dtype, n, dev)
+        clocks = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+             "--format=csv,noheader,nounits"],
+            capture_output=True, text=True, timeout=60).stdout.split(",")
+        sm, sm_max = (float(c) for c in clocks[:2])
+        out[dtype] = ns = ms * 1e6 / n
+        print(f"add latency {str(dtype)[6:]} ({card}): {cycles / n:.3f} "
+              f"cycles per "
+              f"dependent add (SM clock counter), {ns:.4f} ns per add (CUDA "
+              f"events: {cycles / n / ns:.3f} GHz); nvidia-smi SM clock "
+              f"{sm:g} MHz (max {sm_max:g}): {cycles / n / sm * 1e3:.4f} ns "
+              f"per add at it")
+    return out
+
+
+def segment_graph_check(plan, plan_cpu, n_rows: int, w: int, dtype, dev,
+                        r, what: str) -> None:
+    """segment_sum captured in a CUDA graph and replayed with new rows: bit
+    for bit the eager call's and CPU index_add_'s."""
+    x = torch.zeros((n_rows, w), dtype=dtype, device=dev)
+    segment_sum(x, plan)                          # warm outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = segment_sum(x, plan)
+    for _ in range(2):
+        new = torch.from_numpy(r.standard_normal((n_rows, w))
+                               * 10.0 ** r.uniform(-3, 3, (n_rows, w))
+                               ).to(dtype)
+        x.copy_(new.to(dev))
+        graph.replay()
+        torch.cuda.synchronize()
+        check(torch.equal(out, segment_sum(x, plan)),
+              f"segment_sum replayed from a CUDA graph equals eager ({what})")
+        check(torch.equal(out.cpu(), segment_sum(new, plan_cpu)),
+              f"segment_sum replayed from a CUDA graph equals CPU "
+              f"index_add_ ({what})")
+
+
+def deterministic_index_add(buf, plan, x):
+    """One index_add_ call under torch.use_deterministic_algorithms(True),
+    restored after: PyTorch's fixed-order sum (a sort, then each index's
+    rows added in order)."""
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        return buf.index_add_(0, plan.idx, x)
+    finally:
+        torch.use_deterministic_algorithms(prev)
 
 
 def kernel_segment(dev) -> dict:
     """segment_sum against CPU index_add_ (its plain version), bit for bit
-    and equal on a second call, in float32 and float64 at the three shape
-    sets; each float32 sum timed per call and alone beside its bound (x,
-    perm and offsets read once, the output written once), the plain
-    version on the card (zeros + index_add_) and one index_add_ call into
-    a zero buffer (the library call)."""
+    and equal on a second call, in float32 and float64 at every shape set,
+    and replayed from a CUDA graph at the window BA's and pose graph's
+    shapes; each float32 sum timed per call and alone beside its bound
+    (the larger of its bytes and its longest segment's chain of dependent
+    adds), the plain version on the card (zeros + index_add_), the
+    deterministic index_add_ (per call and alone, its bits against the
+    kernel's) and, as an aside, the atomic index_add_ per call."""
+    ns_add = add_latency(dev)
     r = np.random.default_rng(7)
     rows, out = [], None
     for name in SEGMENT_SETS:
         for what, idx, n, widths in segment_sets(name):
             plan = segment_plan(torch.from_numpy(idx).to(dev), n)
             plan_cpu = segment_plan(torch.from_numpy(idx), n)
+            longest = int(plan_cpu.lengths.max())
             for w in widths:
                 for dtype in (torch.float32, torch.float64):
                     x = torch.from_numpy(
@@ -812,32 +948,168 @@ def kernel_segment(dev) -> dict:
                           f"({name} {what} width {w} {dtype})")
                     check(torch.equal(got, again), f"segment_sum repeats "
                           f"bit for bit ({name} {what} width {w} {dtype})")
+                    if (name, what) in SEGMENT_GRAPHED:
+                        segment_graph_check(plan, plan_cpu, len(idx), w,
+                                            dtype, dev, r,
+                                            f"{name} {what} width {w} "
+                                            f"{dtype}")
                 xd = xd.float()
+                got = segment_sum(xd, plan)
                 ms = time_ms(lambda: segment_sum(xd, plan), 20)
                 plain_ms = time_ms(lambda: segment_sum_ref(xd, plan), 20)
                 buf = torch.zeros((n, w), device=dev)
-                lib_ms = time_ms(lambda: buf.index_add_(0, plan.idx, xd), 20)
+                atomic_ms = time_ms(lambda: buf.index_add_(0, plan.idx, xd),
+                                    20)
+                det = deterministic_index_add(torch.zeros_like(buf), plan, xd)
+                det_equal = torch.equal(det, got)
+                det_ms = time_ms(
+                    lambda: deterministic_index_add(buf, plan, xd), 20)
+                det_alone, _, det_launches = device_ms(
+                    lambda: deterministic_index_add(buf, plan, xd), 20, None)
+                # the main paths' sums: PyTorch's deterministic index_add_
+                # adds in the same order (elsewhere it may not: printed)
+                if name in ("global_ba", "window_grid", "pose_graph"):
+                    check(det_equal, f"deterministic index_add_ equals "
+                          f"segment_sum bit for bit ({name} {what} width "
+                          f"{w})")
                 kms = kernel_alone("segment_sum",
                                    lambda: segment_sum(xd, plan), ms,
                                    f" ({name} {what}, [{len(idx)}, {w}] -> "
                                    f"[{n}, {w}])")
                 io = nbytes(xd, plan.perm, plan.offsets) + 4 * n * w
-                bms, by = least_ms(io, float(xd.numel()))
-                path = ("block per segment"
-                        if segment_long_path(len(idx), n, w)
-                        else "thread per output")
-                rows.append(dict(set=name, sum=what, rows=len(idx), n=n,
-                                 width=w, path=path, ms=ms, kernel_ms=kms,
-                                 plain_ms=plain_ms, library_ms=lib_ms,
-                                 bound_ms=bms, bound_by=by))
+                bytes_ms, _ = least_ms(io, 0.0)
+                chain_ms = longest * ns_add[torch.float32] * 1e-6
+                bms = max(bytes_ms, chain_ms)
+                by = "bytes" if bytes_ms >= chain_ms else "chain"
+                rows.append(dict(
+                    set=name, sum=what, rows=len(idx), n=n, width=w,
+                    longest=longest, long=int(plan.long_count),
+                    ms=ms, kernel_ms=kms, plain_ms=plain_ms,
+                    library_ms=det_ms, library_alone_ms=det_alone,
+                    library_launches=det_launches, library_equal=det_equal,
+                    atomic_ms=atomic_ms,
+                    bytes_ms=bytes_ms, chain_ms=chain_ms, bound_ms=bms,
+                    bound_by=by))
                 if (name, what, w) == SEGMENT_ROW:
+                    # the chain is the adds' own floor: their operations
+                    # at the rate a dependent add allows
                     out = dict(err=0.0, ms=ms, kernel_ms=kms,
-                               plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                               library_ms=lib_ms)
-    print(f"kernel segment_sum: equal to CPU index_add_ bit for bit and "
-          f"run to run in float32 and float64 at {SEGMENT_SETS}; float32 "
-          f"times (ms): {json.dumps(rows)}")
+                               plain_ms=plain_ms, bound_ms=bms,
+                               bound_by="bytes" if by == "bytes"
+                               else "operations", library_ms=det_ms)
+    print(f"kernel segment_sum ({card_name()}): equal to CPU index_add_ "
+          f"bit for bit and "
+          f"run to run in float32 and float64 at {SEGMENT_SETS}, replayed "
+          f"from a CUDA graph at {SEGMENT_GRAPHED}, and to the "
+          f"deterministic index_add_; float32 times (ms; library = "
+          f"deterministic index_add_ per call, atomic = index_add_ per call, "
+          f"an aside): {json.dumps(rows)}")
     return out
+
+
+SEGMENT_FILES = ("ops/cuda/build.py", "ops/cuda/segment.py",
+                 "csrc/segment.cu")
+
+
+def segment_module(root: str):
+    """The segment sum of the checkout at `root` (its ops/cuda/segment.py,
+    with its own plan, wrapper and build into root's _build), imported
+    beside this process's package: the package __init__ files are left
+    out, and sys.modules is restored after."""
+    prefix = "visualslam_tpu_torch"
+    own = {k: m for k, m in sys.modules.items()
+           if k == prefix or k.startswith(prefix + ".")}
+    pkg = os.path.join(os.path.abspath(root), prefix)
+    try:
+        for k in own:
+            del sys.modules[k]
+        for sub in ("", ".ops", ".ops.cuda"):
+            stub = types.ModuleType(prefix + sub)
+            stub.__path__ = [os.path.join(pkg, *sub.split(".")[1:])]
+            sys.modules[prefix + sub] = stub
+        return importlib.import_module(prefix + ".ops.cuda.segment")
+    finally:
+        for k in [k for k in sys.modules
+                  if k == prefix or k.startswith(prefix + ".")]:
+            del sys.modules[k]
+        sys.modules.update(own)
+
+
+def threshold_variant(long_rows: int) -> object:
+    """This checkout's segment sum with the long-segment threshold set to
+    `long_rows` (LONG_ROWS in segment.py, kLongRows in segment.cu), from a
+    patched copy of its three files under the build directory."""
+    root = build.BUILD_DIR / f"long{long_rows}"
+    patches = {"ops/cuda/segment.py": "LONG_ROWS = {}\n",
+               "csrc/segment.cu": "kLongRows = {};"}
+    for rel in SEGMENT_FILES:
+        text = (build.PACKAGE / rel).read_text()
+        if rel in patches:
+            old = patches[rel].format(LONG_ROWS)
+            check(text.count(old) == 1, f"{rel} sets {old.strip()} once")
+            text = text.replace(old, patches[rel].format(long_rows))
+        dst = root / "visualslam_tpu_torch" / rel
+        dst.parent.mkdir(parents=True, exist_ok=True)
+        dst.write_text(text)
+    return segment_module(str(root))
+
+
+def segment_turns(parent_root: str, dev) -> None:
+    """The segment sum of another checkout (the parent commit's: `git
+    archive <commit> | tar -x -C <dir>`), through its own plan and wrapper,
+    against this one at every shape set: each float32 sum alone (profiler)
+    in turns parent, change, change, parent; then this kernel's
+    long-segment threshold swept over 16..256 rows on the power-law set
+    (patched copies of this kernel and wrapper, alone times)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    parent = segment_module(parent_root)
+    variants = {t: threshold_variant(t) for t in (16, 32, 128, 256)}
+    mods = [parent, *variants.values()]
+    with ThreadPoolExecutor(max_workers=len(mods)) as pool:
+        list(pool.map(lambda m: m.build.build("segment"), mods))
+    name_of = DEVICE_NAMES["segment_sum"]
+    rows = []
+    for name in SEGMENT_SETS:
+        for what, idx, n, widths in segment_sets(name):
+            idx_dev = torch.from_numpy(idx).to(dev)
+            plan = segment_plan(idx_dev, n)
+            pplan = parent.segment_plan(idx_dev, n)
+            for w in widths:
+                xd = torch.randn((len(idx), w), device=dev)
+                check(torch.equal(parent.segment_sum(xd, pplan),
+                                  segment_sum(xd, plan)),
+                      f"parent and change agree bit for bit ({name} {what} "
+                      f"width {w})")
+                turns = [device_ms(lambda: fn(xd, p), 20, name_of)[0]
+                         for fn, p in ((parent.segment_sum, pplan),
+                                       (segment_sum, plan),
+                                       (segment_sum, plan),
+                                       (parent.segment_sum, pplan))]
+                rows.append(dict(set=name, sum=what, width=w,
+                                 parent=[turns[0], turns[3]],
+                                 change=[turns[1], turns[2]]))
+    card = card_name()
+    print(f"segment_sum turns ({card}; ms alone, float32; parent "
+          f"{parent_root}): {json.dumps(rows)}")
+    _, idx, n, widths = segment_sets("power_law")[0]
+    idx_dev = torch.from_numpy(idx).to(dev)
+    sums = {t: (m.segment_plan, m.segment_sum) for t, m in variants.items()}
+    sums[LONG_ROWS] = (segment_plan, segment_sum)
+    sweep = []
+    for t, (plan_fn, sum_fn) in sorted(sums.items()):
+        plan = plan_fn(idx_dev, n)
+        check(int(plan.long_count) == int((plan.lengths >= t).sum()),
+              f"threshold {t}: its plan's long list")
+        for w in widths:
+            xd = torch.randn((len(idx), w), device=dev)
+            check(torch.equal(sum_fn(xd, plan),
+                              segment_sum(xd, segment_plan(idx_dev, n))),
+                  f"threshold {t} agrees bit for bit (width {w})")
+            sweep.append(dict(long_rows=t, width=w, ms=device_ms(
+                lambda: sum_fn(xd, plan), 20, name_of)[0]))
+    print(f"segment_sum long_rows sweep ({card}; power_law, ms alone, "
+          f"float32): {json.dumps(sweep)}")
 
 
 def phase_kernels(batch: torch.Tensor, frontend: SiftFrontend, dev) -> dict:
@@ -2816,6 +3088,9 @@ def main() -> None:
         if "--save-orb-features" in args else None
     dev, card = phase_device()
     phase_build()
+    if "--segment-turns" in args:
+        segment_turns(args[args.index("--segment-turns") + 1], dev)
+        return
     frames, seq = render_frames()
     frames_dev = torch.from_numpy(frames).to(dev)
     frontend = SiftFrontend(FAST_CONFIG).to(dev)

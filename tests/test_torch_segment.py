@@ -1,12 +1,13 @@
 """The port's fixed-order segment sum (ops/cuda/segment.py) against the JAX
 package's `jax.ops.segment_sum`, on the CPU.
 
-The plan (a stable argsort of the indices and each segment's range in it)
-and the plain path (`index_add_`) give `jax.ops.segment_sum`'s bits, and so
-does the kernel's arithmetic replayed in numpy from the plan: each
-segment's rows added in ascending observation order, starting from 0. The
-card's kernel runs that arithmetic (tests/test_torch_gpu.py holds it to the
-CPU bit for bit).
+The plan (a stable argsort of the indices, each segment's range in it and
+length, and the list of long segments) and the plain path (`index_add_`)
+give `jax.ops.segment_sum`'s bits, and so does the kernel's arithmetic
+replayed in numpy from the plan: each segment's rows added in ascending
+observation order, starting from 0, the long segments by a worker block
+tile by tile and the rest by one thread per output. The card's kernel runs
+that arithmetic (tests/test_torch_gpu.py holds it to the CPU bit for bit).
 """
 
 import jax
@@ -16,6 +17,7 @@ import pytest
 import torch
 
 from visualslam_tpu_torch.ops.cuda.segment import (
+    LONG_ROWS,
     segment_plan,
     segment_sum,
     segment_sum_ref,
@@ -122,3 +124,111 @@ def test_segment_plan_takes_1d_indices_and_sums_on_its_device():
     assert got.tolist() == [[2.0], [5.0], [0.0]]
     assert torch.equal(got, segment_sum_ref(
         torch.tensor([[1.0], [2.0], [4.0]]), plan))
+
+
+def _pose_graph_ends(r) -> np.ndarray:
+    """The 256-node padded pose graph's source ends: 300 edges, the other
+    724 of 1024 padding on node 0 (a long segment among short ones)."""
+    i = np.zeros(1024, np.int64)
+    i[:300] = r.integers(0, 256, 300)
+    return i
+
+
+# CASES' (kind, O, n, shape, dtype, index dtype) and three with long
+# segments among short ones: the pose graph's padding, one segment alone,
+# power-law lengths in shuffled rows
+SCHEDULE_CASES = CASES + [
+    ("pose_graph", 1024, 256, (6,), np.float32, np.int64),
+    ("one_long", 3000, 1, (3,), np.float64, np.int32),
+    ("power_law", 4000, 200, (6,), np.float32, np.int64),
+]
+
+
+def _schedule_indices(r, kind: str, O: int, n: int) -> np.ndarray:
+    if kind == "pose_graph":
+        return _pose_graph_ends(r)
+    if kind == "one_long":
+        return np.zeros(O, np.int64)
+    if kind == "power_law":       # segment k drawn with weight (k + 1)^-1.2
+        w = np.arange(1, n + 1) ** -1.2
+        return r.choice(n, O, p=w / w.sum())
+    return _indices(r, kind, O, n)
+
+
+def _replay_schedule(x: np.ndarray, plan, tile_rows: int = 32):
+    """The kernel's schedule from the plan, in numpy: worker block g sums
+    long_ids[g] (for g < long_count) tile by tile, every column's chain
+    over the tile's rows in order (the chain runs on across tiles, so any
+    tile size gives the same bits); the remaining threads sum each output
+    of a shorter segment, four rows a step. Each output must be written
+    once."""
+    perm, offsets = plan.perm.numpy(), plan.offsets.numpy()
+    flat = x.reshape(len(x), -1)
+    n, width = plan.n, flat.shape[1]
+    out = np.zeros((n, width), x.dtype)
+    writes = np.zeros((n, width), np.int64)
+    count = int(plan.long_count[0])
+    for g in range(plan.long_ids.shape[0]):
+        if g >= count:
+            continue
+        s = int(plan.long_ids[g])
+        acc = np.zeros(width, x.dtype)
+        for t0 in range(offsets[s], offsets[s + 1], tile_rows):
+            tile = flat[perm[t0:min(t0 + tile_rows, offsets[s + 1])]]
+            for row in tile:
+                acc = acc + row
+        out[s] = acc
+        writes[s] += 1
+    for s in range(n):
+        if offsets[s + 1] - offsets[s] >= LONG_ROWS:
+            continue
+        for c in range(width):
+            acc = x.dtype.type(0)
+            k = offsets[s]
+            while k < offsets[s + 1]:
+                for kk in range(k, min(k + 4, offsets[s + 1])):
+                    acc = x.dtype.type(acc + flat[perm[kk], c])
+                k += 4
+            out[s, c] = acc
+            writes[s, c] += 1
+    np.testing.assert_array_equal(writes, 1)
+    return out.reshape((n,) + x.shape[1:])
+
+
+@pytest.mark.parametrize("kind,O,n,shape,dtype,idx_dtype", SCHEDULE_CASES)
+def test_segment_plan_long_list_matches_numpy(kind, O, n, shape, dtype,
+                                              idx_dtype):
+    """Lengths, the long-segment list (ascending, then n) and its count."""
+    r = np.random.default_rng(O + n)
+    idx = _schedule_indices(r, kind, O, n).astype(idx_dtype)
+    lengths = np.bincount(idx, minlength=n)
+    plan = segment_plan(torch.from_numpy(idx), n)
+    np.testing.assert_array_equal(plan.lengths.numpy(), lengths)
+    assert plan.lengths.dtype == torch.int64
+    long = np.flatnonzero(lengths >= LONG_ROWS)
+    workers = min(n, O // LONG_ROWS)
+    assert plan.long_ids.shape == (workers,)
+    assert plan.long_ids.dtype == torch.int32
+    np.testing.assert_array_equal(
+        plan.long_ids.numpy(),
+        np.concatenate([long, np.full(workers - len(long), n)]))
+    assert plan.long_count.tolist() == [len(long)]
+    if kind in ("pose_graph", "one_long", "grid", "power_law"):
+        assert len(long) > 0
+    if kind in ("pose_graph", "power_law"):
+        assert (lengths < LONG_ROWS).sum() > 0
+
+
+@pytest.mark.parametrize("kind,O,n,shape,dtype,idx_dtype", SCHEDULE_CASES)
+def test_segment_schedule_replay_matches_jax(kind, O, n, shape, dtype,
+                                             idx_dtype):
+    """The kernel's schedule (long segments tile by tile, short ones per
+    output) replayed from the plan gives jax.ops.segment_sum's bits."""
+    r = np.random.default_rng(2 * O + n)
+    idx = _schedule_indices(r, kind, O, n).astype(idx_dtype)
+    x = _rows(r, (O,) + shape, dtype)
+    with jax.enable_x64(dtype == np.float64):
+        want = np.asarray(jax.ops.segment_sum(jnp.asarray(x),
+                                              jnp.asarray(idx), n))
+    got = _replay_schedule(x, segment_plan(torch.from_numpy(idx), n))
+    np.testing.assert_array_equal(got, want)

@@ -11,10 +11,15 @@ XLA's order: the CPU path and the JAX package agree bit for bit. The kernel
 (csrc/segment.cu) adds in that same order, so the card does too.
 
 A `SegmentPlan` is built once per index array, on the index's device, with
-no host read: the stable argsort of the indices and each segment's range in
-it (`searchsorted` of the sorted indices against 0..n). Callers build one
-per problem and pass it to every sum over that index (BA's camera, landmark
-and pair indices; the pose graph's edge ends).
+no host read: the stable argsort of the indices, each segment's range in
+it (`searchsorted` of the sorted indices against 0..n) and length, and the
+list of the long segments (at least LONG_ROWS rows), which the kernel
+gives a block each while one thread per output sums the rest (a cumsum of
+the long flags and a searchsorted of 1..workers into it; no `nonzero`,
+which reads its count back). Its sizes are host integers, so a launch
+needs no device read and can be captured in a CUDA graph. Callers build
+one plan per problem and pass it to every sum over that index (BA's
+camera, landmark and pair indices; the pose graph's edge ends).
 
 Index contract, as `index_add_`'s: every index lies in [0, n). The CPU path
 raises on another (index_add_'s own check); on the card the kernel stops on
@@ -35,23 +40,46 @@ import torch
 from visualslam_tpu_torch.ops.cuda import build
 
 
+# rows from which a segment is summed by a block of its own: csrc/segment.cu
+# kLongRows, which must equal it
+LONG_ROWS = 64
+
+
 class SegmentPlan(NamedTuple):
     idx: torch.Tensor       # [O] the segment of each row (any int dtype)
     perm: torch.Tensor      # [O] int64, the stable argsort of idx
     offsets: torch.Tensor   # [n + 1] int64: segment s is perm[offsets[s]:
     #                         offsets[s + 1]], rows in ascending order
     n: int
+    lengths: torch.Tensor   # [n] int64, rows per segment
+    long_ids: torch.Tensor  # [min(n, O // LONG_ROWS)] int32: the segments
+    #                         of >= LONG_ROWS rows ascending, then n
+    long_count: torch.Tensor  # [1] int64, the valid entries of long_ids
 
 
 def segment_plan(idx: torch.Tensor, n: int) -> SegmentPlan:
     """The plan of a 1-D index array over n segments, on idx's device (a
-    sort and a searchsorted; no host read)."""
+    sort, two searchsorted and a cumsum; no host read). At most O //
+    LONG_ROWS segments (and n) can be long: that many kernel blocks take
+    them, a host integer."""
     if idx.ndim != 1:
         raise ValueError(f"segment_plan: expects 1-D indices, got "
                          f"{tuple(idx.shape)}")
     srt, perm = torch.sort(idx, stable=True)
     bounds = torch.arange(n + 1, dtype=srt.dtype, device=idx.device)
-    return SegmentPlan(idx, perm, torch.searchsorted(srt, bounds), int(n))
+    offsets = torch.searchsorted(srt, bounds)
+    lengths = offsets[1:] - offsets[:-1]
+    # the k-th long segment is the first s where the running count of long
+    # segments reaches k + 1
+    running = torch.cumsum(lengths >= LONG_ROWS, 0)
+    workers = min(int(n), idx.shape[0] // LONG_ROWS)
+    long_ids = torch.searchsorted(
+        running, torch.arange(1, workers + 1, device=idx.device),
+        out_int32=True)
+    long_count = (running[-1:] if n > 0
+                  else torch.zeros(1, dtype=torch.int64, device=idx.device))
+    return SegmentPlan(idx, perm, offsets, int(n), lengths, long_ids,
+                       long_count)
 
 
 def segment_sum_ref(x: torch.Tensor, plan: SegmentPlan) -> torch.Tensor:
@@ -66,7 +94,8 @@ def segment_sum(x: torch.Tensor, plan: SegmentPlan) -> torch.Tensor:
     if x.device.type == "cpu" and plan.perm.device.type == "cpu":
         return segment_sum_ref(x, plan)
     if x.device.type != "cuda" or any(
-            t.device != x.device for t in (plan.perm, plan.offsets)):
+            t.device != x.device
+            for t in (plan.perm, plan.offsets, plan.long_ids)):
         raise ValueError(f"segment_sum: unsupported devices {x.device}, "
                          f"{plan.perm.device}, {plan.offsets.device}")
     if x.dtype not in _FN or x.ndim < 1 or x.shape[0] != plan.perm.shape[0]:
@@ -84,8 +113,9 @@ def segment_sum(x: torch.Tensor, plan: SegmentPlan) -> torch.Tensor:
     with build.on_device(x.device):
         rc = getattr(_lib(), _FN[x.dtype])(
             x.data_ptr(), plan.perm.data_ptr(), plan.offsets.data_ptr(),
+            plan.long_ids.data_ptr(), plan.long_count.data_ptr(),
             out.data_ptr(), x.shape[0], plan.n, width,
-            build.stream_handle(x.device))
+            plan.long_ids.shape[0], build.stream_handle(x.device))
     build.check_launch(rc, "segment_sum")
     segment_sum.launches += 1
     return out
@@ -95,22 +125,13 @@ segment_sum.launches = 0
 _FN = {torch.float32: "segment_sum_f32", torch.float64: "segment_sum_f64"}
 
 
-def long_path(rows: int, n: int, width: int) -> bool:
-    """Whether the kernel takes its long-segment path (one block per
-    segment) at these sizes; the other is one thread per output."""
-    return bool(_lib().segment_sum_long_path(rows, n, width))
-
-
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = build.load_library("segment")
     for name in _FN.values():
         fn = getattr(lib, name)
-        fn.argtypes = ([ctypes.c_void_p] * 4
+        fn.argtypes = ([ctypes.c_void_p] * 6
                        + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                          ctypes.c_void_p])
+                          ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
-    lib.segment_sum_long_path.argtypes = [ctypes.c_longlong, ctypes.c_int,
-                                          ctypes.c_int]
-    lib.segment_sum_long_path.restype = ctypes.c_int
     return lib
