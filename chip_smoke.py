@@ -16,8 +16,9 @@ launch counters reset just before it and read just after:
   - the engine slice: the frontend under ENGINE_CONFIG (TRACK_CONFIG with
     extrema_impl="pallas", the switch that puts the score-map kernel on the
     path) on frames 0-47 as three batches, the ground-truth bootstrap, and
-    run_engine_batch over the three batches (tracking, in-batch promotions
-    with window BA, loop-database append, retrieval and verification);
+    the engine batch over the three batches (tracking, in-batch promotions
+    with window BA, triangulation, loop-database append, retrieval and
+    verification), replayed from engine_programs' captured CUDA graphs;
   - the sequence: the bench's protocol through Tracker.process_stream;
   - the reference profile: DEFAULT_CONFIG (2x upsample to 752x2496, 4
     octaves, float32 patch kernels), the frontend and bench-96's reference
@@ -65,7 +66,13 @@ Phases, each printing its own lines:
                bytes and its longest segment's chain of adds), the plain
                version, the deterministic index_add_ (per call, alone,
                equal bits on the three main shape sets) and the atomic
-               index_add_
+               index_add_; the DLT triangulation kernel on the engine's
+               1024 match slots (keyframe 8, frame 12) bit for bit
+               against its float32 replay on the CPU and against the
+               plain version (cuSOLVER eigh) under the eigengap gate of
+               ops/cuda/triangulate.py, the replay's off-diagonal norms
+               per Jacobi sweep, timed beside its bound, the plain version
+               and torch.linalg.eigh
   4. slice     the frontend + matching through the public entry points;
                the plain path on the same batch as the reference; keypoint
                and match floors; frames/s of both paths; the frontend's
@@ -79,20 +86,29 @@ Phases, each printing its own lines:
                against plain path; ms per tracked frame, keyframe_step and
                run_ba; frontend frames/s TRACK_CONFIG vs FAST_CONFIG; the
                host syncs inside track_batch
-  6. engine    the engine slice, kernel path and plain path: launch
-               counts, every active frame tracked, promotions per batch,
-               the loop database's size, window-BA costs, pose errors and
-               ATE against ground truth, kernel path against plain path;
-               ms per run_engine_batch, per promotion and per tracked
-               frame, host syncs and launches per batch, device busy share,
-               frames/s of frontend + engine
+  6. engine    the engine slice, kernel path (engine_programs' graphs,
+               captured in an untimed first pass: capture seconds, pool
+               bytes, launches per replay) and plain path (eager by
+               construction): launch counts, every active frame tracked,
+               promotions per batch, the loop database's size, window-BA
+               costs, pose errors and ATE against ground truth, kernel
+               path against plain path; the graph program against the
+               eager run_engine_batch bit for bit on the three batches;
+               graph path and eager path in turns: ms per batch, per
+               promotion and per tracked frame, host syncs (checked: one
+               per active frame), host launch calls, device kernels and
+               busy share per batch; frames/s of frontend + engine
   7. sequence  the bench protocol on the kernel path: sequence frames/s
                (median of 3 runs) and frontend frames/s, the time by stage
                (StageTimer), the three runs' trajectories compared bit for
-               bit (printed); an instrumented kernel-path run: launch
-               counts, host syncs per process_stream call and inside
-               every engine batch (checked: one per active frame + one per
-               promotion); an untimed plain-path run; every frame
+               bit (printed); one timed eager-path run (EagerTracker: the
+               engine batch through run_engine_batch) against SEQ_BOUNDS;
+               an instrumented kernel-path run: launch counts, host syncs
+               per process_stream call and inside every engine batch
+               (checked: one per active frame, none per promotion), its
+               first two engine batches again through the eager
+               run_engine_batch, bit for bit; an untimed plain-path run;
+               every frame
                committed, nothing left in flight; tracking-ok share, ATE
                (Sim(3)-aligned), keyframes and inliers against bounds from
                the JAX package on the same features (frames 0..55); kernel
@@ -112,7 +128,8 @@ Phases, each printing its own lines:
                both paths; bench-96's reference row (frames 0..7 through
                process_batch, 6 batches of 16 through process_stream,
                finish), timed once: frames/s, time by stage, host syncs
-               per call and the engine's sync rule in every batch; an
+               per call and the engine's sync rule in every batch that
+               did not capture; an
                untimed plain-path run of frames 0..55; frames 0..55 of
                both paths against REF_BOUNDS (half / twice the JAX
                package's Tracker on the same features)
@@ -133,7 +150,10 @@ Phases, each printing its own lines:
                ba.solver="schur_mf"; frames/s over the 492 streamed frames,
                the time by stage, host syncs per process_stream call and
                the engine's sync rule through the closures, the frontend
-               kernels' launches, keyframes, loop closures, ATE / RPE; the
+               kernels' launches, keyframes, loop closures, ATE / RPE;
+               the same protocol with EagerTracker (engine_dispatch
+               seconds, frames/s, keyframes, closures beside the graph
+               path's); the
                full-sequence global BA (schur_mf) cold and warm, with its
                host syncs, launches and segment_sum launches; the three BA
                solvers on that problem, 8 runs each, equal bit for bit in
@@ -201,6 +221,7 @@ Without a CUDA device it exits non-zero before doing anything.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import importlib
 import json
@@ -219,6 +240,8 @@ import torch.nn.functional as F
 from visualslam_tpu_torch import bench, kitti_scale
 from visualslam_tpu_torch.backend.ba import run_ba
 from visualslam_tpu_torch.frontend import SiftFrontend, make_frontend
+from visualslam_tpu_torch.geometry import se3
+from visualslam_tpu_torch.geometry.camera import normalized
 from visualslam_tpu_torch.geometry.ransac import generator
 from visualslam_tpu_torch.io.synthetic import SyntheticSequence
 from visualslam_tpu_torch.models import sift
@@ -240,6 +263,7 @@ from visualslam_tpu_torch.ops.cuda import (
     launch_counts,
     reset_launch_counts,
 )
+from visualslam_tpu_torch.ops.cuda import triangulate as ktri
 from visualslam_tpu_torch.ops.cuda.descriptor import staged_boxes
 from visualslam_tpu_torch.ops.cuda.distance import split_plan
 from visualslam_tpu_torch.ops.cuda.extrema import NONE, TILE_H
@@ -249,6 +273,7 @@ from visualslam_tpu_torch.ops.cuda.segment import (
     segment_sum,
     segment_sum_ref,
 )
+from visualslam_tpu_torch.ops.distance import l2sq_distance_matrix
 from visualslam_tpu_torch.ops.extrema import (
     detect_extrema,
     extrema_candidates,
@@ -257,7 +282,7 @@ from visualslam_tpu_torch.ops.extrema import (
 )
 from visualslam_tpu_torch.ops.patches import crop_patches, patch_shape
 from visualslam_tpu_torch.slam import engine
-from visualslam_tpu_torch.slam.engine import run_engine_batch
+from visualslam_tpu_torch.slam.engine import engine_programs, run_engine_batch
 from visualslam_tpu_torch.slam.evaluation import ate_rmse
 from visualslam_tpu_torch.slam.two_view import two_view_from_features
 from visualslam_tpu_torch.slam.track_step import keyframe_step, track_batch
@@ -320,7 +345,8 @@ DEVICE_NAMES = {"extrema_winners": "extrema_winners_kernel",
                 "extrema_score": "extrema_score_kernel",
                 "orient_hist": "patch_hist", "descriptor": "patch_hist",
                 "blur_stack": "blur", "l2_2nn": "l2_2nn",
-                "segment_sum": "segment_sum"}
+                "segment_sum": "segment_sum",
+                "triangulate_dlt": "triangulate_kernel"}
 SOURCES = {
     "extrema_winners": ("visualslam_tpu_torch/csrc/extrema.cu",
                         "visualslam_tpu/ops/pallas/extrema.py:256"),
@@ -338,6 +364,10 @@ SOURCES = {
     # (XLA's scatter), first at the BA's normal equations
     "segment_sum": ("visualslam_tpu_torch/csrc/segment.cu",
                     "visualslam_tpu/backend/ba.py:154"),
+    # no Pallas kernel: the JAX package's triangulation is jnp.linalg.eigh
+    # of the DLT normal matrices
+    "triangulate_dlt": ("visualslam_tpu_torch/csrc/triangulate.cu",
+                        "visualslam_tpu/geometry/epipolar.py:113"),
 }
 
 
@@ -568,8 +598,92 @@ def kernel_2nn(feats: Features, dev) -> tuple:
           f"[1, 2048, 128]^2, {f32[1]:.4f} ms on 15 pairs; {per_sm} blocks "
           f"per SM (the build's occupancy), {nsplit} splits at P = 1, "
           f"{split_plan(a15, b15)[0]} on 15 pairs")
+    # the library yardstick: FAST_CONFIG's own dense matcher, the distance
+    # matrix by one product, then the two smallest per row
+    library_ms = time_ms(lambda: torch.topk(l2sq_distance_matrix(a, b), 2,
+                                            largest=False), 20)
     return dict(err=err, ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms,
-                bound_ms=bms, bound_by=by, library_ms=None)
+                bound_ms=bms, bound_by=by, library_ms=library_ms)
+
+
+# floating-point operations per point of csrc/triangulate.cu: the DLT rows
+# (16 products, 16 differences), the 10 entries of A^T A (4 products, 3
+# sums each), SWEEPS x 6 rotations of 66 (the rotation's angle 16, the
+# diagonal 2, the two other rows of the pair 16, the four rows of V 32; a
+# square root or a quotient counted as one), the selection (3), the sign
+# and the three quotients (4)
+TRI_FLOPS = 32 + 70 + ktri.SWEEPS * len(ktri.PAIRS) * 66 + 7
+
+
+def triangulation_inputs(feats: Features, seq, a: int, b: int, cfg, dev):
+    """What keyframe_step hands the triangulation for keyframe a and frame
+    b of the batch (frames 8 + a, 8 + b of the sequence): the match slots
+    (cfg.match.max_matches of them, invalid ones included) as normalized
+    coordinates and the ground-truth relative pose."""
+    fa, fb = (Features(Keypoints(*(x[k] for x in feats.keypoints)),
+                       feats.descriptors[k]) for k in (a, b))
+    m = match_features(fa, fb, cfg.match)
+    intr = torch.tensor(seq.intrinsics, device=dev)
+    x1 = normalized(fa.keypoints.yx[m.idx_a.long()].flip(-1), intr)
+    x2 = normalized(fb.keypoints.yx[m.idx_b.long()].flip(-1), intr)
+    R_gt, t_gt = world_to_camera(seq.gt_poses[8 + a:9 + b])
+    Rw = torch.tensor(R_gt, device=dev)
+    tw = torch.tensor(t_gt, device=dev)
+    R, t = se3.compose(Rw[-1], tw[-1], *se3.inverse(Rw[0], tw[0]))
+    return R.contiguous(), t.contiguous(), x1, x2, m.valid
+
+
+def kernel_triangulate(feats: Features, seq, dev) -> dict:
+    """triangulate_dlt at the engine's shapes (ENGINE_CONFIG's 1024 match
+    slots; keyframe 8, frame 12, the bootstrap's spacing): bit for bit
+    against its float32 replay on the CPU (ops/cuda/triangulate.py
+    triangulate_jacobi), equal run to run, and against the plain version
+    (cuSOLVER eigh) under the eigengap gate stated there; the replay's
+    off-diagonal norms after each sweep; times beside the bound, the plain
+    version and torch.linalg.eigh of the same normal matrices."""
+    R, t, x1, x2, valid = triangulation_inputs(feats, seq, 0, 4,
+                                               ENGINE_CONFIG, dev)
+    n = x1.shape[0]
+    got = KERNELS.triangulate_dlt(R, t, x1, x2)
+    check(torch.equal(got, KERNELS.triangulate_dlt(R, t, x1, x2)),
+          "triangulate_dlt: equal bits run to run")
+    cpu = [x.cpu() for x in (R, t, x1, x2)]
+    offs = []
+    rep, v = ktri.triangulate_jacobi(*cpu, offs=offs, vectors=True)
+    same = torch.equal(got.cpu(), rep)
+    gap = ktri.eigen_gap(ktri.normal_matrices(*cpu).numpy())
+    ref_v = ktri.unit_vectors_ref(R, t, x1, x2).cpu().numpy()
+    compared, worst, bound = ktri.compare_solvers(v.numpy(), ref_v, gap)
+    plain = PLAIN.triangulate_dlt(R, t, x1, x2)
+    gate = torch.from_numpy((gap >= ktri.GAP_MIN)
+                            & (np.abs(ref_v[:, 3]) > 1e-3)).to(dev)
+    err = float((got - plain)[gate].abs().max()) if gate.any() else 0.0
+    print(f"kernel triangulate_dlt: {n} points ({int(valid.sum())} valid "
+          f"matches), equal to its float32 replay bit for bit: {same}; "
+          f"against the plain version (cuSOLVER eigh): {compared} points "
+          f"at relative eigengaps >= {ktri.GAP_MIN}, worst |dv| x gap / "
+          f"eps32 = {worst:.3f} (bound {bound}); max |kernel - plain| "
+          f"{err:.4e} over the {int(gate.sum())} of them with |w| > 1e-3")
+    print(f"triangulate_dlt sweeps: largest relative off-diagonal norm "
+          f"after each of {ktri.SWEEPS}: "
+          f"{[f'{float(o.max()):.3e}' for o in offs]} (float32 epsilon "
+          f"{ktri.EPS32:.3e})")
+    check(same, "triangulate_dlt equals its float32 replay bit for bit")
+    check(compared > 0.25 * n and worst <= bound, "triangulate_dlt holds to "
+          "the plain version under the eigengap gate")
+    check(float(offs[ktri.SWEEPS - 2].max()) < ktri.EPS32,
+          "triangulate_dlt's off-diagonal norms below float32 rounding "
+          "before its last sweep")
+    ms = time_ms(lambda: KERNELS.triangulate_dlt(R, t, x1, x2), 20)
+    plain_ms = time_ms(lambda: PLAIN.triangulate_dlt(R, t, x1, x2), 20)
+    kernel_ms = kernel_alone("triangulate_dlt",
+                             lambda: KERNELS.triangulate_dlt(R, t, x1, x2),
+                             ms)
+    M = ktri.normal_matrices(R, t, x1, x2)
+    library_ms = time_ms(lambda: torch.linalg.eigh(M), 20)
+    bms, by = least_ms(nbytes(R, t, x1, x2, got), float(TRI_FLOPS) * n)
+    return dict(err=err, ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms,
+                bound_ms=bms, bound_by=by, library_ms=library_ms)
 
 
 def kernel_blur(batch: torch.Tensor, frontend: SiftFrontend, dev) -> tuple:
@@ -1112,8 +1226,10 @@ def segment_turns(parent_root: str, dev) -> None:
           f"float32): {json.dumps(sweep)}")
 
 
-def phase_kernels(batch: torch.Tensor, frontend: SiftFrontend, dev) -> dict:
-    """Each kernel against its plain version at the main path's shapes."""
+def phase_kernels(batch: torch.Tensor, frontend: SiftFrontend, seq,
+                  dev) -> dict:
+    """Each kernel against its plain version at the main path's shapes
+    (batch: frames 8..23 of `seq`)."""
     cfg = FAST_CONFIG
     thr = cfg.sift.contrast_threshold
     cap = cfg.sift.octave_capacity(0)
@@ -1124,8 +1240,10 @@ def phase_kernels(batch: torch.Tensor, frontend: SiftFrontend, dev) -> dict:
     del ss
 
     out["blur_stack"] = kernel_blur(batch, frontend, dev)
-    out["l2_2nn"] = kernel_2nn(frontend(batch), dev)
+    feats = frontend(batch)
+    out["l2_2nn"] = kernel_2nn(feats, dev)
     out["segment_sum"] = kernel_segment(dev)
+    out["triangulate_dlt"] = kernel_triangulate(feats, seq, dev)
     for name, r in out.items():
         lib = ("none" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms")
@@ -1390,7 +1508,8 @@ def phase_track(frames_dev: torch.Tensor, seq: SyntheticSequence,
         if kernels is KERNELS:
             want = dict.fromkeys(FRONTEND_KERNELS, cfg.pyramid.num_octaves)
             want.update(blur_stack=cfg.pyramid.num_octaves,
-                        l2_2nn=2 * (BATCH + n_kf_steps), extrema_score=0)
+                        l2_2nn=2 * (BATCH + n_kf_steps), extrema_score=0,
+                        triangulate_dlt=n_kf_steps)
             check(switched(counts) == want, f"kernel path launches {want}")
         else:
             check(not any(switched(counts).values()),
@@ -1465,6 +1584,8 @@ def phase_track(frames_dev: torch.Tensor, seq: SyntheticSequence,
           f"L={cfg.ba.max_landmarks}, O={cfg.ba.max_observations})")
     print(f"track host syncs: {syncs} inside track_batch over "
           f"{BATCH - 5} frames, {kf_syncs} inside keyframe_step")
+    check(kf_syncs == 0, "keyframe_step syncs the host nowhere (the "
+          "triangulation kernel in the eigh's place)")
 
     fps = {"TRACK_CONFIG": [], "FAST_CONFIG": []}
     for i in range(8):
@@ -1482,11 +1603,25 @@ def phase_track(frames_dev: torch.Tensor, seq: SyntheticSequence,
     return counts
 
 
+# the host-side CUDA calls that put work on the card (a graph launch puts
+# every kernel of its graph there at once)
+HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                     "cuLaunchKernel", "cuLaunchKernelEx", "cudaGraphLaunch",
+                     "cudaMemcpyAsync", "cudaMemsetAsync")
+
+
 def profile_call(fn) -> tuple:
     """(device kernel launches, device busy ms, profiled wall ms) of one
     fn() under torch.profiler; busy is the summed time of the device
     events, which run on one stream here. (None, None, wall) if the
     profiler saw no device event."""
+    return profile_launches(fn)[:3]
+
+
+def profile_launches(fn) -> tuple:
+    """profile_call's (device kernel launches, busy ms, wall ms) and the
+    host's launch calls (HOST_LAUNCH_CALLS: kernels, graphs, copies and
+    fills) of one fn()."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1496,14 +1631,17 @@ def profile_call(fn) -> tuple:
         fn()
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t0)
-    dev_events = [e for e in prof.events()
+    events = prof.events()
+    host = sum(e.name in HOST_LAUNCH_CALLS for e in events
+               if e.device_type == torch.autograd.DeviceType.CPU)
+    dev_events = [e for e in events
                   if e.device_type == torch.autograd.DeviceType.CUDA]
     if not dev_events:
-        return None, None, wall
+        return None, None, wall, host
     kernels = [e for e in dev_events
                if not e.name.startswith(("Memcpy", "Memset"))]
     busy = sum(e.time_range.elapsed_us() for e in dev_events) / 1e3
-    return len(kernels), busy, wall
+    return len(kernels), busy, wall, host
 
 
 ENGINE_PARTS = ("track_step_lite", "_window_ba", "refine_pose",
@@ -1540,10 +1678,40 @@ def time_parts(module, names, fn, reps: int) -> dict:
             for n, v in times.items()}
 
 
+def engine_path(batch_fn, eager_fn, n_active: int, n_prom: int,
+                what: str) -> dict:
+    """One engine batch on the graph path (batch_fn) and the eager path
+    (eager_fn), in turns: ms (median of 5), host syncs, the profiler's
+    device kernels, host launch calls and busy share."""
+    out = {}
+    for name, fn in (("graph", batch_fn), ("eager", eager_fn)):
+        out[name] = dict(ms=wall_ms(fn, 5))
+    for name, fn in (("eager", eager_fn), ("graph", batch_fn)):
+        out[name]["ms2"] = wall_ms(fn, 5)
+        out[name]["syncs"] = count_syncs(fn)
+        kernels, busy, wall, host = profile_launches(fn)
+        out[name].update(kernels=kernels, busy=busy, wall=wall, host=host)
+    for name, r in out.items():
+        busy = ("not measured" if r["busy"] is None else
+                f"{r['busy']:.3f} of {r['wall']:.3f} ms profiled "
+                f"({100 * r['busy'] / r['wall']:.1f}%)")
+        print(f"engine {what} {name} path: {r['ms']:.3f} / {r['ms2']:.3f} ms "
+              f"per batch (median of 5, in turns graph, eager, eager, "
+              f"graph), {r['syncs']} host syncs ({n_active} active frames, "
+              f"{n_prom} promotions), {r['host']} host launch calls, "
+              f"{r['kernels']} device kernels, device busy {busy}")
+        check(r["syncs"] == n_active, f"engine {what} {name}: one host sync "
+              "per active frame, none per promotion")
+    return out
+
+
 def phase_engine(frames_dev: torch.Tensor, seq: SyntheticSequence, card: str,
                  dev, save_features: str | None) -> dict:
     """The engine slice under ENGINE_CONFIG on frames 0..47, kernel path
-    and plain path; returns the kernel path's launch counts."""
+    (engine_programs' captured graphs) and plain path (eager by
+    construction); the graph program against the eager run_engine_batch
+    bit for bit on the three batches; times of both. Returns the kernel
+    path's launch counts."""
     cfg = ENGINE_CONFIG
     print(f"engine: {card}")
     nb = ENGINE_BATCHES
@@ -1560,6 +1728,18 @@ def phase_engine(frames_dev: torch.Tensor, seq: SyntheticSequence, card: str,
 
     for name, kernels in (("kernel", KERNELS), ("plain", PLAIN)):
         fe = SiftFrontend(cfg, kernels).to(dev)
+        if kernels is KERNELS:
+            # set-up: the program captures its graphs on its first batch
+            # (the eager warm-up's launches stay out of the counted run)
+            _, warm = drive(fe, kernels)
+            torch.cuda.synchronize()
+            prog = engine_programs(cfg, warm.ok_min, warm.max_depth)["batch"]
+            for g in prog.captured.values():
+                print(f"engine graphs ({card}): captured in "
+                      f"{g.capture_s:.3f} s (warm-up included), static "
+                      f"buffers and graph pools {g.pool_bytes / 2 ** 20:.1f} "
+                      f"MiB; launches per replay: step "
+                      f"{g.g_step.launches}, promote {g.g_promote.launches}")
         # the main path, through the entry points a user calls; the
         # ground-truth bootstrap stands in for the two-view init (A.7)
         reset_launch_counts()
@@ -1594,9 +1774,11 @@ def phase_engine(frames_dev: torch.Tensor, seq: SyntheticSequence, card: str,
                                   "orient_hist", "descriptor"), per_batch)
             # 2 per tracked frame, 2 per promotion (keyframe_step), 4 in the
             # bootstrap (depth probe + keyframe_step); loop verification runs
-            # the dense matcher, as the reference's _sub_match_cfg
+            # the dense matcher, as the reference's _sub_match_cfg; one
+            # triangulation per keyframe_step
             want.update(extrema_winners=0,
-                        l2_2nn=2 * int(active.sum()) + 2 * sum(n_prom) + 4)
+                        l2_2nn=2 * int(active.sum()) + 2 * sum(n_prom) + 4,
+                        triangulate_dlt=sum(n_prom) + 2)
             check(switched(counts) == want, f"kernel path launches {want}")
             if save_features:
                 np.savez(save_features, intrinsics=seq.intrinsics,
@@ -1646,42 +1828,54 @@ def phase_engine(frames_dev: torch.Tensor, seq: SyntheticSequence, card: str,
     check(dr.max() <= ENGINE_PATH_ROT_DEG, "paths agree in rotation")
     check(dp.max() <= ENGINE_PATH_POS_FRAC * base, "paths agree in position")
 
-    # timings, kernel path: batch 1 re-run from the persist after batch 0
+    # the graph program against the eager run_engine_batch on the kernel
+    # path's three batches, from the same inputs
     fe, feats, run, counts = runs["kernel"]
+    prog = engine_programs(cfg, run.ok_min, run.max_depth)["batch"]
+    for b, (persist, dyn) in enumerate(run.calls):
+        pg, sg = prog(persist, dyn, feats[b], intr)
+        pe, se = run_engine_batch(persist, dyn, feats[b], intr, cfg,
+                                  run.ok_min, run.max_depth)
+        differ = [f for f, x, y in zip(engine.EnginePersist._fields, sg, se)
+                  if not torch.equal(x, y)]
+        print(f"engine batch {b}: graph path against eager run_engine_batch "
+              f"(ENGINE_CONFIG): packed equal bit for bit "
+              f"{torch.equal(pg, pe)}, persist fields that differ {differ}")
+        check(torch.equal(pg, pe) and not differ, f"engine batch {b}: the "
+              "graph program equals the eager batch bit for bit")
+
+    # timings: batch 1 re-run from the persist after batch 0, graph path
+    # and eager path
     persist, dyn = run.calls[1]
     n1 = len(run.proms[1])
 
     def batch1(c=cfg):
+        return engine_programs(c, run.ok_min, run.max_depth)["batch"](
+            persist, dyn, feats[1], intr)
+
+    def eager1(c=cfg):
         return run_engine_batch(persist, dyn, feats[1], intr, c, run.ok_min,
                                 run.max_depth)
 
     # the same batch with promotions switched off: tracking alone
     no_kf = cfg.replace(keyframe_min_inliers=0, keyframe_max_gap=10 ** 6)
-    batch_ms = wall_ms(batch1, 5)
-    track_ms = wall_ms(lambda: batch1(no_kf), 5) / BATCH
-    syncs = count_syncs(batch1)
-    launches, busy, pwall = profile_call(batch1)
-    print(f"engine times ({card}): run_engine_batch {batch_ms:.3f} ms "
-          f"(batch 1 from the persist after batch 0, {n1} promotions, "
-          f"median of 5); {track_ms:.3f} ms per tracked frame (the same "
-          f"batch with promotions off); "
-          f"{(batch_ms - BATCH * track_ms) / max(n1, 1):.3f} ms per "
-          f"promotion (the difference)")
-    print(f"engine host syncs per batch: {syncs} (batch 1: {BATCH} need_kf "
-          f"reads + {n1} in keyframe_step's eigh expected)")
-    check(syncs == BATCH + n1, "engine batch syncs only on need_kf and eigh")
-    if launches is None:
-        print("engine profile: the profiler saw no device events; launches "
-              "and busy share not measured")
-    else:
-        print(f"engine profile of batch 1: {launches} kernel launches, "
-              f"device busy {busy:.3f} of {pwall:.3f} ms profiled "
-              f"({100 * busy / pwall:.1f}%)")
-    parts = time_parts(engine, ENGINE_PARTS, batch1, 3)
-    print("engine time by part of batch 1 (host clock, synchronize around "
-          "each call, median ms x calls per batch; refine_pose counts the "
-          "re-refine and verification's four solves, which "
-          "_verify_candidate includes): " + ", ".join(
+    paths = engine_path(batch1, eager1, BATCH, n1, "batch 1")
+    track = engine_path(lambda: batch1(no_kf), lambda: eager1(no_kf), BATCH,
+                        0, "batch 1 with promotions off")
+    for name in ("graph", "eager"):
+        b_ms = min(paths[name]["ms"], paths[name]["ms2"])
+        t_ms = min(track[name]["ms"], track[name]["ms2"]) / BATCH
+        print(f"engine times, {name} path ({card}): batch {b_ms:.3f} ms "
+              f"(batch 1 from the persist after batch 0, {n1} promotions, "
+              f"the faster of the two medians), {t_ms:.3f} ms per tracked "
+              f"frame (the same batch with promotions off), "
+              f"{(b_ms - BATCH * t_ms) / max(n1, 1):.3f} ms per promotion "
+              f"(the difference)")
+    parts = time_parts(engine, ENGINE_PARTS, eager1, 3)
+    print("engine time by part of batch 1, eager path (host clock, "
+          "synchronize around each call, median ms x calls per batch; "
+          "refine_pose counts the re-refine and verification's four solves, "
+          "which _verify_candidate includes): " + ", ".join(
               f"{n} {ms:.3f} x {k:g}" for n, (ms, k) in parts.items()))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1689,7 +1883,8 @@ def phase_engine(frames_dev: torch.Tensor, seq: SyntheticSequence, card: str,
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     print(f"engine frames/s, frontend + bootstrap + engine over {n_frames} "
-          f"frames (kernel path): {n_frames / dt:.1f} ({1e3 * dt:.1f} ms)")
+          f"frames (kernel path, graphs): {n_frames / dt:.1f} "
+          f"({1e3 * dt:.1f} ms)")
 
     # the score map + full-map top-k against the fused winners
     fps = {"ENGINE_CONFIG": [], "TRACK_CONFIG": []}
@@ -1735,26 +1930,62 @@ def sequence_stats(tracker, gt_centres: np.ndarray, n: int) -> dict:
                 min_inliers=int(min(inl or [0])))
 
 
+class EagerTracker(Tracker):
+    """The tracker with every engine batch through the eager
+    run_engine_batch in place of engine_programs' captured graphs: the
+    graph path's comparison, here and nowhere in the package."""
+
+    def _engine_batch(self, persist, dyn, feats_b):
+        return engine.run_engine_batch(persist, dyn, feats_b, self.intr,
+                                       self.cfg, self._track_ok_min,
+                                       self._max_depth, self.kernels)
+
+
 class SyncRecorder:
     """Inside the block: every host sync torch reports (sync debug mode)
-    and, per engine batch (engine.run_engine_batch wrapped), its syncs,
-    active frames and packed telemetry."""
+    and, per engine batch (engine.EngineProgram.__call__ and
+    engine.run_engine_batch wrapped, the outer call counted once), its
+    syncs, active frames, packed telemetry and whether the call captured
+    the program's graphs. keep: the inputs and results of the first `keep`
+    graph-path batches that did not capture, for an eager re-run."""
+
+    def __init__(self, keep: int = 0):
+        self.keep = keep
 
     def __enter__(self):
         self._warn = warnings.catch_warnings(record=True)
         self._caught = self._warn.__enter__()
         warnings.simplefilter("always")
-        self.batches = []
+        self.batches, self.kept = [], []
         self._run = engine.run_engine_batch
+        self._call = engine.EngineProgram.__call__
+        depth = [0]
 
-        def counted(persist, dyn, *a, **kw):
-            s0 = self.syncs()
-            packed, p = self._run(persist, dyn, *a, **kw)
-            self.batches.append((self.syncs() - s0, dyn.stop - dyn.start,
-                                 packed, a[0].keypoints.yx.shape[0]))
-            return packed, p
+        def wrap(fn, program: bool):
+            def counted(*a, **kw):
+                if depth[0]:
+                    return fn(*a, **kw)
+                depth[0] += 1
+                try:
+                    args = a[1:] if program else a
+                    persist, dyn, feats_b = args[:3]
+                    n_cap = len(a[0].captured) if program else 0
+                    s0 = self.syncs()
+                    packed, p = fn(*a, **kw)
+                    captured = program and len(a[0].captured) > n_cap
+                    self.batches.append((self.syncs() - s0,
+                                         dyn.stop - dyn.start, packed,
+                                         feats_b.keypoints.yx.shape[0],
+                                         captured))
+                    if program and not captured and len(self.kept) < self.keep:
+                        self.kept.append((a, kw, packed, p))
+                finally:
+                    depth[0] -= 1
+                return packed, p
+            return counted
 
-        engine.run_engine_batch = counted
+        engine.run_engine_batch = wrap(self._run, False)
+        engine.EngineProgram.__call__ = wrap(self._call, True)
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("warn")
         return self
@@ -1766,22 +1997,61 @@ class SyncRecorder:
     def __exit__(self, *exc):
         torch.cuda.set_sync_debug_mode("default")
         engine.run_engine_batch = self._run
+        engine.EngineProgram.__call__ = self._call
         self._warn.__exit__(*exc)
 
     def rules(self) -> list:
-        """[(syncs, active frames, promotions)] per engine batch."""
+        """[(syncs, active frames, promotions)] per engine batch that did
+        not capture graphs."""
         return [(s, active, int(packed[B * 24].item()))
-                for s, active, packed, B in self.batches]
+                for s, active, packed, B, cap in self.batches if not cap]
+
+    def captures(self) -> list:
+        """The same of the batches whose call captured the graphs (its
+        synchronizations around the capture included)."""
+        return [(s, active, int(packed[B * 24].item()))
+                for s, active, packed, B, cap in self.batches if cap]
 
 
-def instrumented_run(frames, seq, dev, cfg=FAST_CONFIG):
+def check_sync_rule(name: str, rec: SyncRecorder) -> None:
+    """Every engine batch that did not capture syncs once per active frame
+    (its need_kf read) and never per promotion."""
+    rules = rec.rules()
+    print(f"{name} engine batches (syncs, active frames, promotions): "
+          f"{rules}; batches that captured the graphs: {rec.captures()}")
+    for s_, active, _ in rules:
+        check(s_ == active, f"{name}: every engine batch syncs once per "
+              "active frame (need_kf) and never per promotion")
+
+
+def eager_replays(name: str, rec: SyncRecorder) -> None:
+    """The kept graph-path batches again through the eager
+    run_engine_batch: packed buffers and persists equal bit for bit."""
+    for k, (a, kw, packed, p) in enumerate(rec.kept):
+        prog, (persist, dyn, feats_b, intr) = a[0], a[1:5]
+        kernels = a[5] if len(a) > 5 else kw.get("kernels", KERNELS)
+        pe, se = run_engine_batch(persist, dyn, feats_b, intr, prog.cfg,
+                                  prog.ok_min, prog.max_depth, kernels)
+        differ = [f for f, x, y in zip(engine.EnginePersist._fields, p, se)
+                  if not torch.equal(x, y)]
+        print(f"{name}: engine batch {k} (frames {dyn.frame_base + dyn.start}"
+              f"..{dyn.frame_base + dyn.stop - 1}) graph path against the "
+              f"eager run_engine_batch: packed equal bit for bit "
+              f"{torch.equal(packed, pe)}, persist fields that differ "
+              f"{differ}")
+        check(torch.equal(packed, pe) and not differ, f"{name}: the graph "
+              "program equals the eager batch bit for bit")
+    check(len(rec.kept) == rec.keep, f"{name}: {rec.keep} graph-path "
+          "batches compared")
+
+
+def instrumented_run(frames, seq, dev, cfg=FAST_CONFIG, compare: int = 0):
     """One kernel-path run of the bench's sequence under `cfg` with the
     host syncs counted (SyncRecorder): per process_stream call, and inside
-    every engine batch against the engine's rule (one need_kf read per
-    active frame + one eigh per promotion). Also keeps the features of the
-    tracker's first detection calls. Returns (tracker, syncs per
-    process_stream call, [(syncs, active frames, promotions)] per engine
-    batch, detected Features)."""
+    every engine batch (the engine's rule: one need_kf read per active
+    frame). Also keeps the features of the tracker's first detection
+    calls and the first `compare` graph-path batches. Returns (tracker, syncs
+    per process_stream call, the SyncRecorder, detected Features)."""
     detected = []
     tracker = Tracker(cfg, seq.intrinsics, device=dev)
     detect = tracker.detect_batch
@@ -1793,7 +2063,7 @@ def instrumented_run(frames, seq, dev, cfg=FAST_CONFIG):
 
     tracker.detect_batch = keep
     stream = []
-    with SyncRecorder() as rec:
+    with SyncRecorder(compare) as rec:
         tracker.process_batch(frames[:bench.INIT_FRAMES], 0)
         for k in range(bench.INIT_FRAMES, len(frames), BATCH):
             s0 = rec.syncs()
@@ -1802,7 +2072,7 @@ def instrumented_run(frames, seq, dev, cfg=FAST_CONFIG):
         s0 = rec.syncs()
         tracker.finish()
         stream.append(rec.syncs() - s0)
-    return tracker, stream, rec.rules(), detected
+    return tracker, stream, rec, detected
 
 
 def save_sequence_features(path: str, detected: list, seq) -> None:
@@ -1833,6 +2103,29 @@ def check_bounds(name: str, stats: dict, bounds: dict) -> None:
           f"{name}: mean inliers within {bounds['mean_inliers']}")
 
 
+def eager_sequence_run(frames, seq, dev, gt) -> dict:
+    """bench.run_once with EagerTracker (every engine batch through the
+    eager run_engine_batch), timed once: frames/s, the time by stage and
+    frames 0..55 against SEQ_BOUNDS."""
+    timer = StageTimer()
+    bench.Tracker = EagerTracker
+    try:
+        tracker, seconds = bench.run_once(frames, seq.intrinsics,
+                                          FAST_CONFIG, dev, KERNELS, timer)
+    finally:
+        bench.Tracker = Tracker
+    pre = sequence_stats(tracker, gt, SEQ_BOUND_FRAMES)
+    print(f"sequence frames/s, eager path (EagerTracker, one timed run, "
+          f"after the first graph-path run): "
+          f"{bench.SEQ_FRAMES / seconds:.2f}; time by stage: " + ", ".join(
+              f"{k} {v['total_s']:.3f} s / {v['count']}"
+              for k, v in timer.summary().items()))
+    print(f"sequence eager path, frames 0..{SEQ_BOUND_FRAMES - 1}: "
+          f"{json.dumps(pre)}")
+    check_bounds("sequence eager path", pre, SEQ_BOUNDS)
+    return dict(fps=bench.SEQ_FRAMES / seconds, stats=pre)
+
+
 def phase_sequence(card: str, dev, save_features: str | None) -> dict:
     """The port's bench protocol on the kernel path (bench.run_once over
     96 + 8 frames, 3 timed runs), an instrumented kernel-path run (launch
@@ -1845,20 +2138,23 @@ def phase_sequence(card: str, dev, save_features: str | None) -> dict:
     gt = seq.gt_poses[:, :, 3]
     bench.warmup(FAST_CONFIG, dev, KERNELS)
     fps_runs, timers, trajs = [], [], []
-    for _ in range(3):
+    for k in range(3):
         timer = StageTimer()
         tracker, seconds = bench.run_once(frames, seq.intrinsics,
                                           FAST_CONFIG, dev, KERNELS, timer)
         fps_runs.append(bench.SEQ_FRAMES / seconds)
         timers.append((seconds, timer))
         trajs.append(tracker.trajectory())
+        if k == 0:
+            eager = eager_sequence_run(frames, seq, dev, gt)
     fps = float(np.median(fps_runs))
     frontend_fps = bench.bench_frontend(FAST_CONFIG, dev, KERNELS)
     diag = bench.diagnostics(tracker)
     print(f"sequence frames/s ({card}): {fps:.2f} (median of runs "
           f"{[round(v, 2) for v in fps_runs]}, {bench.SEQ_FRAMES} frames of "
-          f"process_stream in batches of {BATCH} + finish), frontend "
-          f"frames/s {frontend_fps:.1f}; {json.dumps(diag)}")
+          f"process_stream in batches of {BATCH} + finish; graph path), "
+          f"eager path {eager['fps']:.2f}, frontend frames/s "
+          f"{frontend_fps:.1f}; {json.dumps(diag)}")
     # printed, not checked: the tracker's lazy flush of an async window BA
     # (tracker.py _flush_pending_ba with wait=False) applies a result when
     # the card has finished it, which depends on timing
@@ -1874,7 +2170,7 @@ def phase_sequence(card: str, dev, save_features: str | None) -> dict:
               for k, v in summ.items()))
 
     reset_launch_counts()
-    tk, stream, rules, detected = instrumented_run(frames, seq, dev)
+    tk, stream, rec, detected = instrumented_run(frames, seq, dev, compare=2)
     torch.cuda.synchronize()
     counts = launch_counts()
     print(f"sequence launches (instrumented kernel-path run): {counts}")
@@ -1884,11 +2180,9 @@ def phase_sequence(card: str, dev, save_features: str | None) -> dict:
         check(counts[name] == 0, f"{name} not launched under FAST_CONFIG")
     print(f"sequence host syncs per process_stream call: {stream[:-1]} "
           f"(finish: {stream[-1]})")
-    print(f"sequence engine batches (syncs, active frames, promotions): "
-          f"{rules}")
-    for s, active, prom in rules:
-        check(s == active + prom, "every engine batch syncs once per active "
-              "frame (need_kf) and once per promotion (eigh)")
+    check_sync_rule("sequence", rec)
+    eager_replays("sequence (FAST_CONFIG)", rec)
+    del rec
     if save_features:
         save_sequence_features(save_features, detected, seq)
 
@@ -1994,16 +2288,13 @@ def sequence_run(name: str, cfg, frames, seq, dev, save: str | None,
           + ", ".join(f"{k} {v['total_s']:.3f} s / {v['count']}"
                       for k, v in timer.summary().items()))
     reset_launch_counts()
-    tk, stream, rules, detected = instrumented_run(frames, seq, dev, cfg)
+    tk, stream, rec, detected = instrumented_run(frames, seq, dev, cfg)
     torch.cuda.synchronize()
     counts = launch_counts()
     print(f"{name} sequence launches (instrumented run): {counts}")
     print(f"{name} host syncs per process_stream call: {stream[:-1]} "
-          f"(finish: {stream[-1]}); engine batches (syncs, active frames, "
-          f"promotions): {rules}")
-    for s_, active, prom in rules:
-        check(s_ == active + prom, f"{name}: every engine batch syncs once "
-              "per active frame (need_kf) and once per promotion (eigh)")
+          f"(finish: {stream[-1]})")
+    check_sync_rule(name, rec)
     if save:
         save_sequence_features(save, detected, seq)
     plain, _ = bench.run_once(frames[:SEQ_BOUND_FRAMES], seq.intrinsics, cfg,
@@ -2399,12 +2690,13 @@ class FullSequenceHooks(kitti_scale.Hooks):
                   f"{name} launched on the full sequence")
         print(f"full_sequence host syncs per process_stream call: "
               f"{stream[:-1]} (finish: {stream[-1]})")
-        broke = [(i, r) for i, r in enumerate(rules) if r[0] != r[1] + r[2]]
+        broke = [(i, r) for i, r in enumerate(rules) if r[0] != r[1]]
         print(f"full_sequence engine batches: {len(rules)}, promotions "
               f"{sum(r[2] for r in rules)}; batches off the sync rule "
-              f"(index, (syncs, active, promotions)): {broke}")
+              f"(index, (syncs, active, promotions)): {broke}; batches "
+              f"that captured the graphs: {self.rec.captures()}")
         check(not broke, "every engine batch syncs once per active frame "
-              "and once per promotion, through the closures")
+              "and never per promotion, through the closures")
         check(len(tracker.frames) == KS_FRAMES and [f.frame_id for f in
               tracker.frames] == list(range(KS_FRAMES)),
               "full_sequence: every frame committed once")
@@ -2472,6 +2764,31 @@ class FullSequenceHooks(kitti_scale.Hooks):
               "the resumed tracker's global BA matches the original's")
 
 
+class StageHooks(kitti_scale.Hooks):
+    """A stage timer on the timed stream, nothing else."""
+
+    def stream(self, tracker):
+        self.timer = tracker.timer = StageTimer()
+        return contextlib.nullcontext()
+
+
+def eager_kitti_run(seq, frames, warm_seq, wf, dev) -> tuple:
+    """kitti_scale.run on the same frames with EagerTracker (the eager
+    engine batch). Returns (its result dict, engine_dispatch seconds)."""
+    from visualslam_tpu_torch.slam import tracker as tracker_module
+
+    hooks = StageHooks()
+    tracker_module.Tracker = EagerTracker
+    try:
+        out, tracker = kitti_scale.run(seq, frames, warm_seq, wf, dev, hooks)
+    finally:
+        tracker_module.Tracker = Tracker
+    check(type(tracker) is EagerTracker, "the eager KITTI-scale run took "
+          "the eager tracker")
+    del tracker
+    return out, hooks.timer.summary()["engine_dispatch"]["total_s"]
+
+
 def phase_full_sequence(card: str, dev) -> tuple:
     """The port's KITTI-scale protocol (kitti_scale.run, not cut): 500
     frames of 376x1248 on the loop rectangle (12000 dots), FAST_CONFIG
@@ -2506,6 +2823,17 @@ def phase_full_sequence(card: str, dev) -> tuple:
     print(f"full_sequence KITTI-scale result: {json.dumps(out)}")
     ate_track, ate_gba = out["ate_tracked_m"], out["ate_after_gba_m"]
     n_kf = out["keyframes"]
+    graph_dispatch = hooks.timer.summary()["engine_dispatch"]["total_s"]
+    eager_out, eager_dispatch = eager_kitti_run(seq, frames, warm_seq, wf,
+                                                dev)
+    print(f"full_sequence engine_dispatch ({card}): graph path "
+          f"{graph_dispatch:.3f} s, eager path {eager_dispatch:.3f} s over "
+          f"{KS_FRAMES - kitti_scale.INIT} streamed frames; sequence frames/s "
+          f"{out['sequence_fps']} / {eager_out['sequence_fps']} (the graph "
+          f"run with sync debug mode on); keyframes {n_kf} / "
+          f"{eager_out['keyframes']}, loop closures {out['loop_closures']} / "
+          f"{eager_out['loop_closures']}, tracked ATE {ate_track} / "
+          f"{eager_out['ate_tracked_m']}")
 
     # the rebuilt problem (as kitti_scale.run rebuilds it), warm
     p2, _ = build_global_problem(tracker.map, device=dev)
@@ -3098,7 +3426,7 @@ def main() -> None:
     # warm both paths (allocator, band buffers, cuBLAS handles)
     frontend(frames_dev[:BATCH])
     plain(frames_dev[:BATCH])
-    timings = phase_kernels(frames_dev[8:8 + BATCH], frontend, dev)
+    timings = phase_kernels(frames_dev[8:8 + BATCH], frontend, seq, dev)
     phase_slice(frames_dev, frontend, plain)
     track = phase_track(frames_dev, seq, frontend, card, dev)
     engine_counts = phase_engine(frames_dev, seq, card, dev, save)

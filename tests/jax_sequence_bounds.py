@@ -310,8 +310,8 @@ def two_view_report(z, cfg) -> None:
     calls = {"jax": [], "port": []}
     orig_port = trs.estimate_relative_pose
 
-    def port_rec(x1, x2, valid, rcfg, gen=None):
-        out = orig_port(x1, x2, valid, rcfg, gen)
+    def port_rec(x1, x2, valid, rcfg, gen=None, *kernels):
+        out = orig_port(x1, x2, valid, rcfg, gen, *kernels)
         calls["port"].append(dict(x1=x1.numpy(), x2=x2.numpy(),
                                   valid=valid.numpy(),
                                   inl=out[3].numpy()))
@@ -357,7 +357,7 @@ def two_view_report(z, cfg) -> None:
         x1, x2, v, cfg.ransac, k))
     state = {"key": jax.random.PRNGKey(cfg.ransac.seed)}
 
-    def injected(x1, x2, valid, rcfg, gen=None):
+    def injected(x1, x2, valid, rcfg, gen=None, *kernels):
         state["key"], sub = jax.random.split(state["key"])
         out = jpose(jnp.asarray(x1.numpy()), jnp.asarray(x2.numpy()),
                     jnp.asarray(valid.numpy()), sub)

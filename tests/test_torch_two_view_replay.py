@@ -91,8 +91,8 @@ def test_two_view_inits_differ_only_at_float32_near_ties(seed):
     jt._ransac = jrec
     orig = trs.estimate_relative_pose
 
-    def prec(x1, x2, valid, rcfg, gen=None):
-        out = orig(x1, x2, valid, rcfg, gen)
+    def prec(x1, x2, valid, rcfg, gen=None, *kernels):
+        out = orig(x1, x2, valid, rcfg, gen, *kernels)
         pcalls.append((x1.numpy(), x2.numpy(), valid.numpy(),
                        out[3].numpy()))
         return out

@@ -11,7 +11,8 @@ utils/precision.f32_matmul), as the reference. Singular and eigen vectors
 carry a sign freedom, so E is defined up to sign: compare E up to sign and
 the chosen pose, not the factors. On CUDA, `eigh` and `svd` check their
 status on the host (one sync each); two-view init runs off the per-frame
-path.
+path. Triangulation takes `kernels` (ops.cuda.KERNELS: the Jacobi kernel,
+no host sync).
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import math
 
 import torch
 
+from visualslam_tpu_torch.ops.cuda import KERNELS, Kernels
 from visualslam_tpu_torch.utils.precision import f32_matmul
 
 _EPS = 1e-12
@@ -88,34 +90,18 @@ def sampson_error(E: torch.Tensor, x1: torch.Tensor,
 
 
 def triangulate(R: torch.Tensor, t: torch.Tensor, x1: torch.Tensor,
-                x2: torch.Tensor) -> torch.Tensor:
+                x2: torch.Tensor, kernels: Kernels = KERNELS) -> torch.Tensor:
     """Linear (DLT) triangulation in camera-1 frame: the eigenvector of the
     smallest eigenvalue of each point's 4x4 normal matrix. R, t: relative
     pose; x1, x2: [N, 2] normalized coords. Returns X [N, 3].
 
-    The reference runs at float32 matmul precision; so does this (TF32
-    off, utils/precision.f32_matmul). On CUDA, `eigh` of a near-degenerate
-    normal matrix (a point near infinity) may pick another eigenvector
-    than the CPU's: compare such points only where both accept them."""
-    f32_matmul()
-    zeros = torch.zeros((3, 1), dtype=R.dtype, device=R.device)
-    P1 = torch.cat([torch.eye(3, dtype=R.dtype, device=R.device), zeros], 1)
-    P2 = torch.cat([R, t[:, None]], 1)                       # [3, 4]
-
-    def dlt_rows(P, x):
-        # rows: x * P3 - P1 ; y * P3 - P2
-        return torch.stack([x[..., 0, None] * P[2] - P[0],
-                            x[..., 1, None] * P[2] - P[1]], -2)
-
-    A = torch.cat([dlt_rows(P1, x1), dlt_rows(P2, x2)], -2)  # [N, 4, 4]
-    M = A.transpose(-1, -2) @ A
-    _, evecs = torch.linalg.eigh(M)
-    Xh = evecs[..., 0]                                      # [N, 4]
-    one = torch.ones_like(Xh[..., 3])
-    Xh = Xh * torch.where(Xh[..., 3] < 0, -one, one)[..., None]
-    w = Xh[..., 3:]
-    return Xh[..., :3] / torch.where(w.abs() < _EPS,
-                                     torch.full_like(w, _EPS), w)
+    `kernels.triangulate_dlt`: the Jacobi kernel on the card (no host
+    sync) or the plain `torch.linalg.eigh` version
+    (ops/cuda/triangulate.py). The reference runs at float32 matmul
+    precision; so does the plain version. Two eigensolvers may pick
+    different eigenvectors of a near-degenerate normal matrix (a point
+    near infinity): compare such points only where both accept them."""
+    return kernels.triangulate_dlt(R, t, x1, x2)
 
 
 def decompose_essential(E: torch.Tensor):
@@ -131,7 +117,7 @@ def decompose_essential(E: torch.Tensor):
 
 
 def recover_pose(E: torch.Tensor, x1: torch.Tensor, x2: torch.Tensor,
-                 w: torch.Tensor):
+                 w: torch.Tensor, kernels: Kernels = KERNELS):
     """Pick the (R, t) among the 4 decompositions with max cheirality
     support (the first on ties). Returns (R, t, X [N, 3], front_mask [N])."""
     (R1, R2), tt = decompose_essential(E)
@@ -139,7 +125,7 @@ def recover_pose(E: torch.Tensor, x1: torch.Tensor, x2: torch.Tensor,
     ts = torch.stack([tt, -tt, tt, -tt])
     scores, Xs, fronts = [], [], []
     for R, t in zip(Rs, ts):
-        X = triangulate(R, t, x1, x2)
+        X = triangulate(R, t, x1, x2, kernels)
         X2 = X @ R.T + t
         front = (X[..., 2] > _EPS) & (X2[..., 2] > _EPS)
         scores.append((front * w).sum())

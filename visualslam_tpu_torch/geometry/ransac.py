@@ -23,6 +23,7 @@ from visualslam_tpu_torch.geometry.epipolar import (
     sampson_error,
 )
 from visualslam_tpu_torch.geometry.fivepoint import MAX_CANDIDATES, five_point
+from visualslam_tpu_torch.ops.cuda import KERNELS, Kernels
 from visualslam_tpu_torch.utils.config import RansacConfig
 from visualslam_tpu_torch.utils.masked import top_k
 
@@ -86,11 +87,12 @@ def ransac_essential(x1: torch.Tensor, x2: torch.Tensor, valid: torch.Tensor,
 
 def estimate_relative_pose(x1: torch.Tensor, x2: torch.Tensor,
                            valid: torch.Tensor, cfg: RansacConfig,
-                           gen: torch.Generator | None = None):
+                           gen: torch.Generator | None = None,
+                           kernels: Kernels = KERNELS):
     """RANSAC essential + cheirality-checked pose + triangulation.
 
     Returns (R, t_unit, X [M, 3] in camera-1 frame, inlier_mask,
     n_inliers). Translation is up-to-scale (unit norm)."""
     E, inl, _ = ransac_essential(x1, x2, valid, cfg, gen)
-    R, t, X, front = recover_pose(E, x1, x2, inl.to(x1.dtype))
+    R, t, X, front = recover_pose(E, x1, x2, inl.to(x1.dtype), kernels)
     return R, t, X, inl & front, (inl & front).sum()

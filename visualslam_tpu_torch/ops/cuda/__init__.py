@@ -6,12 +6,13 @@ version itself, and a launch counter (`<wrapper>.launches`, a plain integer
 that only a kernel launch increments). Nothing GPU-related happens at
 import.
 
-`KERNELS` is the set the frontend, the matcher and tracking call by
-default. `PLAIN` is the same set of plain versions: passing it runs the
-plain path on any device, which is how a run on the card compares the
-kernel path with the plain path. `segment.segment_sum`, the fixed-order
-sums of BA and the pose graph, is outside that set: it has no switch, and
-a CUDA tensor always takes the kernel. The launch counts cover all seven.
+`KERNELS` is the set the frontend, the matcher, tracking and
+triangulation call by default. `PLAIN` is the same set of plain versions:
+passing it runs the plain path on any device, which is how a run on the
+card compares the kernel path with the plain path. `segment.segment_sum`,
+the fixed-order sums of BA and the pose graph, is outside that set: it has
+no switch, and a CUDA tensor always takes the kernel. The launch counts
+cover all eight.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from visualslam_tpu_torch.ops.cuda import (
     distance,
     extrema,
     segment,
+    triangulate,
 )
 
 
@@ -34,15 +36,17 @@ class Kernels(NamedTuple):
     blur_stack: Callable
     l2_2nn: Callable
     extrema_score: Callable
+    triangulate_dlt: Callable
 
 
 KERNELS = Kernels(extrema.extrema_winners, descriptor.orient_hist,
                   descriptor.descriptor, blur.blur_stack, distance.l2_2nn,
-                  extrema.extrema_score)
+                  extrema.extrema_score, triangulate.triangulate_dlt)
 PLAIN = Kernels(extrema.extrema_winners_ref,
                 descriptor.orient_hist_levels_ref,
                 descriptor.descriptor_levels_ref, blur.blur_stack_ref,
-                distance.l2_2nn_ref, extrema.extrema_score_ref)
+                distance.l2_2nn_ref, extrema.extrema_score_ref,
+                triangulate.triangulate_ref)
 
 
 COUNTED = dict(KERNELS._asdict(), segment_sum=segment.segment_sum)
@@ -55,3 +59,17 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for fn in COUNTED.values():
         fn.launches = 0
+
+
+def set_launch_counts(counts: dict) -> None:
+    """Put the counters back to `counts` (a capture into a CUDA graph runs
+    the wrappers but launches nothing)."""
+    for name, n in counts.items():
+        COUNTED[name].launches = n
+
+
+def add_launch_counts(counts: dict) -> None:
+    """Add `counts` to the counters: a replayed CUDA graph launches the
+    kernels its capture recorded, without running the wrappers."""
+    for name, n in counts.items():
+        COUNTED[name].launches += n

@@ -66,7 +66,8 @@ def build(name: str) -> Path:
     return out
 
 
-SOURCES = ("extrema", "descriptor", "blur", "distance", "segment")
+SOURCES = ("extrema", "descriptor", "blur", "distance", "segment",
+           "triangulate")
 
 
 def build_all(names=SOURCES) -> list[Path]:

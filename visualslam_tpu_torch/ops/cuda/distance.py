@@ -14,7 +14,8 @@ last block of each A tile merges the splits in the same launch (a per-tile
 counter); the result does not depend on the split. One launch per call, one
 output allocation (three views of it); the SM count, the blocks an SM
 holds (the build's occupancy, asked of the kernel's library) and the
-scratch are cached.
+scratch are cached; a program captured in a CUDA graph brings its own
+scratch (`owned_scratch`).
 
 `l2_2nn` launches the kernel for CUDA tensors and runs the plain version
 for CPU tensors; anything else raises.
@@ -22,6 +23,7 @@ for CPU tensors; anything else raises.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 
@@ -85,24 +87,48 @@ def _blocks_per_sm(index: int, D: int, vec: bool) -> int:
 
 
 _scratch: dict = {}
+_owned = None       # (store, may grow) inside `owned_scratch`
+
+
+@contextlib.contextmanager
+def owned_scratch(store: dict, grow: bool):
+    """Inside the block, `l2_2nn` takes its scratch from `store` (one entry
+    per device, owned by the caller) instead of the per-stream cache. A
+    CUDA graph bakes in the scratch pointers its capture saw: a captured
+    program sizes its own scratch in an eager warm-up (grow=True) and
+    captures with grow=False, where a call that needs more raises, so
+    nothing regrows a buffer a graph still reads. Calls in one block must
+    not run concurrently (they share the counters)."""
+    global _owned
+    prev, _owned = _owned, (store, grow)
+    try:
+        yield store
+    finally:
+        _owned = prev
 
 
 def _scratch_for(device: torch.device, stream: int, n_counters: int,
                  n_part: int) -> tuple:
     """(counters int32 [n_counters], partials f32 [n_part]): views of one
     scratch tensor per (device, stream), grown when a call needs more, so
-    concurrent streams never share a counter. The counters start at 0 and
-    every launch leaves them at 0."""
-    key = (device, stream)
-    s = _scratch.get(key)
+    concurrent streams never share a counter; inside `owned_scratch`, the
+    caller's one per device. The counters start at 0 and every launch
+    leaves them at 0."""
+    store, grow = (_scratch, True) if _owned is None else _owned
+    key = (device, stream) if _owned is None else device
+    s = store.get(key)
     if s is None or s[0].numel() < n_counters or s[1].numel() < n_part:
+        if not grow:
+            raise RuntimeError(
+                "l2_2nn: a captured program's scratch is smaller than this "
+                f"call needs ({n_counters} counters, {n_part} partials)")
         if s is not None:
             n_counters = max(n_counters, s[0].numel())
             n_part = max(n_part, s[1].numel())
         buf = torch.zeros(n_counters + n_part, dtype=torch.int32,
                           device=device)
         s = (buf[:n_counters], buf[n_counters:].view(torch.float32))
-        _scratch[key] = s
+        store[key] = s
     return s
 
 

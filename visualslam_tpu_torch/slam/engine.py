@@ -22,17 +22,22 @@ back as one packed float32 buffer with exactly the JAX package's layout, so
 its `decode_packed` reads the port's buffer.
 
 Where the JAX package scans with `lax.scan` and branches with
-`lax.cond(need_kf, _promote, ...)`, the port runs a Python loop over the
-batch and reads `need_kf` to the host once per active frame (`.item()`,
-one host sync each): the only data-dependent Python branch. Frames outside
-[start, stop) are skipped on host ints (their outputs are masked in the
-reference). Every other choice is a `torch.where`; `mode="drop"` scatters
-write into a copy with one trash row. `run_engine_batch` never updates the
-caller's persist in place: it copies the loop database once per batch and
-appends to that copy, so a batch can be re-run from the same state.
-
-The JAX package's `engine_programs` (a cache of jitted entry points) has no
-counterpart: PyTorch runs these functions eagerly.
+`lax.cond(need_kf, _promote, ...)`, the port splits the scan's body in two
+functions with no host read: `engine_step` (one frame's tracking and
+keyframe decision) and `engine_promote` (the promotion). Every value the
+body needs of the batch is a device tensor: the frame index and counter,
+the promotion count (the record is a "drop" write at that row), the stats
+rows ([B, 24]) and the frame's features (gathered by a device index). A
+driver runs engine_step on each active frame [start, stop), reads its
+`need` to the host (`.item()`, one host sync per active frame) and runs
+engine_promote where it is set: `run_engine_batch` does so eagerly (the
+CPU, and the card's reference), `engine_programs` (`EngineProgram`) from
+CUDA graphs captured once per shape, the PyTorch counterpart of the JAX
+package's compiled programs. Every other choice is a `torch.where`;
+`mode="drop"` scatters write into a copy with one trash row. Neither driver
+updates the caller's persist in place: the loop database is copied once
+per batch and the promotions append to that copy, so a batch can be re-run
+from the same state.
 
 Capacities: K feature slots, Kl local-map slots, M match slots, W window
 cameras (cfg.ba.max_cameras), Ks loop subsample, CAP loop-database
@@ -41,6 +46,8 @@ entries, P = max promotions per batch.
 
 from __future__ import annotations
 
+import functools
+import time
 from typing import NamedTuple
 
 import numpy as np
@@ -51,14 +58,22 @@ from visualslam_tpu_torch.backend.pnp import refine_pose
 from visualslam_tpu_torch.geometry.camera import normalized
 from visualslam_tpu_torch.models.matching import match_features
 from visualslam_tpu_torch.models.types import Features, Keypoints
-from visualslam_tpu_torch.ops.cuda import KERNELS, Kernels
+from visualslam_tpu_torch.ops.cuda import (
+    KERNELS,
+    Kernels,
+    add_launch_counts,
+    distance,
+    launch_counts,
+    set_launch_counts,
+    triangulate,
+)
 from visualslam_tpu_torch.ops.distance import unpack_bits
 from visualslam_tpu_torch.slam.track_step import (
     KeyframeRef,
     LocalMap,
+    TrackLite,
     TrackState,
     build_local_map,
-    index_features,
     keyframe_step,
     track_step_lite,
 )
@@ -143,9 +158,12 @@ def engine_dyn(frame_base: int, start: int, stop: int, Kl: int,
 
 
 class _Carry(NamedTuple):
+    """A batch in flight, all on the device."""
+
     p: EnginePersist
-    prom_n: int               # promotions so far in this batch (host)
+    prom_n: torch.Tensor      # [] int32 promotions so far in this batch
     prom_buf: torch.Tensor    # [P, prom_record_size(M)]
+    stats: torch.Tensor       # [B, 24] per-frame stats rows
 
 
 def float_desc(desc: torch.Tensor) -> torch.Tensor:
@@ -402,10 +420,98 @@ def _global_desc(feats: Features):
     return descF, g / torch.linalg.vector_norm(g).clamp_min(1e-9)
 
 
-def _promote(c: _Carry, feats: Features, lite, i: int, fctr: int, intr,
-             cfg: SlamConfig, max_depth: float, P: int, ok_min: int,
-             kernels: Kernels = KERNELS) -> _Carry:
-    """The in-batch keyframe promotion, in the reference's order:
+class StepOut(NamedTuple):
+    """What `engine_step` hands to `engine_promote` for its frame."""
+
+    feats: Features          # the frame's features
+    lite: TrackLite          # its tracking result
+    need: torch.Tensor       # [] bool: promote it (prom_n < P included)
+
+
+def frame_features(feats_b: Features, i: torch.Tensor) -> Features:
+    """Frame i of batched Features for a 0-d device index (a copy; indexing
+    by a tensor would read i to the host)."""
+
+    def take(x):
+        if x.dtype == torch.uint32:
+            return take(x.view(torch.int32)).view(torch.uint32)
+        return x.index_select(0, i.reshape(1).long())[0]
+
+    return Features(Keypoints(*(take(x) for x in feats_b.keypoints)),
+                    take(feats_b.descriptors))
+
+
+def _set_row(stats: torch.Tensor, i: torch.Tensor,
+             row: torch.Tensor) -> torch.Tensor:
+    """stats with row i replaced (a copy)."""
+    return stats.index_copy(0, i.reshape(1).long(), row[None])
+
+
+def _stats_row(lite: TrackLite, R, t, vel, promoted: float) -> torch.Tensor:
+    """A frame's [24] stats row: the track_step_lite stats [0:4], the pose
+    and velocity after the frame, [promoted, 0]."""
+    flags = lite.stats.new_zeros(2)
+    if promoted:
+        flags = torch.cat([lite.stats.new_ones(1), lite.stats.new_zeros(1)])
+    return torch.cat([lite.stats[:4], R.reshape(-1), t, vel, flags])
+
+
+def engine_enter(persist: EnginePersist, kill: torch.Tensor,
+                 kill_gen: torch.Tensor, B: int, P: int, M: int) -> _Carry:
+    """A batch's starting carry: the host-side invalidations (lag-1) applied
+    where the generation matches, no promotion yet."""
+    dev = persist.R.device
+    kill = kill & (kill_gen == persist.lm_gen)
+    return _Carry(
+        p=persist._replace(lm_valid=persist.lm_valid & ~kill),
+        prom_n=torch.zeros((), dtype=_I32, device=dev),
+        prom_buf=torch.zeros((P, prom_record_size(M)), dtype=_F32,
+                             device=dev),
+        stats=torch.zeros((B, 24), dtype=_F32, device=dev))
+
+
+def engine_step(c: _Carry, feats_b: Features, i: torch.Tensor,
+                frame_base: torch.Tensor, intr: torch.Tensor,
+                cfg: SlamConfig, ok_min: int, P: int,
+                kernels: Kernels = KERNELS) -> tuple[_Carry, StepOut]:
+    """Track active frame i (a 0-d int32 device index) of the batch:
+    track_step_lite against the device local map, the landmarks' last
+    association, frames since the keyframe, the keyframe decision and the
+    frame's stats row. No host read: the caller reads `need` to decide on
+    `engine_promote`."""
+    p = c.p
+    feats = frame_features(feats_b, i)
+    lmap = LocalMap(desc=p.lm_desc, X=p.lm_X, valid=p.lm_valid)
+    lite = track_step_lite(lmap, feats, TrackState(p.R, p.t, p.vel), intr,
+                           cfg, ok_min, kernels)
+    fctr = frame_base + i
+    seen = lite.ml_gated & lite.ml_inlier
+    Kl = p.lm_last.shape[0]
+    hit = _set_drop(torch.zeros_like(p.lm_valid),
+                    torch.where(seen, lite.ml_idx_a.long(),
+                                torch.full_like(lite.ml_idx_a, Kl,
+                                                dtype=torch.int64)),
+                    True)
+    lm_last = torch.where(hit, fctr, p.lm_last)
+    since = p.since_kf + 1
+    inl = lite.stats[1]
+    need = (lite.ok & (since >= cfg.keyframe_min_gap)
+            & ((inl < cfg.keyframe_min_inliers)
+               | (since >= cfg.keyframe_max_gap))
+            & (c.prom_n < P))
+    p = p._replace(R=lite.R, t=lite.t, vel=lite.vel, lm_last=lm_last,
+                   since_kf=torch.where(need, 0, since))
+    stats = _set_row(c.stats, i, _stats_row(lite, lite.R, lite.t, lite.vel,
+                                            0.0))
+    return c._replace(p=p, stats=stats), StepOut(feats, lite, need)
+
+
+def engine_promote(c: _Carry, step: StepOut, i: torch.Tensor,
+                   frame_base: torch.Tensor, intr: torch.Tensor,
+                   cfg: SlamConfig, max_depth: float, P: int, ok_min: int,
+                   kernels: Kernels = KERNELS) -> _Carry:
+    """The in-batch keyframe promotion of frame i, in the reference's
+    order (no host read):
 
       1. window BA over the device observation grid
       2. re-refine the current frame's pose against the adjusted local map
@@ -413,8 +519,13 @@ def _promote(c: _Carry, feats: Features, lite, i: int, fctr: int, intr,
       4. local-map maintenance, keyframe-reference swap, window append +
          observation-grid update
       5. loop database entry + retrieval + verification
-    """
+
+    The promotion record goes to row prom_n of the batch's buffer and the
+    frame's stats row is rewritten with the refined pose. The loop
+    database is appended IN PLACE: c.p's database is the batch's own."""
     p = c.p
+    feats, lite = step.feats, step.lite
+    fctr = frame_base + i
     K = feats.capacity
     Kl = p.lm_desc.shape[0]
     Ks = cfg.loop.sub_keypoints
@@ -549,14 +660,15 @@ def _promote(c: _Carry, feats: Features, lite, i: int, fctr: int, intr,
                                       sub_haslm, R_cur, t_cur)):
         _ring_write(getattr(p, name), wr, val)
 
-    # ---- promotion record --------------------------------------------
-    hdr = torch.cat([full.stats.new_full((1,), float(i)), full.stats[:1],
+    # ---- promotion record + the frame's stats row --------------------
+    hdr = torch.cat([i.to(_F32).reshape(1), full.stats[:1],
                      full.stats.new_zeros(HDR - 2)])
     ai = torch.cat([full.assoc_i.to(_F32), slot.to(_F32)[:, None]], 1)
     rec = torch.cat([hdr, ai.reshape(-1), full.assoc_f.reshape(-1),
                      loop_pack.reshape(-1)])
-    n = c.prom_n
-    prom_buf = torch.cat([c.prom_buf[:n], rec[None], c.prom_buf[n + 1:]])
+    prom_buf = _set_drop(c.prom_buf, c.prom_n.reshape(1), rec[None])
+    stats = _set_row(c.stats, i, _stats_row(step.lite, R_cur, t_cur, p.vel,
+                                            1.0))
 
     p = p._replace(
         R=R_cur, t=t_cur,
@@ -567,82 +679,26 @@ def _promote(c: _Carry, feats: Features, lite, i: int, fctr: int, intr,
         win_R=win_R, win_t=win_t, win_valid=win_valid, win_fid=win_fid,
         win_n=win_n, obs_x=obs_x, obs_ok=obs_ok, ba_cost=ba_cost,
         db_n=(p.db_n + 1).clamp(max=CAP))
-    return _Carry(p=p, prom_n=n + 1, prom_buf=prom_buf)
+    return _Carry(p=p, prom_n=c.prom_n + 1, prom_buf=prom_buf, stats=stats)
 
 
-def run_engine_batch(persist: EnginePersist, dyn: EngineDyn,
-                     feats_b: Features, intr: torch.Tensor, cfg: SlamConfig,
-                     ok_min: int, max_depth: float,
-                     kernels: Kernels = KERNELS):
-    """The whole-batch program. Returns (packed f32 buffer, new persist).
-
-    packed layout: [B*24 stats][prom_n][db_n][P * prom_record_size(M)]
-    [tail_size(W, Kl) telemetry tail]. stats row: the track_step_lite
-    stats [0:4], then R(9), t(3), vel(6) after the frame (post-promotion
-    on a promoted frame), [22] promoted, [23] spare.
-
-    One host sync per active frame (`need_kf`), plus one per promotion
-    inside `keyframe_step` (`eigh`). Float32 matmuls (TF32 off)."""
-    f32_matmul()
-    B = feats_b.keypoints.yx.shape[0]
-    M = cfg.match.max_matches
-    P = max(1, -(-B // max(1, cfg.keyframe_min_gap)))
-    dev = persist.R.device
-
-    # host-side invalidations (lag-1): only where the generation matches;
-    # the loop database is copied once, the promotions append to the copy
-    kill = dyn.kill & (dyn.kill_gen == persist.lm_gen)
-    persist = persist._replace(
-        lm_valid=persist.lm_valid & ~kill,
-        **{f: getattr(persist, f).clone() for f in _DB_FIELDS})
-    c = _Carry(p=persist, prom_n=0,
-               prom_buf=torch.zeros((P, prom_record_size(M)), dtype=_F32,
-                                    device=dev))
-    # stats [22:24] of a frame: [promoted, 0], row 0 or row 1 of this
-    flags = torch.ones((2, 2), dtype=_F32, device=dev).tril(-1)
-    zeros4 = torch.zeros(4, dtype=_F32, device=dev)
-    rows = []
-    for i in range(B):
-        p = c.p
-        if not dyn.start <= i < dyn.stop:
-            rows.append(torch.cat([zeros4, p.R.reshape(-1), p.t, p.vel,
-                                   flags[0]]))
-            continue
-        feats = index_features(feats_b, i)
-        lmap = LocalMap(desc=p.lm_desc, X=p.lm_X, valid=p.lm_valid)
-        lite = track_step_lite(lmap, feats, TrackState(p.R, p.t, p.vel),
-                               intr, cfg, ok_min, kernels)
-        fctr = dyn.frame_base + i
-        seen = lite.ml_gated & lite.ml_inlier
-        Kl = p.lm_last.shape[0]
-        hit = _set_drop(torch.zeros_like(p.lm_valid),
-                        torch.where(seen, lite.ml_idx_a.long(),
-                                    torch.full_like(lite.ml_idx_a, Kl,
-                                                    dtype=torch.int64)),
-                        True)
-        lm_last = torch.where(hit, fctr, p.lm_last)
-        since = p.since_kf + 1
-        inl = lite.stats[1]
-        need_dev = (lite.ok & (since >= cfg.keyframe_min_gap)
-                    & ((inl < cfg.keyframe_min_inliers)
-                       | (since >= cfg.keyframe_max_gap)))
-        # the one data-dependent branch: a host read per active frame
-        need_kf = c.prom_n < P and bool(need_dev.item())
-        c = c._replace(p=p._replace(
-            R=lite.R, t=lite.t, vel=lite.vel, lm_last=lm_last,
-            since_kf=torch.zeros_like(since) if need_kf else since))
-        if need_kf:
-            c = _promote(c, feats, lite, i, fctr, intr, cfg, max_depth, P,
-                         ok_min, kernels)
-        # pose fields come from the carry: a promotion refines them past
-        # the lite values (window BA + re-PnP)
-        rows.append(torch.cat([lite.stats[:4], c.p.R.reshape(-1), c.p.t,
-                               c.p.vel, flags[int(need_kf)]]))
-
+def engine_pack(c: _Carry, R0: torch.Tensor, t0: torch.Tensor,
+                vel0: torch.Tensor, start, stop) -> torch.Tensor:
+    """The batch's packed buffer. Frames before `start` (an int or a 0-d
+    device tensor) report the batch's input pose, frames from `stop` on its
+    final one, both with zero stats, as the JAX package's masked scan
+    steps do."""
     p = c.p
-    packed = torch.cat([
-        torch.stack(rows).reshape(-1),
-        c.prom_buf.new_full((1,), float(c.prom_n)),
+    B = c.stats.shape[0]
+    frame = torch.arange(B, device=c.stats.device)
+    z4, z2 = c.stats.new_zeros(4), c.stats.new_zeros(2)
+    before = torch.cat([z4, R0.reshape(-1), t0, vel0, z2])
+    after = torch.cat([z4, p.R.reshape(-1), p.t, p.vel, z2])
+    stats = torch.where((frame < start)[:, None], before,
+                        torch.where((frame >= stop)[:, None], after, c.stats))
+    return torch.cat([
+        stats.reshape(-1),
+        c.prom_n.to(_F32)[None],
         p.db_n.to(_F32)[None],
         c.prom_buf.reshape(-1),
         # telemetry tail: post-BA window + landmark state for the host map
@@ -651,7 +707,49 @@ def run_engine_batch(persist: EnginePersist, dyn: EngineDyn,
         p.lm_X.reshape(-1), p.lm_valid.to(_F32),
         p.ba_cost.reshape(1),
     ])
-    return packed, p
+
+
+def promotions_cap(B: int, cfg: SlamConfig) -> int:
+    """P, the promotion records a batch of B frames has room for."""
+    return max(1, -(-B // max(1, cfg.keyframe_min_gap)))
+
+
+def run_engine_batch(persist: EnginePersist, dyn: EngineDyn,
+                     feats_b: Features, intr: torch.Tensor, cfg: SlamConfig,
+                     ok_min: int, max_depth: float,
+                     kernels: Kernels = KERNELS):
+    """The whole-batch program, eagerly. Returns (packed f32 buffer, new
+    persist).
+
+    packed layout: [B*24 stats][prom_n][db_n][P * prom_record_size(M)]
+    [tail_size(W, Kl) telemetry tail]. stats row: the track_step_lite
+    stats [0:4], then R(9), t(3), vel(6) after the frame (post-promotion
+    on a promoted frame), [22] promoted, [23] spare.
+
+    engine_step on every active frame, engine_promote where its `need`
+    reads True: one host sync per active frame, none per promotion.
+    Float32 matmuls (TF32 off)."""
+    f32_matmul()
+    B = feats_b.keypoints.yx.shape[0]
+    P = promotions_cap(B, cfg)
+    dev = persist.R.device
+    # the loop database is copied once, the promotions append to the copy
+    persist = persist._replace(
+        **{f: getattr(persist, f).clone() for f in _DB_FIELDS})
+    c = engine_enter(persist, dyn.kill, dyn.kill_gen, B, P,
+                     cfg.match.max_matches)
+    base = torch.full((), dyn.frame_base, dtype=_I32, device=dev)
+    for i in range(dyn.start, dyn.stop):
+        idx = torch.full((), i, dtype=_I32, device=dev)
+        c, step = engine_step(c, feats_b, idx, base, intr, cfg, ok_min, P,
+                              kernels)
+        # the one data-dependent branch: a host read per active frame
+        if bool(step.need.item()):
+            c = engine_promote(c, step, idx, base, intr, cfg, max_depth, P,
+                               ok_min, kernels)
+    packed = engine_pack(c, persist.R, persist.t, persist.vel, dyn.start,
+                         dyn.stop)
+    return packed, c.p
 
 
 def engine_relocalize(persist: EnginePersist, db_n, feats: Features,
@@ -994,3 +1092,377 @@ def db_append_host(persist: EnginePersist, n: int, g, desc, yx, lmw, haslm,
                                    else v, device=dev)
         out[f] = x
     return persist._replace(db_n=persist.db_n.clamp(min=n + 1), **out)
+
+
+# ---------------------------------------------------------------------
+# engine_programs: the entry points replayed from captured CUDA graphs
+# ---------------------------------------------------------------------
+
+
+def _leaves(tree) -> list:
+    """The tensors of nested NamedTuples and lists, in order."""
+    if isinstance(tree, (tuple, list)):
+        return [x for sub in tree for x in _leaves(sub)]
+    return [tree]
+
+
+def _map(fn, tree):
+    if isinstance(tree, tuple):
+        return type(tree)(*(_map(fn, x) for x in tree))
+    return fn(tree)
+
+
+def _signature(*trees) -> tuple:
+    """Shape, dtype and device of every tensor: what a capture bakes in."""
+    return tuple((tuple(x.shape), x.dtype, x.device)
+                 for t in trees for x in _leaves(t))
+
+
+def _static(x: torch.Tensor) -> torch.Tensor:
+    return torch.empty(x.shape, dtype=x.dtype, device=x.device)
+
+
+def _copy_all(dst: list, src: list) -> None:
+    """dst[k].copy_(src[k]) for every pair that is not one tensor, in the
+    fewest launches torch offers (its multi-tensor copy)."""
+    pairs = [(d, s) for d, s in zip(dst, src) if d is not s]
+    if pairs:
+        torch._foreach_copy_([d for d, _ in pairs], [s for _, s in pairs])
+
+
+def _assign(dst, src) -> None:
+    """Copy a body's results into the static tensors they replace (inside
+    a capture the copies become part of the graph)."""
+    for d, s in zip(_leaves(dst), _leaves(src)):
+        if d is s:
+            continue
+        if d.shape != s.shape or d.dtype != s.dtype:
+            raise RuntimeError(f"engine program: a result of {tuple(s.shape)}"
+                               f" {s.dtype} for a static {tuple(d.shape)} "
+                               f"{d.dtype}")
+        d.copy_(s)
+
+
+def _clone_all(tree):
+    out = _map(torch.empty_like, tree)
+    _copy_all(_leaves(out), _leaves(tree))
+    return out
+
+
+class _Graph:
+    """One body captured as a CUDA graph: its outputs (tensors of the
+    graph's private pool, rewritten by every replay) and the launches of
+    each counted kernel (ops.cuda.COUNTED) that one replay makes. A capture
+    runs the kernels' wrappers without launching anything, so the counters
+    are put back after it and advanced on every replay instead. A body
+    that cannot be captured (a host sync, a pageable copy) raises here."""
+
+    def __init__(self, body):
+        before = launch_counts()
+        self.graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(self.graph):
+                self.out = body()
+        finally:
+            after = launch_counts()
+            set_launch_counts(before)
+        self.launches = {n: after[n] - before[n] for n in after
+                         if after[n] != before[n]}
+
+    def replay(self):
+        self.graph.replay()
+        add_launch_counts(self.launches)
+        return self.out
+
+
+class _Capture:
+    """Bodies warmed up eagerly on a side stream (library handles and
+    workspaces, the kernels' builds, the 2-NN scratch), then captured as
+    _Graphs. The 2-NN's scratch is the capture's own: the warm-up sizes it
+    and no capture regrows it (a graph keeps the pointers its capture
+    saw), so the program must hold `scratch` as long as its graphs.
+    `done` gives the seconds since the start and the device memory the
+    program now holds (a capture empties the allocator's cache; so do the
+    start and the end here, so the difference counts what stays)."""
+
+    def __init__(self, dev: torch.device):
+        self.dev = dev
+        self.scratch: dict = {}
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        self._t0 = time.perf_counter()
+        self._reserved = torch.cuda.memory_reserved(dev)
+
+    def warm_up(self, fn) -> None:
+        cur = torch.cuda.current_stream(self.dev)
+        side = torch.cuda.Stream(self.dev)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side), \
+                distance.owned_scratch(self.scratch, grow=True):
+            fn()
+        cur.wait_stream(side)
+
+    def graph(self, body) -> _Graph:
+        with distance.owned_scratch(self.scratch, grow=False):
+            return _Graph(body)
+
+    def done(self) -> tuple[float, int]:
+        torch.cuda.synchronize(self.dev)
+        torch.cuda.empty_cache()
+        return (time.perf_counter() - self._t0,
+                torch.cuda.memory_reserved(self.dev) - self._reserved)
+
+
+class _Uncaptured:
+    """A body run as it is on every replay: `_BatchGraphs(graphs=False)`,
+    which runs the graph program's data flow on any device (the CPU tests'
+    view of it)."""
+
+    def __init__(self, body):
+        self.body = body
+        self.out = None
+
+    def replay(self):
+        self.out = self.body()
+        return self.out
+
+
+class _BatchGraphs:
+    """run_engine_batch for one shape key as four graphs over one static
+    carry: enter (kill list, empty records), step (engine_step of the next
+    frame), promote (engine_promote of that frame), pack. The call copies
+    the caller's persist, features, intrinsics and kill list in, so any
+    input of this key replays. graphs=False runs the same bodies over the
+    same static buffers without capturing them."""
+
+    def __init__(self, prog: "EngineProgram", persist: EnginePersist,
+                 dyn: EngineDyn, feats_b: Features, intr: torch.Tensor,
+                 kernels: Kernels, graphs: bool = True):
+        cfg, ok_min, max_depth = prog.cfg, prog.ok_min, prog.max_depth
+        B = feats_b.keypoints.yx.shape[0]
+        P = promotions_cap(B, cfg)
+        dev = persist.R.device
+        cap = _Capture(dev) if graphs else None
+        self.persist = _map(_static, persist)
+        self.feats = _map(_static, feats_b)
+        self.intr = _static(intr)
+        self.kill, self.kill_gen = _static(dyn.kill), _static(dyn.kill_gen)
+        self.base, self.i, self.start, self.stop = (
+            torch.zeros((), dtype=_I32, device=dev) for _ in range(4))
+        self.R0, self.t0, self.vel0 = map(_static, (persist.R, persist.t,
+                                                    persist.vel))
+        self.carry = _Carry(
+            p=self.persist, prom_n=torch.zeros((), dtype=_I32, device=dev),
+            prom_buf=torch.zeros((P, prom_record_size(cfg.match.max_matches)),
+                                 dtype=_F32, device=dev),
+            stats=torch.zeros((B, 24), dtype=_F32, device=dev))
+
+        def enter():
+            c = engine_enter(self.persist, self.kill, self.kill_gen, B, P,
+                             cfg.match.max_matches)
+            _assign(self.carry, c)
+            _assign((self.R0, self.t0, self.vel0),
+                    (self.persist.R, self.persist.t, self.persist.vel))
+
+        def step():
+            self.i.add_(1)
+            c, out = engine_step(self.carry, self.feats, self.i, self.base,
+                                 self.intr, cfg, ok_min, P, kernels)
+            _assign(self.carry, c)
+            return out
+
+        def promote(out: StepOut):
+            c = engine_promote(self.carry, out, self.i, self.base,
+                               self.intr, cfg, max_depth, P, ok_min, kernels)
+            _assign(self.carry, c)
+
+        def pack():
+            return engine_pack(self.carry, self.R0, self.t0, self.vel0,
+                               self.start, self.stop)
+
+        f32_matmul()
+        self.capture_s, self.pool_bytes = 0.0, 0
+        if not graphs:
+            self.g_enter, self.g_step, self.g_pack = map(
+                _Uncaptured, (enter, step, pack))
+            self.g_promote = _Uncaptured(lambda: promote(self.g_step.out))
+            return
+        self._load(persist, dyn, feats_b, intr)
+        cap.warm_up(lambda: (enter(), promote(step()), pack()))
+        self.g_enter = cap.graph(enter)
+        self.g_step = cap.graph(step)
+        self.g_promote = cap.graph(lambda: promote(self.g_step.out))
+        self.g_pack = cap.graph(pack)
+        self.scratch = cap.scratch      # the graphs read it: keep it alive
+        # the statics, the scratch and the four graphs' private pools
+        self.capture_s, self.pool_bytes = cap.done()
+
+    def _load(self, persist, dyn, feats_b, intr) -> None:
+        _copy_all(_leaves((self.persist, self.feats, self.intr, self.kill,
+                           self.kill_gen)),
+                  _leaves((persist, feats_b, intr, dyn.kill, dyn.kill_gen)))
+        self.base.fill_(dyn.frame_base)
+        self.i.fill_(dyn.start - 1)
+        self.start.fill_(dyn.start)
+        self.stop.fill_(dyn.stop)
+
+    def run(self, persist, dyn, feats_b, intr):
+        self._load(persist, dyn, feats_b, intr)
+        self.g_enter.replay()
+        for _ in range(dyn.start, dyn.stop):
+            out = self.g_step.replay()
+            # the one host read per active frame
+            if bool(out.need.item()):
+                self.g_promote.replay()
+        packed = self.g_pack.replay()
+        return packed.clone(), _clone_all(self.persist)
+
+
+class EngineProgram:
+    """`engine_programs(...)["batch"]`: run_engine_batch, called as
+    program(persist, dyn, feats_b, intr, kernels).
+
+    On a CUDA device the batch replays CUDA graphs captured once per shape
+    key (the shapes, dtypes and device of every input, as the JAX package's
+    jit retraces on B, K, Kl, M, W and CAP) and per kernel set: the
+    counterpart of its one compiled program. The first call of a key warms
+    the bodies up on a side stream and captures them; a body that cannot
+    be captured raises (the call never runs the eager loop instead). A call
+    copies its inputs into the key's static buffers, replays the step graph
+    per active frame, reads that frame's `need` (one host sync), replays
+    the promote graph where it is set, packs, and returns copies: the
+    packed buffer and a persist that no later replay overwrites; the
+    caller's persist is left as it was. Replays run on the current stream,
+    one call at a time per program.
+
+    On the CPU the program is run_engine_batch itself (the caller asked
+    for the CPU), and so it is for the plain path (a kernel set whose
+    triangulation is the plain `triangulate_ref`, ops.cuda.PLAIN): its
+    `torch.linalg.eigh` reads cuSOLVER's status to the host, which no
+    graph can hold, so the plain path, the card's eager reference, stays
+    eager by construction. Either is decided from the arguments before
+    anything runs, never after a failure."""
+
+    def __init__(self, cfg: SlamConfig, ok_min: int, max_depth: float):
+        self.cfg, self.ok_min, self.max_depth = cfg, ok_min, max_depth
+        self.captured: dict = {}
+
+    def __call__(self, persist: EnginePersist, dyn: EngineDyn,
+                 feats_b: Features, intr: torch.Tensor,
+                 kernels: Kernels = KERNELS):
+        if (persist.R.device.type != "cuda"
+                or kernels.triangulate_dlt is triangulate.triangulate_ref):
+            return run_engine_batch(persist, dyn, feats_b, intr, self.cfg,
+                                    self.ok_min, self.max_depth, kernels)
+        key = (_signature(persist, feats_b, intr, dyn.kill, dyn.kill_gen),
+               kernels)
+        graphs = self.captured.get(key)
+        if graphs is None:
+            graphs = _BatchGraphs(self, persist, dyn, feats_b, intr, kernels)
+            self.captured[key] = graphs
+        return graphs.run(persist, dyn, feats_b, intr)
+
+
+class _RelocalizeGraph:
+    """engine_relocalize for one shape key as one graph over static copies
+    of the loop database, its count, the frame and the intrinsics."""
+
+    def __init__(self, cfg: SlamConfig, persist: EnginePersist,
+                 feats: Features, intr: torch.Tensor):
+        dev = persist.R.device
+        cap = _Capture(dev)
+        db = {f: _static(getattr(persist, f)) for f in _DB_FIELDS}
+        # the other fields are not read: empty placeholders on the device
+        self.persist = EnginePersist(**{
+            f: db.get(f, torch.empty(0, device=dev))
+            for f in EnginePersist._fields})
+        self.db_n = torch.zeros((), dtype=_I32, device=dev)
+        self.feats = _map(_static, feats)
+        self.intr = _static(intr)
+        self._load(persist, 0, feats, intr)
+
+        def body():
+            return engine_relocalize(self.persist, self.db_n, self.feats,
+                                     self.intr, cfg)
+
+        cap.warm_up(body)
+        self.graph = cap.graph(body)
+        self.scratch = cap.scratch      # the graph reads it: keep it alive
+        self.capture_s, self.pool_bytes = cap.done()
+
+    def _load(self, persist, db_n, feats, intr) -> None:
+        _copy_all(_leaves(([getattr(self.persist, f) for f in _DB_FIELDS],
+                           self.feats, self.intr)),
+                  _leaves(([getattr(persist, f) for f in _DB_FIELDS], feats,
+                           intr)))
+        if torch.is_tensor(db_n):
+            self.db_n.copy_(db_n)
+        else:
+            self.db_n.fill_(int(db_n))
+
+    def run(self, persist, db_n, feats, intr) -> torch.Tensor:
+        self._load(persist, db_n, feats, intr)
+        return self.graph.replay().clone()
+
+
+class RelocalizeProgram:
+    """`engine_programs(...)["relocalize"]`: engine_relocalize, called as
+    program(persist, db_n, feats, intr), replayed on a CUDA device from
+    one graph per shape key (`prepare` captures it ahead of use, as the
+    JAX package compiles it in Tracker.prewarm_aux); on the CPU the
+    function itself."""
+
+    def __init__(self, cfg: SlamConfig):
+        self.cfg = cfg
+        self.captured: dict = {}
+
+    def _graph(self, persist, feats, intr) -> _RelocalizeGraph:
+        key = _signature([getattr(persist, f) for f in _DB_FIELDS], feats,
+                         intr)
+        graph = self.captured.get(key)
+        if graph is None:
+            graph = _RelocalizeGraph(self.cfg, persist, feats, intr)
+            self.captured[key] = graph
+        return graph
+
+    def prepare(self, persist: EnginePersist, feats: Features,
+                intr: torch.Tensor) -> None:
+        """Capture the graph of these shapes without running it."""
+        if persist.R.device.type == "cuda":
+            self._graph(persist, feats, intr)
+
+    def __call__(self, persist: EnginePersist, db_n, feats: Features,
+                 intr: torch.Tensor) -> torch.Tensor:
+        if persist.R.device.type != "cuda":
+            return engine_relocalize(persist, db_n, feats, intr, self.cfg)
+        return self._graph(persist, feats, intr).run(persist, db_n, feats,
+                                                     intr)
+
+
+def empty_frame(persist: EnginePersist) -> Features:
+    """A frame of invalid, zeroed features with the shapes and types of the
+    persist's keyframe (for capturing a program ahead of its first
+    frame)."""
+    K = persist.kf_valid.shape[0]
+    dev = persist.R.device
+    return Features(Keypoints.empty(K, dev), torch.zeros_like(persist.kf_desc))
+
+
+@functools.lru_cache(maxsize=32)
+def engine_programs(cfg: SlamConfig, ok_min: int, max_depth: float) -> dict:
+    """The engine's entry points, shared across Tracker instances (the JAX
+    package's cache of jitted programs, with its four keys):
+
+      "batch"       EngineProgram: run_engine_batch from captured graphs
+      "relocalize"  RelocalizeProgram: engine_relocalize from one graph
+      "db_correct"  apply_correction, run eagerly
+      "db_append"   db_append_host, run eagerly
+
+    The last two run once per loop closure or host-path keyframe, a few
+    dozen launches each, and take host arrays: they stay eager functions."""
+    return {
+        "batch": EngineProgram(cfg, ok_min, max_depth),
+        "relocalize": RelocalizeProgram(cfg),
+        "db_correct": apply_correction,
+        "db_append": db_append_host,
+    }

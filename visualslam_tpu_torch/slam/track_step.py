@@ -219,7 +219,7 @@ def keyframe_step(kf: KeyframeRef, feats: Features, lite: TrackLite,
     x2 = normalized(feats.keypoints.yx[ib].flip(-1), intr)
     # relative pose keyframe -> current
     Rrel2, trel2 = se3.compose(R, t, *se3.inverse(kf.R, kf.t))
-    Xc1 = triangulate(Rrel2, trel2, x1, x2)             # keyframe cam frame
+    Xc1 = triangulate(Rrel2, trel2, x1, x2, kernels)    # keyframe cam frame
     Xw = (Xc1 - kf.t) @ kf.R                            # world
     z1 = Xc1[:, 2]
     Xc2 = Xw @ R.T + t

@@ -15,10 +15,13 @@ Pose convention: world-to-camera (x_cam = R X_w + t); world frame = first
 keyframe. Monocular scale is fixed at two-view init by normalizing the
 median scene depth to `init_depth`.
 
-Where the JAX package caches jitted programs per config
-(`_shared_programs`, `engine.engine_programs`), the port calls its
-functions directly: PyTorch runs them eagerly. The tracker owns one
-frontend module (the one `cfg.frontend` names) and one `torch.Generator` for RANSAC, split per two-view
+The engine runs through `engine.engine_programs` (shared per config, as
+the JAX package's jitted programs): on the card every engine batch and
+database relocalization replays CUDA graphs captured once per shape, and
+the loop correction and host-path database append run eagerly; on the CPU
+the same entry points are the eager functions. Where the JAX package caches
+its other jitted programs (`_shared_programs`), the port calls its
+functions directly. The tracker owns one frontend module (the one `cfg.frontend` names) and one `torch.Generator` for RANSAC, split per two-view
 init as the reference splits its PRNG key. Everything runs on `device`
 (the card unless the caller asks for the CPU); `kernels` picks the kernel
 path (ops.cuda.KERNELS) or the plain path (ops.cuda.PLAIN). The lag-1
@@ -47,6 +50,7 @@ from visualslam_tpu_torch.models.matching import match_features
 from visualslam_tpu_torch.models.types import Features, Keypoints
 from visualslam_tpu_torch.ops.cuda import KERNELS, Kernels
 from visualslam_tpu_torch.slam import engine
+from visualslam_tpu_torch.slam.engine import engine_programs
 from visualslam_tpu_torch.slam.map_state import SlamMap
 from visualslam_tpu_torch.slam.track_step import (
     KeyframeRef,
@@ -196,6 +200,8 @@ class Tracker:
         self._frontend_module = None     # the frontend, built on first use
         self._track_ok_min = max(10, cfg.keyframe_min_inliers // 3)
         self._max_depth = float(init_depth) * 20.0
+        self._eng_progs = engine_programs(self.cfg, self._track_ok_min,
+                                          self._max_depth)
         # device-side caches, rebuilt at every keyframe / correction
         self._kf_ref: Optional[KeyframeRef] = None
         self._lmap = None
@@ -402,8 +408,17 @@ class Tracker:
         return self._harvest_inflight(inflight)
 
     def prewarm_aux(self) -> None:
-        """The reference compiles its rare-event programs here; the port has
-        nothing to compile."""
+        """Capture the database relocalization's graph (engine_programs'
+        "relocalize") outside any timed loop, where the reference compiles
+        its rare-event programs. Call on a tracker whose engine has run (it
+        reads the persist's shapes); its state is left as it was. The loop
+        correction and the database append run eagerly: nothing to
+        prepare."""
+        if self._eng_persist is None:
+            return
+        self._eng_progs["relocalize"].prepare(
+            self._eng_persist, engine.empty_frame(self._eng_persist),
+            self.intr)
 
     def _harvest_inflight(self, inflight) -> list:
         """Harvest a dispatched batch. If the harvest aborts mid-batch
@@ -491,11 +506,18 @@ class Tracker:
         with self._stage("engine_dyn"):
             dyn = self._engine_dyn(i0, first_fid, stop)
         with self._stage("engine_dispatch"):
-            packed_dev, persist = engine.run_engine_batch(
-                self._eng_persist, dyn, feats_b, self.intr, self.cfg,
-                self._track_ok_min, self._max_depth, self.kernels)
+            packed_dev, persist = self._engine_batch(self._eng_persist, dyn,
+                                                     feats_b)
         self._eng_persist = persist
         return (self._readback(packed_dev), feats_b, first_fid, i0, B, stop)
+
+    def _engine_batch(self, persist, dyn, feats_b):
+        """One engine batch: engine_programs' "batch" (captured graphs on
+        the card). Returns (packed, new persist); neither aliases the
+        program's buffers, so the packed read-back queued after it reads
+        this batch."""
+        return self._eng_progs["batch"](persist, dyn, feats_b, self.intr,
+                                        self.kernels)
 
     def _engine_harvest(self, inflight):
         """Consume one batch's telemetry: decode stats + promotion records,
@@ -689,7 +711,7 @@ class Tracker:
         else:
             Rl, tl, sl = (np.eye(3, dtype=np.float32),
                           np.zeros(3, np.float32), 1.0)
-        self._eng_persist = engine.apply_correction(
+        self._eng_persist = self._eng_progs["db_correct"](
             self._eng_persist, Rg, tg, sg, Rc, tc, n,
             np.asarray(Rl, np.float32), np.asarray(tl, np.float32),
             np.float32(sl))
@@ -715,7 +737,7 @@ class Tracker:
             out[:k] = a[:k]
             return out
 
-        self._eng_persist = engine.db_append_host(
+        self._eng_persist = self._eng_progs["db_append"](
             p, self._eng_db_n, entry.global_desc.astype(np.float32),
             fit(entry.desc, (Ks, Df)), fit(entry.yx, (Ks, 2)),
             fit(entry.lm_world, (Ks, 3)), fit(entry.has_lm, (Ks,), bool),
@@ -773,7 +795,8 @@ class Tracker:
         x2 = normalized(feats.keypoints.yx[m.idx_b.long()].flip(-1),
                         self.intr)
         R, t, X, inl, n = ransac.estimate_relative_pose(
-            x1, x2, m.valid, self.cfg.ransac, self._split_generator())
+            x1, x2, m.valid, self.cfg.ransac, self._split_generator(),
+            self.kernels)
         n = int(n)
         n_match = int(m.count())
         if n < self.cfg.keyframe_min_inliers:
@@ -927,9 +950,8 @@ class Tracker:
         from_db = False
         if (self.engine and self._eng_persist is not None
                 and self._eng_db_n > 0 and self.loop_closer is not None):
-            rows = _host(engine.engine_relocalize(
-                self._eng_persist, self._eng_db_n, feats, self.intr,
-                self.cfg))
+            rows = _host(self._eng_progs["relocalize"](
+                self._eng_persist, self._eng_db_n, feats, self.intr))
             lc = self.loop_closer
             for row in rows:
                 r = engine.decode_loop_row(row)

@@ -32,7 +32,8 @@ def two_view_from_features(fa: Features, fb: Features, intr: torch.Tensor,
     m = match_features(fa, fb, cfg.match, kernels)
     x1 = normalized(fa.keypoints.yx[m.idx_a.long()].flip(-1), intr)
     x2 = normalized(fb.keypoints.yx[m.idx_b.long()].flip(-1), intr)
-    R, t, X, inl, n = estimate_relative_pose(x1, x2, m.valid, cfg.ransac, gen)
+    R, t, X, inl, n = estimate_relative_pose(x1, x2, m.valid, cfg.ransac, gen,
+                                             kernels)
     return TwoViewResult(R=R, t=t, points=X, matches=m, inliers=inl,
                          num_inliers=n)
 

@@ -1,8 +1,8 @@
 """Drivers of the tracking slices from a ground-truth bootstrap: keyframes
 at two known poses (`bootstrap`), then either one tracking window
 (`run_window`: track_batch over the batch, one keyframe promotion with
-triangulation, and the window BA) or the engine (`run_engine`:
-run_engine_batch over consecutive batches, the persist chained device to
+triangulation, and the window BA) or the engine (`run_engine`: the
+engine batch over consecutive batches, the persist chained device to
 device).
 
 The bootstrap stands in for the host tracker's two-view init (8-point
@@ -66,10 +66,17 @@ def world_to_camera(gt_poses: np.ndarray):
 
 def port_ops(device="cuda", kernels: Kernels = KERNELS) -> SimpleNamespace:
     """This package's functions for `run_window` and `run_engine`, on
-    `device` (the card unless the caller passes device="cpu")."""
+    `device` (the card unless the caller passes device="cpu"). The engine
+    batch is engine_programs' "batch": captured CUDA graphs on the card,
+    run_engine_batch itself on the CPU."""
+
+    def run_engine_batch(persist, dyn, feats_b, intr, cfg, ok_min,
+                         max_depth):
+        return engine.engine_programs(cfg, ok_min, max_depth)["batch"](
+            persist, dyn, feats_b, intr, kernels)
+
     return SimpleNamespace(
-        run_engine_batch=functools.partial(engine.run_engine_batch,
-                                           kernels=kernels),
+        run_engine_batch=run_engine_batch,
         build_persist_from_host=functools.partial(
             engine.build_persist_from_host, device=device),
         engine_dyn=functools.partial(engine.engine_dyn, device=device),
