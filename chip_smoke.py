@@ -153,11 +153,22 @@ Phases, each printing its own lines:
                kernels' launches, keyframes, loop closures, ATE / RPE;
                the same protocol with EagerTracker (engine_dispatch
                seconds, frames/s, keyframes, closures beside the graph
-               path's); the
-               full-sequence global BA (schur_mf) cold and warm, with its
-               host syncs, launches and segment_sum launches; the three BA
-               solvers on that problem, 8 runs each, equal bit for bit in
-               the default mode and against the float64 dense LM run;
+               path's; the eager engine batch, pose graph and global BA);
+               loop_optimize split into the pose-graph program,
+               db_correct, the wait for queued device work and host work,
+               on both paths; the first closure's padded Sim(3) graph and
+               a synthetic 256-node SE(3) graph through their programs
+               (optimize_sim3_graph_jit / optimize_pose_graph_jit) and
+               eagerly: equal bit for bit, ms per optimize, host launch
+               calls, device kernels and busy, 0 host syncs in a replay,
+               capture s and bytes; the full-sequence global BA
+               (run_ba_jit, schur_mf) cold with its capture and warm (a
+               replay of the cold key), equal to the eager run_ba bit for
+               bit, with host syncs, launches and segment_sum launches;
+               the three BA solvers on that problem, 8 runs each through
+               run_ba_jit, equal bit for bit to each other and to the
+               eager run_ba in the default mode and against the float64
+               dense LM run;
                a checkpoint round trip (bit for
                bit, and the resumed tracker's global BA); the pose file.
                Checked against half / twice the JAX package's figures on
@@ -238,7 +249,8 @@ import torch
 import torch.nn.functional as F
 
 from visualslam_tpu_torch import bench, kitti_scale
-from visualslam_tpu_torch.backend.ba import run_ba
+from visualslam_tpu_torch.backend.ba import run_ba, run_ba_jit
+from visualslam_tpu_torch.backend.pose_graph import resolve_solver
 from visualslam_tpu_torch.frontend import SiftFrontend, make_frontend
 from visualslam_tpu_torch.geometry import se3
 from visualslam_tpu_torch.geometry.camera import normalized
@@ -293,8 +305,9 @@ from visualslam_tpu_torch.slam.window import (
     run_window,
     world_to_camera,
 )
-from visualslam_tpu_torch.utils.config import DEFAULT_CONFIG, FAST_CONFIG
 from visualslam_tpu_torch.utils.card import card_name
+from visualslam_tpu_torch.utils.config import DEFAULT_CONFIG, FAST_CONFIG
+from visualslam_tpu_torch.utils.graphs import _leaves, _signature
 from visualslam_tpu_torch.utils.masked import block_top_k_select
 from visualslam_tpu_torch.utils.profiling import StageTimer
 
@@ -1930,10 +1943,31 @@ def sequence_stats(tracker, gt_centres: np.ndarray, n: int) -> dict:
                 min_inliers=int(min(inl or [0])))
 
 
+class EagerProgram:
+    """A solver program's eager function in the program's place, called as
+    the program is (prepare: nothing to capture)."""
+
+    def __init__(self, prog):
+        self.fn = prog.fn
+
+    def __call__(self, x, cfg):
+        return self.fn(x, cfg)
+
+    def prepare(self, x, cfg) -> None:
+        pass
+
+
 class EagerTracker(Tracker):
     """The tracker with every engine batch through the eager
-    run_engine_batch in place of engine_programs' captured graphs: the
-    graph path's comparison, here and nowhere in the package."""
+    run_engine_batch in place of engine_programs' captured graphs, and the
+    loop closer's pose graph through the eager optimize_sim3_graph /
+    optimize_pose_graph in place of their programs: the graph path's
+    comparison, here and nowhere in the package."""
+
+    def __init__(self, *a, **kw):
+        super().__init__(*a, **kw)
+        if self.loop_closer is not None:
+            self.loop_closer.program = EagerProgram(self.loop_closer.program)
 
     def _engine_batch(self, persist, dyn, feats_b):
         return engine.run_engine_batch(persist, dyn, feats_b, self.intr,
@@ -2654,6 +2688,131 @@ def state_diffs(a, b) -> list:
     return diffs
 
 
+class LoopParts:
+    """A tracker's loop_optimize stage split in parts: `wait` (the work
+    already queued on the device, drained by a synchronize before each
+    timed call), `pose_graph` (the loop closer's program, from the call
+    until its result is ready), `db_correct` (the engine's database
+    correction, likewise) and, by difference from the stage's total,
+    `host` (the loop closer's numpy assembly and corrections, the window's
+    correction). Wraps the tracker's loop-closer program and its
+    db_correct; keeps the first pose-graph call's graph, cfg and result."""
+
+    PARTS = ("wait", "pose_graph", "db_correct")
+
+    def __init__(self, tracker):
+        self.s = dict.fromkeys(self.PARTS, 0.0)
+        self.calls = 0
+        self.first = None
+        lc = tracker.loop_closer
+        prog, db = lc.program, tracker._eng_progs["db_correct"]
+
+        def timed(part, fn):
+            def call(*a):
+                t0 = time.perf_counter()
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                out = fn(*a)
+                torch.cuda.synchronize()
+                self.s["wait"] += t1 - t0
+                self.s[part] += time.perf_counter() - t1
+                return out
+            return call
+
+        timed_pg = timed("pose_graph", prog)
+
+        def program(g, cfg):
+            out = timed_pg(g, cfg)
+            self.calls += 1
+            if self.first is None:
+                self.first = (g, cfg, out)
+            return out
+
+        program.prepare = prog.prepare
+        lc.program = program
+        tracker._eng_progs = dict(tracker._eng_progs,
+                                  db_correct=timed("db_correct", db))
+
+    def split(self, timer: StageTimer) -> dict:
+        """{part: seconds} over the run, the stage's total and its count."""
+        st = timer.summary().get("loop_optimize",
+                                 {"total_s": 0.0, "count": 0})
+        out = dict(self.s, host=st["total_s"] - sum(self.s.values()))
+        return dict(out, total=st["total_s"], count=st["count"],
+                    pose_graph_calls=self.calls)
+
+
+def print_split(name: str, split: dict) -> None:
+    n = max(split["pose_graph_calls"], 1)
+    print(f"{name} loop_optimize split ({split['count']} closures, "
+          f"{split['total']:.3f} s): pose-graph program "
+          f"{split['pose_graph']:.3f} s ({1e3 * split['pose_graph'] / n:.1f}"
+          f" ms per optimize), db_correct {split['db_correct']:.3f} s, wait "
+          f"for queued device work {split['wait']:.3f} s, host work "
+          f"{split['host']:.3f} s")
+
+
+def solver_program_check(what: str, prog, x, cfg, ran=None) -> None:
+    """A solver program (utils/graphs.LoopProgram) against its eager
+    function on x: equal bit for bit (and `ran`, the program's result in
+    the run, likewise), ms per call graph (median of 3) / eager (the one
+    compared: a pose graph's eager solve takes seconds), host launch
+    calls, device kernels and busy of one call each, host syncs inside a
+    warm replay (0), and the key's capture seconds and bytes."""
+    got = prog(x, cfg)
+    graphs = prog.captured[(_signature(x), cfg)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eager = prog.fn(x, cfg)
+    torch.cuda.synchronize()
+    ms_e = 1e3 * (time.perf_counter() - t0)
+    same = all(torch.equal(a, b) for a, b in zip(_leaves(got),
+                                                 _leaves(eager)))
+    if ran is not None:
+        same = same and all(torch.equal(a, b) for a, b in
+                            zip(_leaves(ran), _leaves(eager)))
+    ms = wall_ms(lambda: prog(x, cfg), 3)
+    syncs = count_syncs(lambda: prog(x, cfg))
+    k, busy, _, host = profile_launches(lambda: prog(x, cfg))
+    k_e, busy_e, _, host_e = profile_launches(lambda: prog.fn(x, cfg))
+    print(f"{what} ({prog.__name__}, {x.R.shape[0]} nodes, "
+          f"{x.i.shape[0]} edges, {cfg.iters} LM iterations, solver "
+          f"{resolve_solver(cfg, x.R.shape[0])}, cost "
+          f"{float(eager.initial_cost):.6e} -> {float(eager.cost):.6e}): "
+          f"equal bit for bit {same}; ms per optimize graph {ms:.3f} / "
+          f"eager {ms_e:.3f}; host launch calls {host} / {host_e}; device "
+          f"kernels {k} / {k_e}; device busy {busy} / {busy_e} ms; host "
+          f"syncs inside a replay {syncs}; capture {graphs.capture_s:.3f} "
+          f"s, {graphs.pool_bytes / 2 ** 20:.1f} MiB")
+    check(same, f"{what}: the program equals the eager solve bit for bit")
+    check(syncs == 0, f"{what}: a replay makes no host sync")
+
+
+def synthetic_se3_graph(dev) -> tuple:
+    """(an SE(3) loop closer at KS_CONFIG's pose-graph settings, the
+    padded graph it builds for a drifting loop of 60 keyframes with one
+    loop edge: 256 nodes, 1024 edges)."""
+    from visualslam_tpu_torch.slam.loop_closure import LoopCloser
+
+    lc = LoopCloser(np.eye(3, dtype=np.float32), KS_CONFIG.match,
+                    KS_CONFIG.pose_graph, use_sim3=False, device=dev)
+    r = np.random.default_rng(0)
+    n = 60
+    ang = np.linspace(0, 2 * np.pi * (n - 1) / n, n)
+    R = se3.exp_so3(torch.tensor(np.stack(
+        [np.zeros(n), -ang, np.zeros(n)], 1), dtype=torch.float32)).numpy()
+    c = np.stack([10 * np.sin(ang), np.zeros(n), 10 * np.cos(ang) - 10], 1)
+    t = -np.einsum("nij,nj->ni", R, c).astype(np.float32)
+    ii, jj = list(range(n - 1)) + [0], list(range(1, n)) + [n - 1]
+    Rm = [R[a].T @ R[b] for a, b in zip(ii, jj)]
+    tm = [R[a].T @ (t[b] - t[a]) + (r.normal(0, 0.05, 3) if a + 1 == b
+                                     else 0.0) for a, b in zip(ii, jj)]
+    t_drift = (t + r.normal(0, 0.1, t.shape)).astype(np.float32)
+    g = lc._graph(*lc._capacity(n), R, t_drift, ii, jj, Rm, tm,
+                  [1.0] * len(ii), [1.0] * len(ii))
+    return lc, g
+
+
 class FullSequenceHooks(kitti_scale.Hooks):
     """The full_sequence phase's measurements inside kitti_scale.run: the
     stage timer, launch counts and host syncs of the timed stream, the
@@ -2666,6 +2825,10 @@ class FullSequenceHooks(kitti_scale.Hooks):
 
     def stream(self, tracker):
         self.timer = tracker.timer = StageTimer()
+        # the keys prewarm_aux prepared: the closures replay them
+        self.pg_prog = tracker.loop_closer.program
+        self.pg_keys = list(self.pg_prog.captured)
+        self.loop = LoopParts(tracker)
         reset_launch_counts()
         self.rec = SyncRecorder()
         return self.rec
@@ -2683,6 +2846,14 @@ class FullSequenceHooks(kitti_scale.Hooks):
         print(f"full_sequence time by stage (host clock, StageTimer): "
               + ", ".join(f"{k} {v['total_s']:.3f} s / {v['count']}"
                           for k, v in timer.summary().items()))
+        self.split = self.loop.split(timer)
+        print(f"full_sequence pose-graph program keys: prepared by "
+              f"prewarm_aux {len(self.pg_keys)}, after the stream "
+              f"{len(self.pg_prog.captured)}")
+        check(self.pg_keys and set(self.pg_prog.captured)
+              == set(self.pg_keys), "the closures replayed the pose-graph "
+              "program prewarm_aux prepared (no capture in the timed "
+              "stream)")
         print(f"full_sequence launches over the stream: "
               f"{ {n: self.counts[n] for n in FRONTEND_PATH} }")
         for name in FRONTEND_PATH:
@@ -2762,31 +2933,43 @@ class FullSequenceHooks(kitti_scale.Hooks):
               and abs(res_r.cost - res_o.cost)
               <= KS_RESUME_RTOL * res_o.cost,
               "the resumed tracker's global BA matches the original's")
+        # the keys the warm global BA must find: it replays the cold one's
+        self.ba_keys = list(run_ba_jit.captured)
 
 
 class StageHooks(kitti_scale.Hooks):
-    """A stage timer on the timed stream, nothing else."""
+    """A stage timer and the loop_optimize split on the timed stream,
+    nothing else."""
 
     def stream(self, tracker):
         self.timer = tracker.timer = StageTimer()
+        self.loop = LoopParts(tracker)
         return contextlib.nullcontext()
 
 
 def eager_kitti_run(seq, frames, warm_seq, wf, dev) -> tuple:
     """kitti_scale.run on the same frames with EagerTracker (the eager
-    engine batch). Returns (its result dict, engine_dispatch seconds)."""
+    engine batch and pose graph) and the eager run_ba for the global BA.
+    Returns (its result dict, engine_dispatch seconds, the loop_optimize
+    split)."""
+    from visualslam_tpu_torch.backend import ba as ba_module
+    from visualslam_tpu_torch.slam import global_ba as global_ba_module
     from visualslam_tpu_torch.slam import tracker as tracker_module
 
     hooks = StageHooks()
     tracker_module.Tracker = EagerTracker
+    global_ba_module.run_ba_jit = ba_module.run_ba_jit = EagerProgram(
+        run_ba_jit)
     try:
         out, tracker = kitti_scale.run(seq, frames, warm_seq, wf, dev, hooks)
     finally:
         tracker_module.Tracker = Tracker
+        global_ba_module.run_ba_jit = ba_module.run_ba_jit = run_ba_jit
     check(type(tracker) is EagerTracker, "the eager KITTI-scale run took "
           "the eager tracker")
     del tracker
-    return out, hooks.timer.summary()["engine_dispatch"]["total_s"]
+    return (out, hooks.timer.summary()["engine_dispatch"]["total_s"],
+            hooks.loop.split(hooks.timer))
 
 
 def phase_full_sequence(card: str, dev) -> tuple:
@@ -2805,7 +2988,10 @@ def phase_full_sequence(card: str, dev) -> tuple:
         save_kitti_poses,
     )
     from visualslam_tpu_torch.slam.evaluation import centers_from_poses
-    from visualslam_tpu_torch.slam.global_ba import build_global_problem
+    from visualslam_tpu_torch.slam.global_ba import (
+        build_global_problem,
+        global_run_cfg,
+    )
 
     t_phase = time.perf_counter()
     print(f"full_sequence: {card}")
@@ -2824,8 +3010,8 @@ def phase_full_sequence(card: str, dev) -> tuple:
     ate_track, ate_gba = out["ate_tracked_m"], out["ate_after_gba_m"]
     n_kf = out["keyframes"]
     graph_dispatch = hooks.timer.summary()["engine_dispatch"]["total_s"]
-    eager_out, eager_dispatch = eager_kitti_run(seq, frames, warm_seq, wf,
-                                                dev)
+    eager_out, eager_dispatch, eager_split = eager_kitti_run(
+        seq, frames, warm_seq, wf, dev)
     print(f"full_sequence engine_dispatch ({card}): graph path "
           f"{graph_dispatch:.3f} s, eager path {eager_dispatch:.3f} s over "
           f"{KS_FRAMES - kitti_scale.INIT} streamed frames; sequence frames/s "
@@ -2835,23 +3021,58 @@ def phase_full_sequence(card: str, dev) -> tuple:
           f"{eager_out['loop_closures']}, tracked ATE {ate_track} / "
           f"{eager_out['ate_tracked_m']}")
 
+    print_split("full_sequence graph path", hooks.split)
+    print_split("full_sequence eager path", eager_split)
+    # the first closure's padded Sim(3) graph, and a synthetic SE(3) graph
+    # padded as the loop closer pads it, through the programs and eagerly
+    check(hooks.loop.first is not None, "full_sequence: the loop closer "
+          "ran its pose-graph program")
+    if hooks.loop.first is not None:
+        g1, pg_cfg, run_res = hooks.loop.first
+        solver_program_check("full_sequence first closure's pose graph",
+                             hooks.pg_prog, g1, pg_cfg, run_res)
+    lc_se3, g_se3 = synthetic_se3_graph(dev)
+    solver_program_check("synthetic SE(3) pose graph", lc_se3.program,
+                         g_se3, lc_se3.pg_cfg)
+
+    # the global BA: cold (with the capture) and warm through run_ba_jit
+    gba, gba_e = out["global_ba"], eager_out["global_ba"]
+    print(f"full_sequence global BA wall s (kitti_scale: build, solve, "
+          f"read-back), graph path run_ba_jit cold with its capture "
+          f"{gba['wall_s_cold_incl_compile']} / warm {gba['wall_s_warm']}; "
+          f"eager run_ba cold {gba_e['wall_s_cold_incl_compile']} / warm "
+          f"{gba_e['wall_s_warm']}")
+    check(list(run_ba_jit.captured) == hooks.ba_keys, "the warm global BA "
+          "replayed the cold call's program (no capture)")
     # the rebuilt problem (as kitti_scale.run rebuilds it), warm
     p2, _ = build_global_problem(tracker.map, device=dev)
-    base = KS_CONFIG.ba.replace(max_cameras=int(p2.R.shape[0]),
-                                max_landmarks=int(p2.X.shape[0]),
-                                max_observations=int(p2.uv.shape[0]))
-    warm_ms = wall_ms(lambda: run_ba(p2, base), 3)
+    base = global_run_cfg(KS_CONFIG.ba, p2)
+    check(base.solver == "schur_mf", "the rebuilt problem takes schur_mf")
+    warm_ms = wall_ms(lambda: run_ba_jit(p2, base), 3)
+    eager_ms = wall_ms(lambda: run_ba(p2, base), 3)
     syncs = count_syncs(lambda: run_ba(p2, base))
-    launches, busy, _ = profile_call(lambda: run_ba(p2, base))
+    replay_syncs = count_syncs(lambda: run_ba_jit(p2, base))
+    launches, busy, _, host = profile_launches(lambda: run_ba(p2, base))
+    g_launches, g_busy, _, g_host = profile_launches(
+        lambda: run_ba_jit(p2, base))
+    same = all(torch.equal(a, b) for a, b in zip(run_ba_jit(p2, base),
+                                                 run_ba(p2, base)))
     reset_launch_counts()
-    run_ba(p2, base)
+    run_ba_jit(p2, base)
     seg = launch_counts()["segment_sum"]
     print(f"full_sequence global BA warm (schur_mf, rebuilt problem C = "
           f"{p2.R.shape[0]}, L = {p2.X.shape[0]}, O = {p2.uv.shape[0]}): "
-          f"{warm_ms:.3f} ms per run_ba ({warm_ms / base.iters:.3f} ms per "
-          f"LM iteration, median of 3); {syncs} host syncs inside run_ba; "
-          f"{launches} device launches, device busy {busy} ms; "
-          f"{seg} segment_sum launches")
+          f"{warm_ms:.3f} ms per run_ba_jit against {eager_ms:.3f} ms per "
+          f"eager run_ba ({warm_ms / base.iters:.3f} / "
+          f"{eager_ms / base.iters:.3f} ms per LM iteration, median of 3); "
+          f"equal bit for bit {same}; host syncs inside a replay "
+          f"{replay_syncs}, inside run_ba {syncs}; host launch calls "
+          f"{g_host} / {host}; device kernels {g_launches} / {launches}, "
+          f"device busy {g_busy} / {busy} ms; {seg} segment_sum launches "
+          f"per replayed solve")
+    check(same, "the warm global BA's replay equals the eager run_ba bit "
+          "for bit")
+    check(replay_syncs == 0, "a global BA replay makes no host sync")
     check(seg > 0, "the global BA's segment sums launch the kernel")
     # the exact LM path: the same problem and steps in float64, dense
     p64 = p2._replace(R=p2.R.double(), t=p2.t.double(), X=p2.X.double(),
@@ -2863,9 +3084,10 @@ def phase_full_sequence(card: str, dev) -> tuple:
     costs, rel, ms, same = {}, {}, {}, {}
     for solver in ("schur_dense", "schur_cg", "schur_mf"):
         c = base.replace(solver=solver)
-        ms[solver] = wall_ms(lambda: run_ba(p2, c), 2)
-        reps = [run_ba(p2, c) for _ in range(KS_SOLVER_REPS)]
-        costs[solver] = [float(r.cost) for r in reps]
+        ms[solver] = wall_ms(lambda: run_ba_jit(p2, c), 2)
+        reps = [run_ba_jit(p2, c) for _ in range(KS_SOLVER_REPS)]
+        reps.append(run_ba(p2, c))
+        costs[solver] = [float(r.cost) for r in reps[:-1]]
         rel[solver] = [abs(x - c64) / c64 for x in costs[solver]]
         same[solver] = all(torch.equal(a, b) for r in reps[1:]
                            for a, b in zip(reps[0], r))
@@ -2873,13 +3095,14 @@ def phase_full_sequence(card: str, dev) -> tuple:
     print(f"full_sequence solvers on the card, cg_iters {base.cg_iters}, "
           f"initial cost {float(r64.initial_cost):.9e}, float64 dense "
           f"final cost {c64:.9e}; float32 final costs of "
-          f"{KS_SOLVER_REPS} runs each: {json.dumps(costs)}; ms per "
-          f"run_ba: {json.dumps(ms)}; relative to the float64 dense: "
-          f"{json.dumps(rel)}; the runs equal bit for bit (R, t, X, cost, "
-          f"lambda), default mode: {json.dumps(same)}")
+          f"{KS_SOLVER_REPS} runs each through run_ba_jit: "
+          f"{json.dumps(costs)}; ms per run_ba_jit: {json.dumps(ms)}; "
+          f"relative to the float64 dense: {json.dumps(rel)}; the runs and "
+          f"an eager run_ba equal bit for bit (R, t, X, cost, lambda), "
+          f"default mode: {json.dumps(same)}")
     for solver in ("schur_dense", "schur_cg", "schur_mf"):
-        check(same[solver], f"{solver}: the {KS_SOLVER_REPS} runs equal bit "
-              "for bit in the default mode")
+        check(same[solver], f"{solver}: the {KS_SOLVER_REPS} program runs "
+              "and the eager run equal bit for bit in the default mode")
     for solver in ("schur_cg", "schur_mf"):
         check(max(rel[solver]) <= KS_SOLVER_RTOL, f"{solver} final cost "
               f"within {KS_SOLVER_RTOL} of the float64 dense solve's in "

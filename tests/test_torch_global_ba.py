@@ -162,13 +162,14 @@ def test_tracker_global_ba_runs_above_64_keyframes(monkeypatch):
                     else m.kf_t[m.kf_order[k - len(m.archive)]],
                     is_keyframe=True) for k in range(80)]
     solvers = []
-    run_ba = tba.run_ba
+    run_ba_jit = tba.run_ba_jit
 
     def spy(p, cfg):
         solvers.append(cfg.solver)
-        return run_ba(p, cfg)
+        return run_ba_jit(p, cfg)
 
-    monkeypatch.setattr("visualslam_tpu_torch.slam.global_ba.run_ba", spy)
+    monkeypatch.setattr("visualslam_tpu_torch.slam.global_ba.run_ba_jit",
+                        spy)
     res = tracker.global_ba()
     assert solvers == ["schur_mf"]
     assert res.n_cameras == 80 and res.cost < res.initial_cost

@@ -99,13 +99,13 @@ def test_tracker_window_ba_under_cg_solvers(rng, monkeypatch, solver):
     from visualslam_tpu_torch.slam import tracker as tmod
 
     seen = []
-    packed = tmod.run_ba_packed
+    packed = tmod.run_ba_packed_jit
 
     def spy(p, cfg):
         seen.append(cfg.solver)
         return packed(p, cfg)
 
-    monkeypatch.setattr(tmod, "run_ba_packed", spy)
+    monkeypatch.setattr(tmod, "run_ba_packed_jit", spy)
     cfg = PCFG.replace(ba=PCFG.ba.replace(solver=solver))
     tracker, gt = run_sequence(rng, n_frames=16, cfg=cfg)
     assert seen and set(seen) == {solver}

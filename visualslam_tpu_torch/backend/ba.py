@@ -13,6 +13,9 @@ The CPU and the card still round float32 products apart (cuBLAS against
 the CPU's BLAS): hold one device's results to the other's by tolerances.
 `run_ba` builds the sums' plans (`BAPlans`) once per problem and passes
 them down; the functions below build their own when called without.
+`run_ba_jit` / `run_ba_packed_jit` (the JAX package's compiled programs)
+replay the same LM loop from captured CUDA graphs on the card
+(utils/graphs.LoopProgram) and are the eager functions on the CPU.
 
 Three solvers, as the reference: "schur_dense" (the reduced 6C x 6C system
 solved directly), "schur_cg" (the same system by Jacobi-preconditioned
@@ -42,6 +45,7 @@ from visualslam_tpu_torch.ops.cuda.segment import (
     segment_sum,
 )
 from visualslam_tpu_torch.utils.config import BAConfig
+from visualslam_tpu_torch.utils.graphs import LoopProgram
 from visualslam_tpu_torch.utils.precision import f32_matmul
 
 
@@ -340,37 +344,65 @@ def ba_step(p: BAProblem, R, t, X, lam, cfg: BAConfig,
     return apply_increments(R, t, X, dc, dl)
 
 
+def _ba_enter(p: BAProblem, cfg: BAConfig):
+    """(aux, carry) of the LM loop: the sums' plans and the initial cost;
+    the state, the damping and the cost."""
+    plans = ba_plans(p.cam_idx, p.lm_idx, p.R.shape[0], p.X.shape[0],
+                     cfg.solver != "schur_mf")
+    lam = torch.full((), cfg.damping_init, dtype=p.X.dtype,
+                     device=p.X.device)
+    cost = robust_cost(p, p.R, p.t, p.X, cfg.huber_delta)
+    return (plans, cost), (p.R, p.t, p.X, lam, cost)
+
+
+def _ba_iteration(p: BAProblem, cfg: BAConfig, aux, carry):
+    """One LM iteration: a damped GN step, its cost, the masked accept."""
+    R, t, X, lam, cost = carry
+    Rn, tn, Xn = ba_step(p, R, t, X, lam, cfg, aux[0])
+    new_cost = robust_cost(p, Rn, tn, Xn, cfg.huber_delta)
+    accept = new_cost < cost
+    return (torch.where(accept, Rn, R), torch.where(accept, tn, t),
+            torch.where(accept, Xn, X),
+            torch.clamp(torch.where(accept, lam * cfg.damping_down,
+                                    lam * cfg.damping_up), 1e-9, 1e6),
+            torch.where(accept, new_cost, cost))
+
+
+def _ba_result(p: BAProblem, cfg: BAConfig, aux, carry) -> BAResult:
+    R, t, X, lam, cost = carry
+    return BAResult(R=R, t=t, X=X, cost=cost, initial_cost=aux[1],
+                    lm_lambda=lam)
+
+
+def _pack(res: BAResult) -> torch.Tensor:
+    return torch.cat([res.R.reshape(-1), res.t.reshape(-1),
+                      res.X.reshape(-1), res.cost[None],
+                      res.initial_cost[None]])
+
+
 def run_ba(p: BAProblem, cfg: BAConfig) -> BAResult:
     """Levenberg-Marquardt loop (fixed iteration count, masked accept), at
     float32 matmul precision (TF32 off) as the reference."""
     f32_matmul()
-    R, t, X = p.R, p.t, p.X
-    plans = ba_plans(p.cam_idx, p.lm_idx, R.shape[0], X.shape[0],
-                     cfg.solver != "schur_mf")
-    lam = torch.full((), cfg.damping_init, dtype=X.dtype, device=X.device)
-    cost = robust_cost(p, R, t, X, cfg.huber_delta)
-    init_cost = cost
+    aux, carry = _ba_enter(p, cfg)
     for _ in range(cfg.iters):
-        Rn, tn, Xn = ba_step(p, R, t, X, lam, cfg, plans)
-        new_cost = robust_cost(p, Rn, tn, Xn, cfg.huber_delta)
-        accept = new_cost < cost
-        R = torch.where(accept, Rn, R)
-        t = torch.where(accept, tn, t)
-        X = torch.where(accept, Xn, X)
-        cost = torch.where(accept, new_cost, cost)
-        lam = torch.clamp(torch.where(accept, lam * cfg.damping_down,
-                                      lam * cfg.damping_up), 1e-9, 1e6)
-    return BAResult(R=R, t=t, X=X, cost=cost, initial_cost=init_cost,
-                    lm_lambda=lam)
+        carry = _ba_iteration(p, cfg, aux, carry)
+    return _ba_result(p, cfg, aux, carry)
 
 
 def run_ba_packed(p: BAProblem, cfg: BAConfig) -> torch.Tensor:
     """run_ba with the result packed into ONE flat f32 tensor
     [C*9 R | C*3 t | L*3 X | cost | initial_cost] (one read-back)."""
-    res = run_ba(p, cfg)
-    return torch.cat([res.R.reshape(-1), res.t.reshape(-1),
-                      res.X.reshape(-1), res.cost[None],
-                      res.initial_cost[None]])
+    return _pack(run_ba(p, cfg))
+
+
+# the JAX package's compiled programs: captured CUDA graphs on the card
+# (utils/graphs.LoopProgram: an enter graph and a step graph per shape key
+# and cfg), the eager functions on the CPU
+run_ba_jit = LoopProgram(run_ba, _ba_enter, _ba_iteration, _ba_result)
+run_ba_packed_jit = LoopProgram(
+    run_ba_packed, _ba_enter, _ba_iteration,
+    lambda p, cfg, aux, carry: _pack(_ba_result(p, cfg, aux, carry)))
 
 
 def unpack_ba_result(packed, C: int, L: int):

@@ -20,7 +20,10 @@ reference's `resolve_solver` picks them:
 above the default `cg_threshold` = 192, so the default configuration runs
 CG. The LM loops are Python loops with a masked accept on the device: no
 value is read back inside them. Float32 matmuls (TF32 off), as the
-reference.
+reference. `optimize_pose_graph_jit` / `optimize_sim3_graph_jit` (the JAX
+package's compiled programs) replay the same loop from captured CUDA
+graphs on the card (utils/graphs.LoopProgram) and are the eager
+functions on the CPU.
 
 SE(3) residual: r_e = log(Tm_e^-1 . T_i^-1 . T_j), perturbation
 T_k <- exp(xi_k) T_k. Sim(3): the same with the measured translation
@@ -41,6 +44,7 @@ from visualslam_tpu_torch.ops.cuda.segment import (
     segment_sum,
 )
 from visualslam_tpu_torch.utils.config import PoseGraphConfig
+from visualslam_tpu_torch.utils.graphs import LoopProgram
 from visualslam_tpu_torch.utils.precision import f32_matmul
 
 
@@ -288,23 +292,40 @@ def _lm_update(acc, lam):
     return torch.clamp(torch.where(acc, lam * 0.5, lam * 4.0), 1e-9, 1e4)
 
 
+def _pg_enter(g: PoseGraph, cfg: PoseGraphConfig):
+    """(aux, carry) of the SE(3) LM: the plans and the initial cost; the
+    poses, the damping and the cost."""
+    solver = resolve_solver(cfg, g.R.shape[0])
+    plans = graph_plans(g.i, g.j, g.R.shape[0], solver == "dense")
+    lam = torch.full((), cfg.damping, dtype=g.R.dtype, device=g.R.device)
+    cost = pose_graph_cost(g, g.R, g.t)
+    return (plans, cost), (g.R, g.t, lam, cost)
+
+
+def _pg_step(g: PoseGraph, cfg: PoseGraphConfig, aux, carry):
+    """One LM iteration: a GN step, its cost, the masked accept."""
+    R, t, lam, cost = carry
+    Rn, tn = _gn_step(g, R, t, lam, resolve_solver(cfg, R.shape[0]),
+                      cfg.cg_iters, aux[0])
+    cn = pose_graph_cost(g, Rn, tn)
+    acc = cn < cost
+    return (torch.where(acc, Rn, R), torch.where(acc, tn, t),
+            _lm_update(acc, lam), torch.where(acc, cn, cost))
+
+
+def _pg_result(g: PoseGraph, cfg: PoseGraphConfig, aux,
+               carry) -> PoseGraphResult:
+    R, t, _, cost = carry
+    return PoseGraphResult(R=R, t=t, cost=cost, initial_cost=aux[1])
+
+
 def optimize_pose_graph(g: PoseGraph, cfg: PoseGraphConfig) -> PoseGraphResult:
     """LM-damped GN on the SE(3) graph: cfg.iters steps, masked accept."""
     f32_matmul()
-    R, t = g.R, g.t
-    solver = resolve_solver(cfg, R.shape[0])
-    plans = graph_plans(g.i, g.j, R.shape[0], solver == "dense")
-    lam = torch.full((), cfg.damping, dtype=R.dtype, device=R.device)
-    cost = init = pose_graph_cost(g, R, t)
+    aux, carry = _pg_enter(g, cfg)
     for _ in range(cfg.iters):
-        Rn, tn = _gn_step(g, R, t, lam, solver, cfg.cg_iters, plans)
-        cn = pose_graph_cost(g, Rn, tn)
-        acc = cn < cost
-        R = torch.where(acc, Rn, R)
-        t = torch.where(acc, tn, t)
-        cost = torch.where(acc, cn, cost)
-        lam = _lm_update(acc, lam)
-    return PoseGraphResult(R=R, t=t, cost=cost, initial_cost=init)
+        carry = _pg_step(g, cfg, aux, carry)
+    return _pg_result(g, cfg, aux, carry)
 
 
 # ---------------------------------------------------------------------------
@@ -324,22 +345,51 @@ def _sim3_gn_step(g: Sim3Graph, R, t, s, lam, solver: str, cg_iters: int,
     return sim3.compose(*sim3.sim3_exp(dx), R, t, s)
 
 
+def _sim3_enter(g: Sim3Graph, cfg: PoseGraphConfig):
+    """(aux, carry) of the Sim(3) LM: the plans and the initial cost; the
+    poses, scales, damping and cost."""
+    solver = resolve_solver(cfg, g.R.shape[0])
+    plans = graph_plans(g.i, g.j, g.R.shape[0], solver == "dense")
+    lam = torch.full((), cfg.damping, dtype=g.R.dtype, device=g.R.device)
+    cost = sim3_graph_cost(g, g.R, g.t, g.s)
+    return (plans, cost), (g.R, g.t, g.s, lam, cost)
+
+
+def _sim3_step(g: Sim3Graph, cfg: PoseGraphConfig, aux, carry):
+    """One LM iteration: a GN step, its cost, the masked accept."""
+    R, t, s, lam, cost = carry
+    Rn, tn, sn = _sim3_gn_step(g, R, t, s, lam,
+                               resolve_solver(cfg, R.shape[0]), cfg.cg_iters,
+                               aux[0])
+    cn = sim3_graph_cost(g, Rn, tn, sn)
+    acc = cn < cost
+    return (torch.where(acc, Rn, R), torch.where(acc, tn, t),
+            torch.where(acc, sn, s), _lm_update(acc, lam),
+            torch.where(acc, cn, cost))
+
+
+def _sim3_result(g: Sim3Graph, cfg: PoseGraphConfig, aux,
+                 carry) -> Sim3GraphResult:
+    R, t, s, _, cost = carry
+    return Sim3GraphResult(R=R, t=t, s=s, cost=cost, initial_cost=aux[1])
+
+
 def optimize_sim3_graph(g: Sim3Graph, cfg: PoseGraphConfig) -> Sim3GraphResult:
     """LM-damped GN on the Sim(3) graph: cfg.iters steps, masked accept."""
     f32_matmul()
-    R, t, s = g.R, g.t, g.s
-    solver = resolve_solver(cfg, R.shape[0])
-    plans = graph_plans(g.i, g.j, R.shape[0], solver == "dense")
-    lam = torch.full((), cfg.damping, dtype=R.dtype, device=R.device)
-    cost = init = sim3_graph_cost(g, R, t, s)
+    aux, carry = _sim3_enter(g, cfg)
     for _ in range(cfg.iters):
-        Rn, tn, sn = _sim3_gn_step(g, R, t, s, lam, solver, cfg.cg_iters,
-                                   plans)
-        cn = sim3_graph_cost(g, Rn, tn, sn)
-        acc = cn < cost
-        R = torch.where(acc, Rn, R)
-        t = torch.where(acc, tn, t)
-        s = torch.where(acc, sn, s)
-        cost = torch.where(acc, cn, cost)
-        lam = _lm_update(acc, lam)
-    return Sim3GraphResult(R=R, t=t, s=s, cost=cost, initial_cost=init)
+        carry = _sim3_step(g, cfg, aux, carry)
+    return _sim3_result(g, cfg, aux, carry)
+
+
+# ---------------------------------------------------------------------------
+# the JAX package's compiled programs: captured CUDA graphs on the card
+# (utils/graphs.LoopProgram: an enter graph and a step graph per shape key
+# and cfg), the eager functions on the CPU
+# ---------------------------------------------------------------------------
+
+optimize_pose_graph_jit = LoopProgram(optimize_pose_graph, _pg_enter,
+                                      _pg_step, _pg_result)
+optimize_sim3_graph_jit = LoopProgram(optimize_sim3_graph, _sim3_enter,
+                                      _sim3_step, _sim3_result)

@@ -7,8 +7,9 @@ benchmarks/kitti_scale.py):
 ~500 KITTI-sized frames through the whole tracker in one process (batched
 frontend, the engine with its window BA, loop closure), then the
 full-sequence matrix-free global BA, recorded as one JSON artifact:
-throughput, accuracy and the global BA's rate, cold (build + solve +
-read-back) and warm (the rebuilt problem solved again).
+throughput, accuracy and the global BA's rate, cold (build, the
+program's capture on the card, solve, read-back) and warm (the rebuilt
+problem solved again: on the card a replay of the cold call's graphs).
 
 The trajectory is the loop rectangle (its path re-sees its starting views,
 so loop closure and the pose graph run). Frames are rendered first, in a
@@ -124,13 +125,16 @@ def run(seq, frames: np.ndarray, warm_seq, warm_frames: np.ndarray,
         device="cuda", hooks: Hooks | None = None):
     """The protocol on pre-rendered frames. Returns (the artifact's dict,
     the tracker after its global BA)."""
-    from visualslam_tpu_torch.backend.ba import run_ba
+    from visualslam_tpu_torch.backend.ba import run_ba_jit
     from visualslam_tpu_torch.slam.evaluation import (
         ate_rmse,
         centers_from_poses,
         rpe,
     )
-    from visualslam_tpu_torch.slam.global_ba import build_global_problem
+    from visualslam_tpu_torch.slam.global_ba import (
+        build_global_problem,
+        global_run_cfg,
+    )
     from visualslam_tpu_torch.slam.tracker import Tracker
 
     dev = require_device(device, "kitti_scale")
@@ -187,14 +191,13 @@ def run(seq, frames: np.ndarray, warm_seq, warm_frames: np.ndarray,
     hooks.global_ba(tracker, res)
 
     # the warm rate: the rebuilt problem (post-writeback values) solved
-    # again at the same shapes and iteration count
+    # again at the same shapes, configuration and iteration count, so it
+    # replays the program the cold call captured
     p2, _ = build_global_problem(tracker.map, device=dev)
-    run_cfg = cfg.ba.replace(max_cameras=int(p2.R.shape[0]),
-                             max_landmarks=int(p2.X.shape[0]),
-                             max_observations=int(p2.uv.shape[0]))
+    run_cfg = global_run_cfg(cfg.ba, p2)
     _sync(dev)
     t0 = time.perf_counter()
-    run_ba(p2, run_cfg).R.sum().item()
+    run_ba_jit(p2, run_cfg).R.sum().item()
     gba_wall_warm = time.perf_counter() - t0
 
     h, w = frames.shape[1:3]

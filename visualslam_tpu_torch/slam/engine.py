@@ -47,7 +47,6 @@ entries, P = max promotions per batch.
 from __future__ import annotations
 
 import functools
-import time
 from typing import NamedTuple
 
 import numpy as np
@@ -58,15 +57,7 @@ from visualslam_tpu_torch.backend.pnp import refine_pose
 from visualslam_tpu_torch.geometry.camera import normalized
 from visualslam_tpu_torch.models.matching import match_features
 from visualslam_tpu_torch.models.types import Features, Keypoints
-from visualslam_tpu_torch.ops.cuda import (
-    KERNELS,
-    Kernels,
-    add_launch_counts,
-    distance,
-    launch_counts,
-    set_launch_counts,
-    triangulate,
-)
+from visualslam_tpu_torch.ops.cuda import KERNELS, Kernels, triangulate
 from visualslam_tpu_torch.ops.distance import unpack_bits
 from visualslam_tpu_torch.slam.track_step import (
     KeyframeRef,
@@ -78,6 +69,17 @@ from visualslam_tpu_torch.slam.track_step import (
     track_step_lite,
 )
 from visualslam_tpu_torch.utils.config import SlamConfig
+from visualslam_tpu_torch.utils.graphs import (
+    _assign,
+    _Capture,
+    _clone_all,
+    _copy_all,
+    _leaves,
+    _map,
+    _signature,
+    _static,
+    _Uncaptured,
+)
 from visualslam_tpu_torch.utils.masked import top_k
 from visualslam_tpu_torch.utils.precision import f32_matmul
 
@@ -1097,134 +1099,6 @@ def db_append_host(persist: EnginePersist, n: int, g, desc, yx, lmw, haslm,
 # ---------------------------------------------------------------------
 # engine_programs: the entry points replayed from captured CUDA graphs
 # ---------------------------------------------------------------------
-
-
-def _leaves(tree) -> list:
-    """The tensors of nested NamedTuples and lists, in order."""
-    if isinstance(tree, (tuple, list)):
-        return [x for sub in tree for x in _leaves(sub)]
-    return [tree]
-
-
-def _map(fn, tree):
-    if isinstance(tree, tuple):
-        return type(tree)(*(_map(fn, x) for x in tree))
-    return fn(tree)
-
-
-def _signature(*trees) -> tuple:
-    """Shape, dtype and device of every tensor: what a capture bakes in."""
-    return tuple((tuple(x.shape), x.dtype, x.device)
-                 for t in trees for x in _leaves(t))
-
-
-def _static(x: torch.Tensor) -> torch.Tensor:
-    return torch.empty(x.shape, dtype=x.dtype, device=x.device)
-
-
-def _copy_all(dst: list, src: list) -> None:
-    """dst[k].copy_(src[k]) for every pair that is not one tensor, in the
-    fewest launches torch offers (its multi-tensor copy)."""
-    pairs = [(d, s) for d, s in zip(dst, src) if d is not s]
-    if pairs:
-        torch._foreach_copy_([d for d, _ in pairs], [s for _, s in pairs])
-
-
-def _assign(dst, src) -> None:
-    """Copy a body's results into the static tensors they replace (inside
-    a capture the copies become part of the graph)."""
-    for d, s in zip(_leaves(dst), _leaves(src)):
-        if d is s:
-            continue
-        if d.shape != s.shape or d.dtype != s.dtype:
-            raise RuntimeError(f"engine program: a result of {tuple(s.shape)}"
-                               f" {s.dtype} for a static {tuple(d.shape)} "
-                               f"{d.dtype}")
-        d.copy_(s)
-
-
-def _clone_all(tree):
-    out = _map(torch.empty_like, tree)
-    _copy_all(_leaves(out), _leaves(tree))
-    return out
-
-
-class _Graph:
-    """One body captured as a CUDA graph: its outputs (tensors of the
-    graph's private pool, rewritten by every replay) and the launches of
-    each counted kernel (ops.cuda.COUNTED) that one replay makes. A capture
-    runs the kernels' wrappers without launching anything, so the counters
-    are put back after it and advanced on every replay instead. A body
-    that cannot be captured (a host sync, a pageable copy) raises here."""
-
-    def __init__(self, body):
-        before = launch_counts()
-        self.graph = torch.cuda.CUDAGraph()
-        try:
-            with torch.cuda.graph(self.graph):
-                self.out = body()
-        finally:
-            after = launch_counts()
-            set_launch_counts(before)
-        self.launches = {n: after[n] - before[n] for n in after
-                         if after[n] != before[n]}
-
-    def replay(self):
-        self.graph.replay()
-        add_launch_counts(self.launches)
-        return self.out
-
-
-class _Capture:
-    """Bodies warmed up eagerly on a side stream (library handles and
-    workspaces, the kernels' builds, the 2-NN scratch), then captured as
-    _Graphs. The 2-NN's scratch is the capture's own: the warm-up sizes it
-    and no capture regrows it (a graph keeps the pointers its capture
-    saw), so the program must hold `scratch` as long as its graphs.
-    `done` gives the seconds since the start and the device memory the
-    program now holds (a capture empties the allocator's cache; so do the
-    start and the end here, so the difference counts what stays)."""
-
-    def __init__(self, dev: torch.device):
-        self.dev = dev
-        self.scratch: dict = {}
-        torch.cuda.synchronize(dev)
-        torch.cuda.empty_cache()
-        self._t0 = time.perf_counter()
-        self._reserved = torch.cuda.memory_reserved(dev)
-
-    def warm_up(self, fn) -> None:
-        cur = torch.cuda.current_stream(self.dev)
-        side = torch.cuda.Stream(self.dev)
-        side.wait_stream(cur)
-        with torch.cuda.stream(side), \
-                distance.owned_scratch(self.scratch, grow=True):
-            fn()
-        cur.wait_stream(side)
-
-    def graph(self, body) -> _Graph:
-        with distance.owned_scratch(self.scratch, grow=False):
-            return _Graph(body)
-
-    def done(self) -> tuple[float, int]:
-        torch.cuda.synchronize(self.dev)
-        torch.cuda.empty_cache()
-        return (time.perf_counter() - self._t0,
-                torch.cuda.memory_reserved(self.dev) - self._reserved)
-
-
-class _Uncaptured:
-    """A body run as it is on every replay: `_BatchGraphs(graphs=False)`,
-    which runs the graph program's data flow on any device (the CPU tests'
-    view of it)."""
-
-    def __init__(self, body):
-        self.body = body
-        self.out = None
-
-    def replay(self):
-        self.out = self.body()
-        return self.out
 
 
 class _BatchGraphs:

@@ -9,11 +9,13 @@ the complete observation graph is recoverable:
     landmarks  = every uid observed by >= 2 of those cameras
     obs        = uid-validated normalized-plane measurements
 
-The problem goes to backend/ba.run_ba on the device. As in the reference,
-the dense Schur solver hands over to the matrix-free "schur_mf" above 64
-cameras. With a mesh (parallel/mesh.Mesh) the trajectory axis is sharded
-over its devices (parallel/traj_ba.run_ba_traj_sharded), cameras padded
-to a multiple of the shard count.
+The problem goes to backend/ba.run_ba_jit on the device (captured CUDA
+graphs per problem shape on the card, run_ba on the CPU). As in the
+reference, the dense Schur solver hands over to the matrix-free "schur_mf"
+above 64 cameras (`global_run_cfg`). With a mesh (parallel/mesh.Mesh)
+the trajectory axis is sharded over its devices
+(parallel/traj_ba.run_ba_traj_sharded), cameras padded to a multiple of
+the shard count.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from visualslam_tpu_torch.backend.ba import BAProblem, run_ba
+from visualslam_tpu_torch.backend.ba import BAProblem, run_ba_jit
 from visualslam_tpu_torch.parallel.traj_ba import (
     pad_cameras,
     run_ba_traj_sharded,
@@ -130,6 +132,20 @@ def build_global_problem(slam_map, corrected: Optional[dict] = None,
         [fid for fid, *_ in kfs])
 
 
+def global_run_cfg(cfg: BAConfig, p: BAProblem) -> BAConfig:
+    """The configuration a global BA of problem p runs: cfg at p's exact
+    capacities and, as the reference, the dense default handed over to the
+    matrix-free Schur CG once the reduced system outgrows direct
+    factorization (more than 64 cameras). A rerun at p's shapes with it
+    replays the first run's captured program."""
+    solver = cfg.solver
+    if p.R.shape[0] > 64 and solver == "schur_dense":
+        solver = "schur_mf"
+    return cfg.replace(max_cameras=int(p.R.shape[0]),
+                       max_landmarks=int(p.X.shape[0]),
+                       max_observations=int(p.uv.shape[0]), solver=solver)
+
+
 def run_global_ba(slam_map, cfg: BAConfig, corrected: Optional[dict] = None,
                   mesh=None, mesh_axis: str = "shard",
                   device="cuda") -> GlobalBAResult:
@@ -141,17 +157,9 @@ def run_global_ba(slam_map, cfg: BAConfig, corrected: Optional[dict] = None,
                                         pad_cameras_to=n_shards,
                                         device=device)
     K = len(frame_ids)
-    # as the reference: the dense default hands over to the matrix-free
-    # Schur CG once the reduced system outgrows direct factorization
-    solver = cfg.solver
-    if p.R.shape[0] > 64 and solver == "schur_dense":
-        solver = "schur_mf"
-    run_cfg = cfg.replace(max_cameras=int(p.R.shape[0]),
-                          max_landmarks=int(p.X.shape[0]),
-                          max_observations=int(p.uv.shape[0]),
-                          solver=solver)
+    run_cfg = global_run_cfg(cfg, p)
     if mesh is None:
-        res = run_ba(p, run_cfg)
+        res = run_ba_jit(p, run_cfg)
         R = res.R[:K].cpu().numpy()
         t = res.t[:K].cpu().numpy()
     else:

@@ -17,8 +17,12 @@
 
 The database, the edges and the graph assembly are numpy on the host, as
 in the reference; the matcher, PnP and the graph solve run on `device`.
-The JAX package's jitted-program caches and `warm_verify` have nothing to
-compile here: `warm_verify` is kept as a no-op the tracker may call.
+The solve is the JAX package's program, `optimize_sim3_graph_jit` or
+`optimize_pose_graph_jit` (backend/pose_graph.py): captured CUDA graphs
+on the card, which `prepare` captures ahead of use. The verification runs
+eagerly, so the JAX package's verify-program caches and `warm_verify`
+have nothing to compile here: `warm_verify` is kept as a no-op the
+tracker may call.
 """
 
 from __future__ import annotations
@@ -33,8 +37,8 @@ from visualslam_tpu_torch.backend.pnp import refine_pose
 from visualslam_tpu_torch.backend.pose_graph import (
     PoseGraph,
     Sim3Graph,
-    optimize_pose_graph,
-    optimize_sim3_graph,
+    optimize_pose_graph_jit,
+    optimize_sim3_graph_jit,
 )
 from visualslam_tpu_torch.geometry.camera import normalized
 from visualslam_tpu_torch.models.matching import match_features
@@ -145,6 +149,10 @@ class LoopCloser:
         self.min_inliers = min_inliers
         self.exclude = exclude_recent
         self.use_sim3 = use_sim3
+        # the pose-graph program optimize() runs: the JAX package's
+        # *_jit, replayed from captured CUDA graphs on the card
+        self.program = (optimize_sim3_graph_jit if use_sim3
+                        else optimize_pose_graph_jit)
         # Sim(3) scale-ratio sanity gate: estimates outside
         # [1/max_scale, max_scale] fall back to SE(3)
         self.max_scale = max_scale
@@ -363,6 +371,66 @@ class LoopCloser:
 
     # ------------------------------------------------------------------
 
+    def _capacity(self, n: int) -> tuple[int, int]:
+        """(N, E): the padded graph's nodes and edges for n entries; the
+        capacity grows in powers of two past the configured floor."""
+        N = self.pg_cfg.max_nodes
+        while N < n:
+            N *= 2
+        E = self.pg_cfg.max_edges
+        while E < N * 4:
+            E *= 2
+        return N, E
+
+    def _graph(self, N: int, E: int, R0, t0, ii, jj, Rm, tm, sm, w):
+        """The pose graph of the nodes (R0, t0) and the edges (ii, jj, Rm,
+        tm, sm, w) on the device, padded to N nodes and E edges with
+        identity nodes and edges: a Sim3Graph under use_sim3, else a
+        PoseGraph."""
+        n, ne = len(R0), len(ii)
+        if ne > E:
+            raise RuntimeError(
+                f"pose graph edge overflow: {ne} edges > capacity {E}")
+
+        def pad(a, target, shape_tail):
+            out = np.zeros((target,) + shape_tail, np.float32)
+            if len(a):
+                out[: len(a)] = np.asarray(a)
+            return out
+
+        eye_fill_N = (np.tile(np.eye(3, dtype=np.float32), (N, 1, 1))
+                      * (np.arange(N) >= n)[:, None, None])
+        eye_fill_E = (np.tile(np.eye(3, dtype=np.float32), (E, 1, 1))
+                      * (np.arange(E) >= ne)[:, None, None])
+        T = self._T
+        common = dict(
+            node_valid=T(np.arange(N) < n),
+            i=T(pad(ii, E, ()).astype(np.int64)),
+            j=T(pad(jj, E, ()).astype(np.int64)),
+            Rm=T(pad(Rm, E, (3, 3)) + eye_fill_E),
+            tm=T(pad(tm, E, (3,))),
+            weight=T(pad(w, E, ())),
+            edge_valid=T(np.arange(E) < ne))
+        R_in = T(pad(R0, N, (3, 3)) + eye_fill_N)
+        t_in = T(pad(t0, N, (3,)))
+        if self.use_sim3:
+            return Sim3Graph(
+                R=R_in, t=t_in, s=T(np.ones(N, np.float32)),
+                sm=T(np.where(np.arange(E) < ne, pad(sm, E, ()), 1.0)
+                     .astype(np.float32)), **common)
+        return PoseGraph(R=R_in, t=t_in, **common)
+
+    def prepare(self) -> None:
+        """Capture the pose-graph program at the padded shapes the next
+        optimize() will use (`_capacity` of the entries so far: max_nodes
+        and max_edges until the history outgrows them), on the closer's
+        device, without running it; nothing on the CPU. The closer's state
+        is left as it was."""
+        none = np.zeros((0, 3, 3), np.float32)
+        g = self._graph(*self._capacity(len(self.entries)), none,
+                        none[:, 0], [], [], [], [], [], [])
+        self.program.prepare(g, self.pg_cfg)
+
     def optimize(self, propagate: bool = True) -> Optional[np.ndarray]:
         """Pose-graph optimization over the full keyframe history (SE(3) or
         Sim(3), per use_sim3). Fills corrected, corrected_scale and
@@ -372,14 +440,6 @@ class LoopCloser:
         n = len(self.entries)
         if n < 3:
             return None
-        # capacity grows in powers of two past the configured floor
-        N = self.pg_cfg.max_nodes
-        while N < n:
-            N *= 2
-        E = self.pg_cfg.max_edges
-        while E < N * 4:
-            E *= 2
-
         R0 = np.stack([e.R for e in self.entries])
         t0 = np.stack([e.t for e in self.entries])
         ii, jj, Rm, tm, sm, w = [], [], [], [], [], []
@@ -401,43 +461,10 @@ class LoopCloser:
             # disagreement
             info = min(4.0, (2.0 / max(e.rot_sigma_deg, 0.5)) ** 2)
             w.append(self.pg_cfg.loop_weight * info)
-        ne = len(ii)
-        if ne > E:
-            raise RuntimeError(
-                f"pose graph edge overflow: {ne} edges > capacity {E}")
-
-        def pad(a, target, shape_tail):
-            out = np.zeros((target,) + shape_tail, np.float32)
-            out[: len(a)] = np.asarray(a)
-            return out
-
-        eye_fill_N = (np.tile(np.eye(3, dtype=np.float32), (N, 1, 1))
-                      * (np.arange(N) >= n)[:, None, None])
-        eye_fill_E = (np.tile(np.eye(3, dtype=np.float32), (E, 1, 1))
-                      * (np.arange(E) >= ne)[:, None, None])
-        T = self._T
-        common = dict(
-            node_valid=T(np.arange(N) < n),
-            i=T(pad(ii, E, ()).astype(np.int64)),
-            j=T(pad(jj, E, ()).astype(np.int64)),
-            Rm=T(pad(Rm, E, (3, 3)) + eye_fill_E),
-            tm=T(pad(tm, E, (3,))),
-            weight=T(pad(w, E, ())),
-            edge_valid=T(np.arange(E) < ne))
-        R_in = T(pad(R0, N, (3, 3)) + eye_fill_N)
-        t_in = T(pad(t0, N, (3,)))
-
-        if self.use_sim3:
-            g = Sim3Graph(
-                R=R_in, t=t_in, s=T(np.ones(N, np.float32)),
-                sm=T(np.where(np.arange(E) < ne, pad(sm, E, ()), 1.0)
-                     .astype(np.float32)), **common)
-            res = optimize_sim3_graph(g, self.pg_cfg)
-            scales = res.s[:n].cpu().numpy()
-        else:
-            res = optimize_pose_graph(PoseGraph(R=R_in, t=t_in, **common),
-                                      self.pg_cfg)
-            scales = np.ones(n, np.float32)
+        g = self._graph(*self._capacity(n), R0, t0, ii, jj, Rm, tm, sm, w)
+        res = self.program(g, self.pg_cfg)
+        scales = (res.s[:n].cpu().numpy() if self.use_sim3
+                  else np.ones(n, np.float32))
         Rn = res.R[:n].cpu().numpy()
         tn = res.t[:n].cpu().numpy()
         # de-scaled SE(3): x_cam_metric = R X + t / s

@@ -41,7 +41,7 @@ import torch
 
 from visualslam_tpu_torch.backend.ba import (
     BAProblem,
-    run_ba_packed,
+    run_ba_packed_jit,
     unpack_ba_result,
 )
 from visualslam_tpu_torch.geometry import ransac
@@ -408,12 +408,18 @@ class Tracker:
         return self._harvest_inflight(inflight)
 
     def prewarm_aux(self) -> None:
-        """Capture the database relocalization's graph (engine_programs'
-        "relocalize") outside any timed loop, where the reference compiles
-        its rare-event programs. Call on a tracker whose engine has run (it
-        reads the persist's shapes); its state is left as it was. The loop
-        correction and the database append run eagerly: nothing to
-        prepare."""
+        """Capture the rare-event programs outside any timed loop, where
+        the reference compiles them: the loop closer's pose-graph program
+        (Sim(3) or SE(3) per cfg.loop.sim3, at the padded shapes its next
+        closure uses, on the tracker's device; LoopCloser.prepare) and,
+        once the engine has run (it reads the persist's shapes), the
+        database relocalization's graph (engine_programs' "relocalize").
+        Unlike the reference's warm-up, it runs no closure: the tracker's
+        state is left as it was, so any tracker may call it. The database
+        correction and append run eagerly: nothing to prepare. On the CPU
+        there is nothing to capture."""
+        if self.loop_closer is not None:
+            self.loop_closer.prepare()
         if self._eng_persist is None:
             return
         self._eng_progs["relocalize"].prepare(
@@ -1144,7 +1150,7 @@ class Tracker:
         if self.mesh is not None:
             self._run_window_ba_sharded(p, cfg, slots, lm_slots, nC, nL)
             return
-        res, ev = self._readback(run_ba_packed(p, cfg))
+        res, ev = self._readback(run_ba_packed_jit(p, cfg))
         if cfg.async_ba:
             # the solve runs on the device while the next frames track;
             # results land at the next keyframe. Snapshot identities so
