@@ -72,7 +72,16 @@ Phases, each printing its own lines:
                plain version (cuSOLVER eigh) under the eigengap gate of
                ops/cuda/triangulate.py, the replay's off-diagonal norms
                per Jacobi sweep, timed beside its bound, the plain version
-               and torch.linalg.eigh
+               and torch.linalg.eigh; the two-view solvers' sym_eigh and
+               svd3 on the init's own matrices (frames 0 -> 8: the 512
+               8-point normal matrices and the refit's, the five-point's
+               128 9x9 and 1280 10x10 systems, the 512 Fs, the refit Fs
+               and essential matrices) bit for bit against their replays
+               on the CPU and against cuSOLVER under the
+               eigenvalue-cluster gate of ops/cuda/small_linalg.py, the
+               off-diagonal norms per sweep, the 8-point batches timed
+               beside their bounds, the plain version and torch.linalg
+               with and without its status read
   4. slice     the frontend + matching through the public entry points;
                the plain path on the same batch as the reference; keypoint
                and match floors; frames/s of both paths; the frontend's
@@ -105,7 +114,10 @@ Phases, each printing its own lines:
                engine batch through run_engine_batch) against SEQ_BOUNDS;
                an instrumented kernel-path run: launch counts, host syncs
                per process_stream call and inside every engine batch
-               (checked: one per active frame, none per promotion), its
+               (checked: one per active frame, none per promotion) and
+               per two-view init (checked: one, the packed readback; ms
+               per call; the first init's solve again on the "ransac"
+               program and eagerly, bit for bit, ms and syncs), its
                first two engine batches again through the eager
                run_engine_batch, bit for bit; an untimed plain-path run;
                every frame
@@ -118,7 +130,14 @@ Phases, each printing its own lines:
                frames/s); two-view relative pose of frames 0 and 8 with the
                five-point and the eight-point RANSAC (estimate_relative_pose
                through two_view_from_features), each rotation against
-               ground truth under a bound, with its time and host syncs
+               ground truth under a bound, with its time and host syncs;
+               per solver the tracker's "ransac" program and
+               two_view_reconstruction_jit against their eager kernel-path
+               functions bit for bit (two seeds, the first again), the
+               replays' draws against the eager sample_indices, 0 host
+               syncs per replay, ms per call of the graph, the eager and
+               the plain path, the captures' seconds and bytes, and the
+               plain path's rotation under the same bound
   9. reference DEFAULT_CONFIG on frames 8..23: launch counts (4 per
                kernel per detection call), keypoint and match floors,
                kernel path against plain path; extrema_winners bit for bit
@@ -201,8 +220,9 @@ Phases, each printing its own lines:
                others per call at octave 0 or a tracked frame; launches on
                the sequence, the reference sequence, the harness and the
                data-parallel frontend for the three frontend kernels, on
-               the main path for segment_sum, on the engine path for the
-               others), then the last line
+               the main path for segment_sum, sym_eigh and svd3 (the
+               sequence's two-view inits, replayed graphs), on the engine
+               path for the others), then the last line
                {"ok": true, "device": {...}}
 
     python3 chip_smoke.py --segment-turns PARENT
@@ -254,6 +274,7 @@ from visualslam_tpu_torch.backend.pose_graph import resolve_solver
 from visualslam_tpu_torch.frontend import SiftFrontend, make_frontend
 from visualslam_tpu_torch.geometry import se3
 from visualslam_tpu_torch.geometry.camera import normalized
+from visualslam_tpu_torch.geometry import ransac as trs
 from visualslam_tpu_torch.geometry.ransac import generator
 from visualslam_tpu_torch.io.synthetic import SyntheticSequence
 from visualslam_tpu_torch.models import sift
@@ -275,6 +296,7 @@ from visualslam_tpu_torch.ops.cuda import (
     launch_counts,
     reset_launch_counts,
 )
+from visualslam_tpu_torch.ops.cuda import small_linalg as ksl
 from visualslam_tpu_torch.ops.cuda import triangulate as ktri
 from visualslam_tpu_torch.ops.cuda.descriptor import staged_boxes
 from visualslam_tpu_torch.ops.cuda.distance import split_plan
@@ -296,7 +318,13 @@ from visualslam_tpu_torch.ops.patches import crop_patches, patch_shape
 from visualslam_tpu_torch.slam import engine
 from visualslam_tpu_torch.slam.engine import engine_programs, run_engine_batch
 from visualslam_tpu_torch.slam.evaluation import ate_rmse
-from visualslam_tpu_torch.slam.two_view import two_view_from_features
+from visualslam_tpu_torch.slam import tracker as slam_tracker
+from visualslam_tpu_torch.slam.two_view import (
+    two_view_from_features,
+    two_view_from_features_jit,
+    two_view_reconstruction,
+    two_view_reconstruction_jit,
+)
 from visualslam_tpu_torch.slam.track_step import keyframe_step, track_batch
 from visualslam_tpu_torch.slam.tracker import Tracker
 from visualslam_tpu_torch.slam.window import (
@@ -353,13 +381,15 @@ ENGINE_PATH_POS_FRAC = 1e-3  # x the frame 0..47 baseline
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
 PEAK_TF32_S = 495e12        # dense, tensor cores
+PEAK_F64_S = 34e12          # f64 outside the tensor cores (sym_eigh)
 # the part of each kernel's name the profiler reports
 DEVICE_NAMES = {"extrema_winners": "extrema_winners_kernel",
                 "extrema_score": "extrema_score_kernel",
                 "orient_hist": "patch_hist", "descriptor": "patch_hist",
                 "blur_stack": "blur", "l2_2nn": "l2_2nn",
                 "segment_sum": "segment_sum",
-                "triangulate_dlt": "triangulate_kernel"}
+                "triangulate_dlt": "triangulate_kernel",
+                "sym_eigh": "sym_eigh_kernel", "svd3": "svd3_kernel"}
 SOURCES = {
     "extrema_winners": ("visualslam_tpu_torch/csrc/extrema.cu",
                         "visualslam_tpu/ops/pallas/extrema.py:256"),
@@ -381,6 +411,13 @@ SOURCES = {
     # of the DLT normal matrices
     "triangulate_dlt": ("visualslam_tpu_torch/csrc/triangulate.cu",
                         "visualslam_tpu/geometry/epipolar.py:113"),
+    # no Pallas kernel: the JAX package's two-view solvers are
+    # jnp.linalg.eigh (the 8-point normal matrices; fivepoint.py:149, 171)
+    # and jnp.linalg.svd (the 8-point projection; epipolar.py:123)
+    "sym_eigh": ("visualslam_tpu_torch/csrc/small_linalg.cu",
+                 "visualslam_tpu/geometry/epipolar.py:66"),
+    "svd3": ("visualslam_tpu_torch/csrc/small_linalg.cu",
+             "visualslam_tpu/geometry/epipolar.py:71"),
 }
 
 
@@ -697,6 +734,161 @@ def kernel_triangulate(feats: Features, seq, dev) -> dict:
     bms, by = least_ms(nbytes(R, t, x1, x2, got), float(TRI_FLOPS) * n)
     return dict(err=err, ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms,
                 bound_ms=bms, bound_by=by, library_ms=library_ms)
+
+
+# operations of csrc/small_linalg.cu: a Jacobi rotation of an n x n matrix
+# 16 n + 2 (its angle 16, the diagonal 2, the n - 2 other rows of the pair
+# 8 each, the n rows of V 8 each; a square root or a quotient counted as
+# one), counted over the rotations the data needs (a zero pivot is
+# skipped); svd3 adds per matrix A^T A (30), A v (45), the three norms
+# (18), u_1 and u_2 (6), the cross product (9) and its side (5); sym_eigh's
+# at the card's float64 rate, svd3's at its float32 rate
+SVD3_FLOPS = 30 + 45 + 18 + 6 + 9 + 5
+TWO_VIEW_SOLVERS = (("8pt", 512), ("5pt", 128))
+
+
+def two_view_config(solver: str, n: int):
+    """FAST_CONFIG with the two-view check's RANSAC: `solver`, n
+    hypotheses, the Sampson threshold TWO_VIEW_SAMPSON."""
+    return FAST_CONFIG.replace(ransac=FAST_CONFIG.ransac.replace(
+        solver=solver, num_hypotheses=n, inlier_threshold=TWO_VIEW_SAMPSON))
+
+
+def two_view_pair(frames_dev: torch.Tensor, frontend: SiftFrontend, seq,
+                  dev) -> tuple:
+    """FAST_CONFIG's features of frames 0 and 8, the intrinsics and the
+    ground-truth relative rotation."""
+    f = frontend(frames_dev[[0, 8]])
+    fa, fb = (Features(Keypoints(*(x[i] for x in f.keypoints)),
+                       f.descriptors[i]) for i in range(2))
+    R_gt, _ = world_to_camera(seq.gt_poses[[0, 8]])
+    return fa, fb, torch.tensor(seq.intrinsics, device=dev), \
+        R_gt[1] @ R_gt[0].T
+
+
+def init_matrices(fa, fb, intr, dev) -> dict:
+    """The inputs each two-view init hands sym_eigh and svd3 (frames 0 ->
+    8, per solver of TWO_VIEW_SOLVERS): two_view_from_features run eagerly
+    with the kernels wrapped to keep them."""
+    out = {}
+    for solver, n in TWO_VIEW_SOLVERS:
+        calls = {"sym_eigh": [], "svd3": []}
+
+        def keep(name):
+            fn = getattr(KERNELS, name)
+
+            def wrapped(x):
+                calls[name].append(x.clone())
+                return fn(x)
+            return wrapped
+
+        cfg = two_view_config(solver, n)
+        two_view_from_features(fa, fb, intr, cfg,
+                               generator(cfg.ransac.seed, dev),
+                               KERNELS._replace(sym_eigh=keep("sym_eigh"),
+                                                svd3=keep("svd3")))
+        out[solver] = calls
+    return out
+
+
+def check_small_linalg(name: str, x: torch.Tensor, what: str) -> dict:
+    """One batch of sym_eigh or svd3 on the card against its replay on
+    the CPU (bit for bit), run to run, and the plain version
+    (eigenvalues within EIG_TOL, eigenvector clusters within VEC_TOL x
+    eps32 / gap); the replay's off-diagonal norm per sweep, which must lie
+    below float32 epsilon before the last sweep. Returns the kernel's outputs, the
+    comparison, the rotations the replay carried out and the norms."""
+    fn, replay, plain, compare = {
+        "sym_eigh": (ksl.sym_eigh, ksl.sym_eigh_jacobi, ksl.sym_eigh_ref,
+                     ksl.compare_eigh),
+        "svd3": (ksl.svd3, ksl.svd3_jacobi, ksl.svd3_ref,
+                 ksl.compare_svd3)}[name]
+    got = fn(x)
+    offs, done = [], []
+    want = replay(x.cpu(), offs=offs, done=done)
+    same = all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+    again = all(torch.equal(a, b) for a, b in zip(fn(x), got))
+    ref = plain(x)
+    r = compare(*(g.cpu() for g in got), *(p.cpu() for p in ref))
+    values = 0 if name == "sym_eigh" else 1
+    abs_err = float((got[values] - ref[values]).abs().max())
+    worst = [float(o.max()) for o in offs]
+    print(f"kernel {name} {what} {tuple(x.shape)}: equal to its replay "
+          f"bit for bit {same}, run to run {again}; against the "
+          f"plain version (cuSOLVER): values apart by {abs_err:.3e}, "
+          f"within {r['val_err']:.3e} x "
+          f"max (bound {r['val_tol']}), {r['compared']} eigenvector "
+          f"clusters at relative gaps >= {ktri.GAP_MIN}, worst |dP| x gap "
+          f"/ eps32 {r['worst']:.3f} (bound {r['bound']}); off-diagonal "
+          f"norm before and after each sweep {[f'{w:.2e}' for w in worst]},"
+          f" rotations per sweep {done}")
+    check(same and again, f"{name} {what}: equal to its replay bit for bit "
+          "and run to run")
+    check(r["val_err"] <= r["val_tol"] and r["worst"] <= r["bound"],
+          f"{name} {what}: within the eigengap-gated tolerances of the "
+          "plain version")
+    check(worst[-2] < ktri.EPS32, f"{name} {what}: the off-diagonal norm "
+          "below float32 rounding before the last sweep")
+    return dict(got=got, cmp=r, abs_err=abs_err, rotations=sum(done),
+                offs=worst)
+
+
+def kernel_small_linalg(frames_dev: torch.Tensor, frontend: SiftFrontend,
+                        seq, dev) -> dict:
+    """sym_eigh and svd3 on the two-view init's own matrices (frames 0 ->
+    8): the 8-point's 512 normal matrices and its refit, the five-point's
+    128 9x9 nullspace systems and 1280 10x10 systems, the 512 Fs of the
+    8-point projection and the pose decompositions, each checked by
+    check_small_linalg; the main path's batches (8-point) timed per call,
+    alone, beside the bound, the plain version and torch.linalg.eigh / svd
+    with its status read (host clock) and without it (its device kernels
+    alone, profiler)."""
+    t0 = time.perf_counter()
+    fa, fb, intr, _ = two_view_pair(frames_dev, frontend, seq, dev)
+    mats = init_matrices(fa, fb, intr, dev)
+    e8, e5 = mats["8pt"]["sym_eigh"], mats["5pt"]["sym_eigh"]
+    batches = {
+        "sym_eigh": [(e8[0], "8-point normal matrices"),
+                     (e8[1], "8-point refit"),
+                     (e5[0], "five-point nullspace systems"),
+                     (e5[1].reshape(-1, 10, 10), "five-point 10x10 systems")],
+        "svd3": [(mats["8pt"]["svd3"][0], "8-point F"),
+                 (torch.stack([x.reshape(3, 3) for k in ("8pt", "5pt")
+                               for x in mats[k]["svd3"][-2:]]),
+                  "refit F and essential matrices")]}
+    out = {}
+    for name, todo in batches.items():
+        res = [check_small_linalg(name, x, what) for x, what in todo]
+        x, r = todo[0][0], res[0]
+        ms = time_ms(lambda: getattr(KERNELS, name)(x), 20)
+        plain = getattr(PLAIN, name)
+        plain_ms = time_ms(lambda: plain(x), 20)
+        kernel_ms = kernel_alone(name, lambda: getattr(KERNELS, name)(x), ms,
+                                 f" {tuple(x.shape)}")
+        lib = torch.linalg.eigh if name == "sym_eigh" else torch.linalg.svd
+        library_ms = wall_ms(lambda: lib(x), 20)
+        lib_dev, lib_launches, _ = device_ms(lambda: lib(x), 20, None)
+        n = x.shape[-1]
+        flops = (r["rotations"] * (16 * n + 2) if name == "sym_eigh" else
+                 r["rotations"] * (16 * 3 + 2) + SVD3_FLOPS * x.shape[0])
+        rate = PEAK_F64_S if name == "sym_eigh" else PEAK_F32_S
+        bms, by = least_ms(nbytes(x, r["got"]), float(flops), rate)
+        b32, _ = least_ms(nbytes(x, r["got"]), float(flops), PEAK_F32_S)
+        print(f"time {name} {tuple(x.shape)}: kernel call {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms (CUDA events), bound {bms:.6f} ms "
+              f"({by}: {flops} flop over the rotations this batch needs, "
+              f"at {rate / 1e12:g} TFLOP/s; at the float32 rate of the "
+              f"function's float32 contract {b32:.6f} ms; "
+              f"{nbytes(x, r['got'])} bytes; one thread's chain of "
+              f"dependent rotations sets the floor), torch.linalg "
+              f"{library_ms:.4f} ms per call with its status read (host "
+              f"clock), {lib_dev:.4f} ms of device kernels without it "
+              f"({lib_launches:g} launches, profiler)")
+        out[name] = dict(err=r["abs_err"], ms=ms,
+                         kernel_ms=kernel_ms, plain_ms=plain_ms,
+                         bound_ms=bms, bound_by=by, library_ms=library_ms)
+    print(f"small_linalg kernels wall time: {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def kernel_blur(batch: torch.Tensor, frontend: SiftFrontend, dev) -> tuple:
@@ -1240,9 +1432,10 @@ def segment_turns(parent_root: str, dev) -> None:
 
 
 def phase_kernels(batch: torch.Tensor, frontend: SiftFrontend, seq,
-                  dev) -> dict:
+                  dev, frames_dev: torch.Tensor) -> dict:
     """Each kernel against its plain version at the main path's shapes
-    (batch: frames 8..23 of `seq`)."""
+    (batch: frames 8..23 of `seq`; the two-view solvers' on frames 0 and
+    8 of frames_dev)."""
     cfg = FAST_CONFIG
     thr = cfg.sift.contrast_threshold
     cap = cfg.sift.octave_capacity(0)
@@ -1257,6 +1450,7 @@ def phase_kernels(batch: torch.Tensor, frontend: SiftFrontend, seq,
     out["l2_2nn"] = kernel_2nn(feats, dev)
     out["segment_sum"] = kernel_segment(dev)
     out["triangulate_dlt"] = kernel_triangulate(feats, seq, dev)
+    out.update(kernel_small_linalg(frames_dev, frontend, seq, dev))
     for name, r in out.items():
         lib = ("none" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms")
@@ -1522,7 +1716,7 @@ def phase_track(frames_dev: torch.Tensor, seq: SyntheticSequence,
             want = dict.fromkeys(FRONTEND_KERNELS, cfg.pyramid.num_octaves)
             want.update(blur_stack=cfg.pyramid.num_octaves,
                         l2_2nn=2 * (BATCH + n_kf_steps), extrema_score=0,
-                        triangulate_dlt=n_kf_steps)
+                        triangulate_dlt=n_kf_steps, sym_eigh=0, svd3=0)
             check(switched(counts) == want, f"kernel path launches {want}")
         else:
             check(not any(switched(counts).values()),
@@ -1791,7 +1985,8 @@ def phase_engine(frames_dev: torch.Tensor, seq: SyntheticSequence, card: str,
             # triangulation per keyframe_step
             want.update(extrema_winners=0,
                         l2_2nn=2 * int(active.sum()) + 2 * sum(n_prom) + 4,
-                        triangulate_dlt=sum(n_prom) + 2)
+                        triangulate_dlt=sum(n_prom) + 2, sym_eigh=0,
+                        svd3=0)
             check(switched(counts) == want, f"kernel path launches {want}")
             if save_features:
                 np.savez(save_features, intrinsics=seq.intrinsics,
@@ -1959,10 +2154,12 @@ class EagerProgram:
 
 class EagerTracker(Tracker):
     """The tracker with every engine batch through the eager
-    run_engine_batch in place of engine_programs' captured graphs, and the
+    run_engine_batch in place of engine_programs' captured graphs, the
     loop closer's pose graph through the eager optimize_sim3_graph /
-    optimize_pose_graph in place of their programs: the graph path's
-    comparison, here and nowhere in the package."""
+    optimize_pose_graph in place of their programs, and the two-view
+    init's RANSAC through the eager estimate_relative_pose in place of the
+    "ransac" program: the graph path's comparison, here and nowhere in the
+    package."""
 
     def __init__(self, *a, **kw):
         super().__init__(*a, **kw)
@@ -1973,6 +2170,11 @@ class EagerTracker(Tracker):
         return engine.run_engine_batch(persist, dyn, feats_b, self.intr,
                                        self.cfg, self._track_ok_min,
                                        self._max_depth, self.kernels)
+
+    def _ransac(self, x1, x2, valid):
+        return trs.estimate_relative_pose(
+            x1, x2, valid, self.cfg.ransac,
+            generator(self._split_seed(), self.device), self.kernels)
 
 
 class SyncRecorder:
@@ -2097,7 +2299,24 @@ def instrumented_run(frames, seq, dev, cfg=FAST_CONFIG, compare: int = 0):
 
     tracker.detect_batch = keep
     stream = []
+    solve = tracker._two_view_solve
     with SyncRecorder(compare) as rec:
+        rec.inits, rec.init_args = [], None
+
+        def timed(prev, feats):
+            # (host syncs, ms, whether the call captured the program)
+            prog = tracker._progs["ransac"]
+            n_cap = len(prog.captured)
+            torch.cuda.synchronize()
+            s0, t0 = rec.syncs(), time.perf_counter()
+            out = solve(prev, feats)
+            rec.inits.append((rec.syncs() - s0,
+                              1e3 * (time.perf_counter() - t0),
+                              len(prog.captured) > n_cap))
+            rec.init_args = rec.init_args or (prev, feats)
+            return out
+
+        tracker._two_view_solve = timed
         tracker.process_batch(frames[:bench.INIT_FRAMES], 0)
         for k in range(bench.INIT_FRAMES, len(frames), BATCH):
             s0 = rec.syncs()
@@ -2106,7 +2325,40 @@ def instrumented_run(frames, seq, dev, cfg=FAST_CONFIG, compare: int = 0):
         s0 = rec.syncs()
         tracker.finish()
         stream.append(rec.syncs() - s0)
+    del tracker._two_view_solve
     return tracker, stream, rec, detected
+
+
+def init_turns(tracker, prev, feats) -> None:
+    """One two-view init's solve (match, RANSAC, pose, the packed
+    readback) on the tracker's "ransac" program and on the eager
+    estimate_relative_pose, with one seed: equal bit for bit, ms per call
+    (host clock) and host syncs per call of each."""
+    seed = 12345
+    tracker._split_seed = lambda: seed
+    try:
+        out, ms, syncs = [], [], []
+        for eager in (False, True):
+            if eager:
+                tracker._ransac = types.MethodType(EagerTracker._ransac,
+                                                   tracker)
+            out.append(tracker._two_view_solve(prev, feats))
+            ms.append(wall_ms(lambda: tracker._two_view_solve(prev, feats),
+                              10))
+            syncs.append(count_syncs(
+                lambda: tracker._two_view_solve(prev, feats)))
+    finally:
+        del tracker._split_seed
+        tracker.__dict__.pop("_ransac", None)
+    same = all(np.array_equal(a, b) for a, b in zip(*out))
+    print(f"sequence two-view init (FAST_CONFIG, the first init's frames): "
+          f"{ms[0]:.3f} ms per call replaying the ransac program, "
+          f"{ms[1]:.3f} ms eager (host clock, match and readback included), "
+          f"host syncs per call {syncs[0]} / {syncs[1]}, results equal bit "
+          f"for bit {same} ({out[0].n} inliers of {out[0].n_match} "
+          f"matches)")
+    check(same and syncs[0] == 1, "the two-view init's program equals the "
+          "eager init bit for bit and syncs the host once")
 
 
 def save_sequence_features(path: str, detected: list, seq) -> None:
@@ -2214,6 +2466,13 @@ def phase_sequence(card: str, dev, save_features: str | None) -> dict:
         check(counts[name] == 0, f"{name} not launched under FAST_CONFIG")
     print(f"sequence host syncs per process_stream call: {stream[:-1]} "
           f"(finish: {stream[-1]})")
+    warm = [(s_, round(ms, 3)) for s_, ms, cap in rec.inits if not cap]
+    print(f"sequence two-view inits (host syncs, ms) per call: {warm}; "
+          f"calls that captured the program: "
+          f"{[(s_, round(ms, 3)) for s_, ms, cap in rec.inits if cap]}")
+    check(bool(warm) and all(s_ == 1 for s_, _ in warm),
+          "sequence: every two-view init syncs the host once")
+    init_turns(tk, *rec.init_args)
     check_sync_rule("sequence", rec)
     eager_replays("sequence (FAST_CONFIG)", rec)
     del rec
@@ -2503,16 +2762,9 @@ def phase_harris_5pt(frames_dev: torch.Tensor, frontend: SiftFrontend,
           "harris: unit descriptors")
     print(f"harris frontend frames/s (median of 8 batches of {BATCH}): "
           f"{frontend_fps(fe, frames_dev):.1f}")
-    f = frontend(frames_dev[[0, 8]])
-    fa, fb = (Features(Keypoints(*(x[i] for x in f.keypoints)),
-                       f.descriptors[i]) for i in range(2))
-    R_gt, _ = world_to_camera(seq.gt_poses[[0, 8]])
-    R_rel = R_gt[1] @ R_gt[0].T
-    intr = torch.tensor(seq.intrinsics, device=dev)
+    fa, fb, intr, R_rel = two_view_pair(frames_dev, frontend, seq, dev)
     for solver, N in (("5pt", 128), ("8pt", 512)):
-        cfg = FAST_CONFIG.replace(ransac=FAST_CONFIG.ransac.replace(
-            solver=solver, num_hypotheses=N,
-            inlier_threshold=TWO_VIEW_SAMPSON))
+        cfg = two_view_config(solver, N)
 
         def solve():
             return two_view_from_features(fa, fb, intr, cfg,
@@ -2528,8 +2780,121 @@ def phase_harris_5pt(frames_dev: torch.Tensor, frontend: SiftFrontend,
               f"{syncs} host syncs per call")
         check(err <= FIVE_POINT_ROT_DEG,
               f"{solver}: rotation within {FIVE_POINT_ROT_DEG} deg")
+        two_view_programs(solver, cfg, fa, fb, frames_dev[[0, 8]], intr,
+                          R_rel, dev)
     print(f"harris_5pt phase wall time: "
           f"{time.perf_counter() - t_phase:.1f} s")
+
+
+def _same(a, b) -> bool:
+    """Every tensor of two results equal, bit for bit."""
+    la, lb = _leaves(a), _leaves(b)
+    return len(la) == len(lb) and all(torch.equal(x, y)
+                                      for x, y in zip(la, lb))
+
+
+def _capture_line(what: str, key) -> str:
+    if key is None:
+        return f"{what} not captured"
+    return (f"{what} captured in {key.capture_s:.3f} s (warm-up included), "
+            f"static buffers and graph pool {key.pool_bytes / 2 ** 20:.1f} "
+            f"MiB")
+
+
+def two_view_programs(solver: str, cfg, fa, fb, imgs, intr, R_rel,
+                      dev) -> None:
+    """The tracker's "ransac" program and two_view_reconstruction_jit on
+    frames 0 -> 8 against their eager kernel-path functions, bit for bit
+    for two seeds in turn and the first again (R, t, X, inliers, count;
+    the two-view result's matches too), each replay's random draws against
+    the eager sample_indices, 0 host syncs per replay; ms per call of the
+    graph, the eager kernel path and the plain path (host clock); the
+    captures' seconds and bytes; the plain path's rotation against ground
+    truth under the same bound as the kernel path's."""
+    t0 = time.perf_counter()
+    seed = cfg.ransac.seed
+    m = match_features(fa, fb, cfg.match)
+    x = (normalized(fa.keypoints.yx[m.idx_a.long()].flip(-1), intr),
+         normalized(fb.keypoints.yx[m.idx_b.long()].flip(-1), intr), m.valid)
+    prog = slam_tracker._shared_programs(cfg)["ransac"]
+    rcfg = (cfg.ransac, KERNELS)
+    # capture with the sampler kept: its last output is the graph's own
+    # buffer of draws, which every replay rewrites
+    draws, real = [], trs.sample_indices
+
+    def keep(gen, valid, n_hyp, n):
+        draws.append(real(gen, valid, n_hyp, n))
+        return draws[-1]
+
+    trs.sample_indices = keep
+    try:
+        prog(x, rcfg, seed)
+    finally:
+        trs.sample_indices = real
+    check(len(prog.captured) == 1 and len(draws) == 2,
+          f"{solver}: the ransac program captured once")
+    n_draw = cfg.ransac.sample_size if solver == "8pt" else 5
+    rows = []
+    for s_ in (seed, seed + 1, seed):
+        got = []
+        syncs = count_syncs(lambda: got.append(prog(x, rcfg, s_)))
+        want = trs.estimate_relative_pose(*x, cfg.ransac, generator(s_, dev),
+                                          KERNELS)
+        same_draws = torch.equal(draws[-1], real(
+            generator(s_, dev), x[2], cfg.ransac.num_hypotheses, n_draw))
+        rows.append((s_, _same(got[0], want), same_draws, syncs))
+    print(f"two-view {solver}: the ransac program against the eager "
+          f"estimate_relative_pose (seed, equal bit for bit, draws equal, "
+          f"host syncs per replay): {rows}; "
+          + _capture_line("ransac program", next(iter(
+              prog.captured.values()), None)))
+    check(all(r[1] and r[2] and r[3] == 0 for r in rows),
+          f"{solver}: the ransac program replays the eager function and "
+          "its draws bit for bit, with no host sync")
+    graph_ms = wall_ms(lambda: prog(x, rcfg, seed), 10)
+    eager_ms = wall_ms(lambda: trs.estimate_relative_pose(
+        *x, cfg.ransac, generator(seed, dev), KERNELS), 10)
+    plain_ms = wall_ms(lambda: trs.estimate_relative_pose(
+        *x, cfg.ransac, generator(seed, dev), PLAIN), 5)
+    print(f"two-view {solver} ransac program: {graph_ms:.3f} ms per call "
+          f"(graph), {eager_ms:.3f} eager kernel path, {plain_ms:.3f} plain "
+          f"path (host clock + synchronize)")
+
+    rows = []
+    for s_ in (seed, seed + 1, seed):
+        got = two_view_reconstruction_jit(imgs[0], imgs[1], intr, cfg, s_)
+        want = two_view_reconstruction(imgs[0], imgs[1], intr, cfg,
+                                       generator(s_, dev))
+        rows.append((s_, _same(got, want)))
+    tv = two_view_from_features_jit.program
+    syncs = count_syncs(lambda: two_view_from_features_jit(fa, fb, intr, cfg,
+                                                           seed))
+    print(f"two-view {solver}: two_view_reconstruction_jit against the eager "
+          f"two_view_reconstruction (seed, every field equal bit for bit): "
+          f"{rows}; host syncs per replay of two_view_from_features_jit "
+          f"{syncs}; " + _capture_line("its graph", next(iter(
+              reversed(tv.captured.values())), None)))
+    check(all(r[1] for r in rows) and syncs == 0,
+          f"{solver}: two_view_reconstruction_jit equals the eager function "
+          "bit for bit, with no host sync in its replay")
+    graph_ms = wall_ms(lambda: two_view_from_features_jit(fa, fb, intr, cfg,
+                                                          seed), 10)
+    eager_ms = wall_ms(lambda: two_view_from_features(
+        fa, fb, intr, cfg, generator(seed, dev)), 10)
+    plain = two_view_from_features(fa, fb, intr, cfg, generator(seed, dev),
+                                   PLAIN)
+    plain_ms = wall_ms(lambda: two_view_from_features(
+        fa, fb, intr, cfg, generator(seed, dev), PLAIN), 5)
+    err = [float(rot_deg(r.R.cpu().numpy()[None], R_rel[None])[0])
+           for r in (got, plain)]
+    print(f"two-view {solver} from features: {graph_ms:.3f} ms per call "
+          f"(graph), {eager_ms:.3f} eager kernel path, {plain_ms:.3f} plain "
+          f"path; rotation error kernel path {err[0]:.4f} deg "
+          f"({int(got.num_inliers)} inliers), plain path {err[1]:.4f} deg "
+          f"({int(plain.num_inliers)} inliers); wall time "
+          f"{time.perf_counter() - t0:.1f} s")
+    check(max(err) <= FIVE_POINT_ROT_DEG, f"{solver}: kernel and plain "
+          f"paths' rotations within {FIVE_POINT_ROT_DEG} deg")
 
 
 # the harness phase: `cli benchmark`'s per-stage rows (harness.py) on the
@@ -3649,7 +4014,8 @@ def main() -> None:
     # warm both paths (allocator, band buffers, cuBLAS handles)
     frontend(frames_dev[:BATCH])
     plain(frames_dev[:BATCH])
-    timings = phase_kernels(frames_dev[8:8 + BATCH], frontend, seq, dev)
+    timings = phase_kernels(frames_dev[8:8 + BATCH], frontend, seq, dev,
+                            frames_dev)
     phase_slice(frames_dev, frontend, plain)
     track = phase_track(frames_dev, seq, frontend, card, dev)
     engine_counts = phase_engine(frames_dev, seq, card, dev, save)
@@ -3670,7 +4036,8 @@ def main() -> None:
     launches = dict(engine_counts, **{
         n: sequence_counts[n] + reference_counts[n] + harness_counts[n]
         + parallel_counts[n] for n in FRONTEND_PATH})
-    launches["segment_sum"] = sequence_counts["segment_sum"]
+    for name in ("segment_sum", "sym_eigh", "svd3"):
+        launches[name] = sequence_counts[name]
     check(all(launches[name] > 0 for name in SOURCES),
           "every kernel launched on the sequence or the engine path")
     check(track["extrema_winners"] > 0, "extrema_winners on the track path")

@@ -27,10 +27,18 @@ from visualslam_tpu_torch.models.types import Features, Keypoints, Matches
 from visualslam_tpu_torch.utils.config import (
     DEFAULT_CONFIG,
     FAST_CONFIG,
+    BAConfig,
+    HarrisConfig,
+    MatchConfig,
+    OrbConfig,
+    PyramidConfig,
+    RansacConfig,
+    SiftConfig,
     SlamConfig,
 )
 
-__all__ = ["DEFAULT_CONFIG", "FAST_CONFIG", "Features", "HarrisFrontend",
-           "Keypoints", "Matches", "OrbFrontend", "SiftFrontend",
-           "SlamConfig", "detect_and_describe", "make_frontend",
-           "match_features"]
+__all__ = ["BAConfig", "DEFAULT_CONFIG", "FAST_CONFIG", "Features",
+           "HarrisConfig", "HarrisFrontend", "Keypoints", "MatchConfig",
+           "Matches", "OrbConfig", "OrbFrontend", "PyramidConfig",
+           "RansacConfig", "SiftConfig", "SiftFrontend", "SlamConfig",
+           "detect_and_describe", "make_frontend", "match_features"]

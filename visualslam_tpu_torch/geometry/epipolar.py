@@ -9,22 +9,44 @@ and scores all its hypotheses in one call, where the JAX package vmaps).
 Everything runs at float32 matmul precision (TF32 off,
 utils/precision.f32_matmul), as the reference. Singular and eigen vectors
 carry a sign freedom, so E is defined up to sign: compare E up to sign and
-the chosen pose, not the factors. On CUDA, `eigh` and `svd` check their
-status on the host (one sync each); two-view init runs off the per-frame
-path. Triangulation takes `kernels` (ops.cuda.KERNELS: the Jacobi kernel,
-no host sync).
+the chosen pose, not the factors.
+
+The small solves take `kernels`: ops.cuda.KERNELS (the Jacobi kernels
+`sym_eigh`, `svd3` and `triangulate_dlt`, no host sync, so RANSAC and pose
+recovery capture into a CUDA graph) or ops.cuda.PLAIN (`torch.linalg`,
+which on the card reads cuSOLVER's status on the host). The 3x3
+determinants whose sign makes the decomposition's factors rotations are
+closed-form. The constant matrices are built once per device and dtype
+(`_constant`), never inside a capture: a copy from host memory there would
+raise or bake a pointer into the graph.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 
+from visualslam_tpu_torch.geometry.fivepoint import _det3
 from visualslam_tpu_torch.ops.cuda import KERNELS, Kernels
 from visualslam_tpu_torch.utils.precision import f32_matmul
 
 _EPS = 1e-12
+_CONSTANTS = {
+    # the projection onto the essential manifold: singular values (1, 1, 0)
+    "diag110": [1.0, 1.0, 0.0],
+    # the decomposition's rotation by 90 degrees about z
+    "W": [[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]],
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _constant(name: str, device: torch.device,
+              dtype: torch.dtype) -> torch.Tensor:
+    """_CONSTANTS[name] on device, built on first use there (outside any
+    capture: the warm-up of a captured program makes it)."""
+    return torch.tensor(_CONSTANTS[name], dtype=dtype, device=device)
 
 
 def _normalize_pts(x: torch.Tensor, w: torch.Tensor):
@@ -48,12 +70,15 @@ def _normalize_pts(x: torch.Tensor, w: torch.Tensor):
 
 
 def eight_point(x1: torch.Tensor, x2: torch.Tensor,
-                w: torch.Tensor | None = None) -> torch.Tensor:
+                w: torch.Tensor | None = None,
+                kernels: Kernels = KERNELS) -> torch.Tensor:
     """Weighted 8-point essential estimate.
 
     x1, x2: [..., N >= 8, 2] correspondences in normalized camera coords;
     w: [..., N] weights (mask). Returns E [..., 3, 3] with x2^T E x1 = 0,
-    projected to the essential manifold (singular values (1, 1, 0))."""
+    projected to the essential manifold (singular values (1, 1, 0)):
+    `kernels.sym_eigh` of the 9x9 normal matrices, `kernels.svd3` of the
+    denormalized F."""
     f32_matmul()
     if w is None:
         w = torch.ones(x1.shape[:-1], dtype=x1.dtype, device=x1.device)
@@ -66,12 +91,11 @@ def eight_point(x1: torch.Tensor, x2: torch.Tensor,
                      ones], -1)                              # [..., N, 9]
     Aw = A * w[..., None]
     M = Aw.transpose(-1, -2) @ Aw                            # [..., 9, 9]
-    _, evecs = torch.linalg.eigh(M)
+    _, evecs = kernels.sym_eigh(M)
     F = evecs[..., :, 0].reshape(*M.shape[:-2], 3, 3)       # smallest eigval
     F = T2.transpose(-1, -2) @ F @ T1                       # denormalize
-    U, _, Vt = torch.linalg.svd(F)
-    diag = torch.tensor([1.0, 1.0, 0.0], dtype=F.dtype, device=F.device)
-    return (U * diag) @ Vt
+    U, _, Vt = kernels.svd3(F)
+    return (U * _constant("diag110", F.device, F.dtype)) @ Vt
 
 
 def sampson_error(E: torch.Tensor, x1: torch.Tensor,
@@ -104,23 +128,26 @@ def triangulate(R: torch.Tensor, t: torch.Tensor, x1: torch.Tensor,
     return kernels.triangulate_dlt(R, t, x1, x2)
 
 
-def decompose_essential(E: torch.Tensor):
-    """E -> ((R1, R2), t) candidate decompositions (4 combos with +-t)."""
+def decompose_essential(E: torch.Tensor, kernels: Kernels = KERNELS):
+    """E -> ((R1, R2), t) candidate decompositions (4 combos with +-t).
+    The SVD is `kernels.svd3`; the factors' determinants are closed-form
+    (only their sign is read, of orthonormal matrices)."""
     f32_matmul()
-    U, _, Vt = torch.linalg.svd(E)
+    U, _, Vt = kernels.svd3(E)
     # enforce proper rotations
-    U = U * torch.sign(torch.linalg.det(U))
-    Vt = Vt * torch.sign(torch.linalg.det(Vt))
-    W = torch.tensor([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]],
-                     dtype=E.dtype, device=E.device)
+    U = U * torch.sign(_det3(U))
+    Vt = Vt * torch.sign(_det3(Vt))
+    W = _constant("W", E.device, E.dtype)
     return (U @ W @ Vt, U @ W.T @ Vt), U[:, 2]
 
 
 def recover_pose(E: torch.Tensor, x1: torch.Tensor, x2: torch.Tensor,
                  w: torch.Tensor, kernels: Kernels = KERNELS):
     """Pick the (R, t) among the 4 decompositions with max cheirality
-    support (the first on ties). Returns (R, t, X [N, 3], front_mask [N])."""
-    (R1, R2), tt = decompose_essential(E)
+    support (the first on ties). Returns (R, t, X [N, 3], front_mask [N]).
+    The winner is taken with index_select (indexing by a 0-d tensor reads
+    it on the host)."""
+    (R1, R2), tt = decompose_essential(E, kernels)
     Rs = torch.stack([R1, R1, R2, R2])
     ts = torch.stack([tt, -tt, tt, -tt])
     scores, Xs, fronts = [], [], []
@@ -131,6 +158,6 @@ def recover_pose(E: torch.Tensor, x1: torch.Tensor, x2: torch.Tensor,
         scores.append((front * w).sum())
         Xs.append(X)
         fronts.append(front)
-    best = torch.argmax(torch.stack(scores))      # first maximum, as jnp
-    return (Rs[best], ts[best], torch.stack(Xs)[best],
-            torch.stack(fronts)[best])
+    best = torch.argmax(torch.stack(scores)).reshape(1)  # first maximum
+    return tuple(x.index_select(0, best)[0] for x in (
+        Rs, ts, torch.stack(Xs), torch.stack(fronts)))

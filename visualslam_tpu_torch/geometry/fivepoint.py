@@ -16,19 +16,29 @@ method with fixed shapes.
      polished by 3 Gauss-Newton steps on the 10 constraint values.
 
 The constants are the JAX package's float64 numpy ones (copied, same
-seed), used in float32. The Gauss-Newton Jacobian is the constraints'
+seed), used in float32 and built once per device (`_const`; never inside a
+capture, where a copy from host memory would raise or bake a pointer into
+the graph). The Gauss-Newton Jacobian is the constraints'
 analytic derivative (the JAX package takes `jacfwd` of them): E is linear
 in (x, y, z), so dE/dv_i = E_i, d det E = <cof(E), dE> and
 dF = 2 (dE E^T E + E dE^T E + E E^T dE) - 2 <E, dE> E - tr(E E^T) dE.
-3x3 determinants and solves are closed-form (no host sync); the 9x9 and
-10x10 eigh and the 10x10 determinants are torch.linalg's.
+3x3 determinants and solves are closed-form; the 9x9 and 10x10
+eigendecompositions are `kernels.sym_eigh` (the Jacobi kernel on the card,
+no host sync; ops.cuda.PLAIN: torch.linalg.eigh) and the 10x10
+determinants torch.linalg.det (on the card an LU with no host read, which
+captures). A degenerate eigenspace has no preferred basis: two
+eigensolvers give different nullspace bases and so candidates in another
+order; compare candidate sets, never slot by slot.
 """
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
+from visualslam_tpu_torch.ops.cuda import KERNELS, Kernels
 from visualslam_tpu_torch.utils.masked import top_k
 
 # 20 cubic monomials in (x, y, z), grouped by (x, y) part; XY_GROUPS order
@@ -64,8 +74,17 @@ _BISECT = 40
 _GN_STEPS = 3
 
 
-def _f32(a: np.ndarray, device) -> torch.Tensor:
-    return torch.as_tensor(np.asarray(a, np.float32), device=device)
+_CONSTANTS = {"samples": _SAMPLES, "vinv": _VINV,
+              "scatter": _SCATTER.reshape(20, 40), "zn": _ZN,
+              "zvinv": _ZVINV, "theta": _THETA}
+
+
+@functools.lru_cache(maxsize=None)
+def _const(name: str, device: torch.device) -> torch.Tensor:
+    """_CONSTANTS[name] in float32 on device, built on first use there
+    (outside any capture: the warm-up of a captured program makes it)."""
+    return torch.as_tensor(np.asarray(_CONSTANTS[name], np.float32),
+                           device=device)
 
 
 def _det3(M: torch.Tensor) -> torch.Tensor:
@@ -155,7 +174,7 @@ def _real_roots_deg10(c: torch.Tensor):
     """Real roots of sum c_k z^k per row of c [N, 11] by sign-change
     bisection in theta = atan(z): (roots [N, 10], valid [N, 10])."""
     c = c / c.abs().amax(dim=-1, keepdim=True).clamp_min(1e-30)
-    theta = _f32(_THETA, c.device)
+    theta = _const("theta", c.device)
     vals = _poly_eval_trig(c, theta)                       # [N, G]
     sc = vals[:, :-1] * vals[:, 1:] < 0                    # brackets
     grid = torch.arange(_N_GRID - 1, dtype=torch.float32, device=c.device)
@@ -174,12 +193,14 @@ def _real_roots_deg10(c: torch.Tensor):
     return torch.tan(0.5 * (lo + hi)), valid
 
 
-def five_point(x1: torch.Tensor, x2: torch.Tensor):
+def five_point(x1: torch.Tensor, x2: torch.Tensor,
+               kernels: Kernels = KERNELS):
     """Essential matrices from 5 normalised correspondences per hypothesis.
 
     x1, x2: [N, 5, 2] (or [5, 2]). Returns (E [N, 10, 3, 3] unit-norm
     candidates, valid [N, 10]); invalid slots hold garbage matrices the
-    caller masks with `valid`. Convention: x2^T E x1 = 0."""
+    caller masks with `valid`. Convention: x2^T E x1 = 0. The 9x9 and the
+    N x 10 10x10 eigendecompositions are `kernels.sym_eigh`."""
     single = x1.ndim == 2
     if single:
         x1, x2 = x1[None], x2[None]
@@ -189,14 +210,14 @@ def five_point(x1: torch.Tensor, x2: torch.Tensor):
     u2, v2 = x2[..., 0], x2[..., 1]
     A = torch.stack([u2 * u1, u2 * v1, u2, v2 * u1, v2 * v1, v2,
                      u1, v1, torch.ones_like(u1)], dim=-1)  # [N, 5, 9]
-    _, vecs = torch.linalg.eigh(A.transpose(-1, -2) @ A)
+    _, vecs = kernels.sym_eigh(A.transpose(-1, -2) @ A)
     Eb = vecs[..., :4].transpose(-1, -2).reshape(N, 4, 3, 3)
 
-    P = constraint_values(Eb, _f32(_SAMPLES, dev).expand(N, 20, 3))
-    C = (_f32(_VINV, dev) @ P).transpose(-1, -2)           # [N, 10, 20]
+    P = constraint_values(Eb, _const("samples", dev).expand(N, 20, 3))
+    C = (_const("vinv", dev) @ P).transpose(-1, -2)        # [N, 10, 20]
     # each constraint polynomial to unit coefficient norm
     C = C / torch.linalg.vector_norm(C, dim=-1, keepdim=True).clamp_min(1e-30)
-    Mz = (C @ _f32(_SCATTER.reshape(20, 40), dev)).reshape(N, 10, 4, 10)
+    Mz = (C @ _const("scatter", dev)).reshape(N, 10, 4, 10)
     Mz = Mz.permute(0, 2, 1, 3)                            # [N, zdeg, 10, 10]
 
     def m_of(z):                                           # z [N, Z]
@@ -204,13 +225,13 @@ def five_point(x1: torch.Tensor, x2: torch.Tensor):
         return (Mz[:, None, 0] + z * Mz[:, None, 1] + (z * z) * Mz[:, None, 2]
                 + (z ** 3) * Mz[:, None, 3])               # [N, Z, 10, 10]
 
-    dets = torch.linalg.det(m_of(_f32(_ZN, dev).expand(N, 11)))   # [N, 11]
+    dets = torch.linalg.det(m_of(_const("zn", dev).expand(N, 11)))
     dets = dets / dets.abs().amax(dim=-1, keepdim=True).clamp_min(1e-30)
-    coef = dets @ _f32(_ZVINV, dev).T                      # c_0..c_10
+    coef = dets @ _const("zvinv", dev).T                   # c_0..c_10
     roots, valid = _real_roots_deg10(coef)
 
     M = m_of(roots)                                        # [N, 10, 10, 10]
-    _, vv = torch.linalg.eigh(M.transpose(-1, -2) @ M)
+    _, vv = kernels.sym_eigh(M.transpose(-1, -2) @ M)
     m = vv[..., 0]                                         # xy-monomials
     denom = m[..., 9]
     tiny = torch.where(denom < 0, -1e-12, 1e-12)

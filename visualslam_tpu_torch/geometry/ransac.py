@@ -11,6 +11,12 @@ Samples are Gumbel top-k over the validity mask, drawn from a
 `jax.random`'s bits cannot be drawn in torch, so the sampler is one
 module-level function, `sample_indices`: a parity test replaces it with one
 that replays the reference's draws.
+
+The solvers' small eigendecompositions and SVDs go through `kernels`
+(ops.cuda.KERNELS on the card: no host read, so the whole estimate captures
+into one CUDA graph, slam/tracker.py's "ransac" program); the winners are
+taken with index_select, since indexing by a 0-d tensor reads it on the
+host.
 """
 
 from __future__ import annotations
@@ -47,7 +53,8 @@ def sample_indices(gen: torch.Generator, valid: torch.Tensor, N: int,
 
 
 def ransac_essential(x1: torch.Tensor, x2: torch.Tensor, valid: torch.Tensor,
-                     cfg: RansacConfig, gen: torch.Generator | None = None):
+                     cfg: RansacConfig, gen: torch.Generator | None = None,
+                     kernels: Kernels = KERNELS):
     """Robust essential-matrix estimation.
 
     x1, x2: [M, 2] normalized-coordinate correspondences; valid: [M] mask.
@@ -60,7 +67,7 @@ def ransac_essential(x1: torch.Tensor, x2: torch.Tensor, valid: torch.Tensor,
     N = cfg.num_hypotheses
     if cfg.solver == "5pt":
         idx = sample_indices(gen, valid, N, 5)
-        cand, cmask = five_point(x1[idx], x2[idx])           # [N, 10, 3, 3]
+        cand, cmask = five_point(x1[idx], x2[idx], kernels)  # [N, 10, 3, 3]
         errs = sampson_error(cand.reshape(-1, 3, 3), x1, x2).view(
             N, MAX_CANDIDATES, -1)
         inls_c = (errs < cfg.inlier_threshold) & valid & cmask[..., None]
@@ -69,15 +76,15 @@ def ransac_essential(x1: torch.Tensor, x2: torch.Tensor, valid: torch.Tensor,
         Es, inls = cand[rows, b], inls_c[rows, b]
     else:
         idx = sample_indices(gen, valid, N, cfg.sample_size)
-        Es = eight_point(x1[idx], x2[idx])                   # [N, 3, 3]
+        Es = eight_point(x1[idx], x2[idx], None, kernels)    # [N, 3, 3]
         inls = (sampson_error(Es, x1, x2) < cfg.inlier_threshold) & valid
     counts = inls.sum(-1)
-    best = torch.argmax(counts)                              # first maximum
-    E0 = Es[best]
-    inl0 = inls[best]
+    best = torch.argmax(counts).reshape(1)                   # first maximum
+    E0 = Es.index_select(0, best)[0]
+    inl0 = inls.index_select(0, best)[0]
 
     # polish: weighted 8-point refit on the winner's inliers, re-scored
-    E1 = eight_point(x1, x2, inl0.to(x1.dtype))
+    E1 = eight_point(x1, x2, inl0.to(x1.dtype), kernels)
     inl1 = (sampson_error(E1, x1, x2) < cfg.inlier_threshold) & valid
     use_refit = inl1.sum() >= inl0.sum()
     E = torch.where(use_refit, E1, E0)
@@ -93,6 +100,6 @@ def estimate_relative_pose(x1: torch.Tensor, x2: torch.Tensor,
 
     Returns (R, t_unit, X [M, 3] in camera-1 frame, inlier_mask,
     n_inliers). Translation is up-to-scale (unit norm)."""
-    E, inl, _ = ransac_essential(x1, x2, valid, cfg, gen)
+    E, inl, _ = ransac_essential(x1, x2, valid, cfg, gen, kernels)
     R, t, X, front = recover_pose(E, x1, x2, inl.to(x1.dtype), kernels)
     return R, t, X, inl & front, (inl & front).sum()

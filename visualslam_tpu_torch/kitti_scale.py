@@ -122,9 +122,10 @@ class Hooks:
 
 
 def run(seq, frames: np.ndarray, warm_seq, warm_frames: np.ndarray,
-        device="cuda", hooks: Hooks | None = None):
+        device="cuda", hooks: Hooks | None = None, cfg=CONFIG, kernels=None):
     """The protocol on pre-rendered frames. Returns (the artifact's dict,
-    the tracker after its global BA)."""
+    the tracker after its global BA). cfg and kernels (ops.cuda.KERNELS by
+    default) are the trackers'."""
     from visualslam_tpu_torch.backend.ba import run_ba_jit
     from visualslam_tpu_torch.slam.evaluation import (
         ate_rmse,
@@ -137,21 +138,23 @@ def run(seq, frames: np.ndarray, warm_seq, warm_frames: np.ndarray,
     )
     from visualslam_tpu_torch.slam.tracker import Tracker
 
+    from visualslam_tpu_torch.ops.cuda import KERNELS
+
     dev = require_device(device, "kitti_scale")
     hooks = hooks or Hooks()
-    cfg = CONFIG
+    kernels = KERNELS if kernels is None else kernels
     N = len(frames)
 
     # warmup on another world: allocator, library handles and kernels are
     # ready before the timed stream
-    warm = Tracker(cfg, warm_seq.intrinsics, device=dev)
+    warm = Tracker(cfg, warm_seq.intrinsics, device=dev, kernels=kernels)
     warm.process_batch(warm_frames[:INIT], 0)
     warm.process_stream(warm_frames[INIT:], INIT)
     warm.finish()
     warm.prewarm_aux()
     del warm
 
-    tracker = Tracker(cfg, seq.intrinsics, device=dev)
+    tracker = Tracker(cfg, seq.intrinsics, device=dev, kernels=kernels)
     tracker.process_batch(frames[:INIT], 0)
     _sync(dev)
     with hooks.stream(tracker):

@@ -67,7 +67,7 @@ def build(name: str) -> Path:
 
 
 SOURCES = ("extrema", "descriptor", "blur", "distance", "segment",
-           "triangulate")
+           "triangulate", "small_linalg")
 
 
 def build_all(names=SOURCES) -> list[Path]:

@@ -19,11 +19,17 @@ The engine runs through `engine.engine_programs` (shared per config, as
 the JAX package's jitted programs): on the card every engine batch and
 database relocalization replays CUDA graphs captured once per shape, and
 the loop correction and host-path database append run eagerly; on the CPU
-the same entry points are the eager functions. Where the JAX package caches
-its other jitted programs (`_shared_programs`), the port calls its
-functions directly. The tracker owns one frontend module (the one `cfg.frontend` names) and one `torch.Generator` for RANSAC, split per two-view
-init as the reference splits its PRNG key. Everything runs on `device`
-(the card unless the caller asks for the CPU); `kernels` picks the kernel
+the same entry points are the eager functions. Of the JAX package's other
+jitted programs (`_shared_programs`), "ransac" is one here too, shared per
+config: on the card the two-view init's RANSAC, pose recovery and
+triangulation replay one captured graph, and the init reads its results
+back as one packed buffer (one host sync per call); the others (the
+frontend, match, track and keyframe steps) are the functions, called
+directly. The tracker owns one frontend module (the one `cfg.frontend`
+names) and one `torch.Generator` as the RANSAC key chain, from which each
+two-view init draws the seed of its draws, as the reference splits its
+PRNG key. Everything runs on `device` (the card unless the caller asks
+for the CPU); `kernels` picks the kernel
 path (ops.cuda.KERNELS) or the plain path (ops.cuda.PLAIN). The lag-1
 `process_stream` keeps the reference's contract; the engine's packed
 telemetry comes back through a pinned host buffer and a CUDA event (the
@@ -33,8 +39,9 @@ reference's `copy_to_host_async`).
 from __future__ import annotations
 
 import contextlib
+import functools
 from dataclasses import dataclass
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -67,6 +74,7 @@ from visualslam_tpu_torch.slam.track_step import (
 )
 from visualslam_tpu_torch.utils.card import require_device
 from visualslam_tpu_torch.utils.config import SlamConfig
+from visualslam_tpu_torch.utils.graphs import GraphProgram
 
 
 def _tree_map(fn, tree):
@@ -78,6 +86,66 @@ def _tree_map(fn, tree):
 
 def _host(x) -> np.ndarray:
     return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+
+def _ransac_body(x, cfg, gen):
+    """The JAX tracker's "ransac" program: estimate_relative_pose of x =
+    (x1, x2, valid) under cfg = (RansacConfig, Kernels), drawing from gen.
+    The function is looked up in geometry/ransac at every call, so a test
+    that replaces it (or its sampler) reaches the CPU path."""
+    x1, x2, valid = x
+    rcfg, kernels = cfg
+    return ransac.estimate_relative_pose(x1, x2, valid, rcfg, gen, kernels)
+
+
+@functools.lru_cache(maxsize=32)
+def _shared_programs(cfg: SlamConfig) -> dict:
+    """The tracker's programs, shared by every Tracker with an equal config
+    (the JAX package's `_shared_programs`), so a warm-up tracker's capture
+    serves the trackers after it:
+
+      "ransac"   utils.graphs.GraphProgram of estimate_relative_pose, called
+                 as program((x1, x2, valid), (cfg.ransac, kernels), seed):
+                 one captured graph per shape key on the card (the plain
+                 kernel set, which reads the host, runs eagerly), the
+                 function on the CPU."""
+    return {"ransac": GraphProgram(_ransac_body)}
+
+
+class TwoViewHost(NamedTuple):
+    """A two-view init's results on the host, read back as one buffer
+    (`_pack_two_view`): the pose and, per match slot, the point, the final
+    inlier flag, the matched keypoints and their normalized coordinates."""
+    n: int                    # final inliers
+    n_match: int              # valid matches
+    R: np.ndarray             # [3, 3]
+    t: np.ndarray             # [3]
+    X: np.ndarray             # [M, 3] camera-1 frame
+    inl: np.ndarray           # [M] bool
+    idx_a: np.ndarray         # [M] int64
+    idx_b: np.ndarray         # [M] int64
+    x1: np.ndarray            # [M, 2]
+    x2: np.ndarray            # [M, 2]
+
+
+def _pack_two_view(m, x1, x2, R, t, X, inl, n) -> torch.Tensor:
+    """One float32 buffer [14 + 10 M] of a two-view init's results (the
+    counts and indices are exact in float32 below 2^24)."""
+    f = torch.float32
+    head = torch.cat([n.reshape(1).to(f), m.count().reshape(1).to(f),
+                      R.reshape(9).to(f), t.reshape(3).to(f)])
+    rows = torch.cat([X.to(f), inl[:, None].to(f), m.idx_a[:, None].to(f),
+                      m.idx_b[:, None].to(f), x1.to(f), x2.to(f)], 1)
+    return torch.cat([head, rows.reshape(-1)])
+
+
+def _unpack_two_view(buf: np.ndarray) -> TwoViewHost:
+    rows = buf[14:].reshape(-1, 10)
+    return TwoViewHost(
+        n=int(buf[0]), n_match=int(buf[1]), R=buf[2:11].reshape(3, 3),
+        t=buf[11:14].copy(), X=rows[:, 0:3], inl=rows[:, 3] > 0.5,
+        idx_a=rows[:, 4].astype(np.int64), idx_b=rows[:, 5].astype(np.int64),
+        x1=rows[:, 6:8], x2=rows[:, 8:10])
 
 
 def _transform_telemetry(G, stats, recs, tail):
@@ -202,6 +270,7 @@ class Tracker:
         self._max_depth = float(init_depth) * 20.0
         self._eng_progs = engine_programs(self.cfg, self._track_ok_min,
                                           self._max_depth)
+        self._progs = _shared_programs(self.cfg)
         # device-side caches, rebuilt at every keyframe / correction
         self._kf_ref: Optional[KeyframeRef] = None
         self._lmap = None
@@ -253,9 +322,17 @@ class Tracker:
     def _match(self, fa: Features, fb: Features):
         return match_features(fa, fb, self.cfg.match, self.kernels)
 
-    def _split_generator(self) -> torch.Generator:
-        seed = int(torch.randint(0, 2 ** 62, (1,), generator=self._gen))
-        return ransac.generator(seed, self.device)
+    def _split_seed(self) -> int:
+        """The next seed of the RANSAC key chain (a host generator)."""
+        return int(torch.randint(0, 2 ** 62, (1,), generator=self._gen))
+
+    def _ransac(self, x1: torch.Tensor, x2: torch.Tensor,
+                valid: torch.Tensor):
+        """The "ransac" program on the init's correspondences, drawing from
+        the next seed of the key chain: (R, t, X, inliers, n)."""
+        return self._progs["ransac"]((x1, x2, valid),
+                                     (self.cfg.ransac, self.kernels),
+                                     self._split_seed())
 
     def _kf_step(self, kf: KeyframeRef, fb: Features, i: int, bl):
         feats = index_features(fb, i)
@@ -793,18 +870,22 @@ class Tracker:
 
     # ------------------------------------------------------------------
 
-    def _two_view_init(self, feats, frame_id) -> FrameResult:
-        kf = self.map.last_keyframe_slot()
-        prev = self._prev_feats
+    def _two_view_solve(self, prev: Features, feats: Features) -> TwoViewHost:
+        """Match, then the "ransac" program, then its results read back to
+        the host as one packed buffer: the init's one host sync."""
         m = self._match(prev, feats)
         x1 = normalized(prev.keypoints.yx[m.idx_a.long()].flip(-1), self.intr)
         x2 = normalized(feats.keypoints.yx[m.idx_b.long()].flip(-1),
                         self.intr)
-        R, t, X, inl, n = ransac.estimate_relative_pose(
-            x1, x2, m.valid, self.cfg.ransac, self._split_generator(),
-            self.kernels)
-        n = int(n)
-        n_match = int(m.count())
+        R, t, X, inl, n = self._ransac(x1, x2, m.valid)
+        return _unpack_two_view(
+            _host(_pack_two_view(m, x1, x2, R, t, X, inl, n)))
+
+    def _two_view_init(self, feats, frame_id) -> FrameResult:
+        kf = self.map.last_keyframe_slot()
+        prev = self._prev_feats
+        tv = self._two_view_solve(prev, feats)
+        n, n_match = tv.n, tv.n_match
         if n < self.cfg.keyframe_min_inliers:
             # not enough parallax/matches yet; keep waiting, but re-anchor
             # the bootstrap on the current frame after a sustained failure
@@ -816,13 +897,12 @@ class Tracker:
                                       tracking_ok=False)
         self._lost_streak = 0
         # fix monocular scale: median depth of inliers -> init_depth
-        X = _host(X)
-        inl_np = _host(inl)
-        depth = np.median(X[inl_np, 2])
+        inl_np = tv.inl
+        depth = np.median(tv.X[inl_np, 2])
         s = self.init_depth / max(depth, 1e-6)
-        X = X * s                       # points in the FIRST keyframe's frame
-        t_rel = _host(t) * s
-        R_rel = _host(R)
+        X = tv.X * s                    # points in the FIRST keyframe's frame
+        t_rel = tv.t * s
+        R_rel = tv.R
         # compose with the first keyframe's world pose: T2 = T_rel . T_kf1,
         # X_w = T_kf1^-1 X
         R1 = self.map.kf_R[kf]
@@ -832,14 +912,14 @@ class Tracker:
         X = (X - t1) @ R1
 
         # register landmarks + observations in both keyframes
-        idx_a = _host(m.idx_a)[inl_np]
-        idx_b = _host(m.idx_b)[inl_np]
+        idx_a = tv.idx_a[inl_np]
+        idx_b = tv.idx_b[inl_np]
         lm_idx = self.map.allocate_landmarks(X[inl_np])
-        self.map.add_observations(kf, lm_idx, _host(x1)[inl_np])
+        self.map.add_observations(kf, lm_idx, tv.x1[inl_np])
         self.map.kf_kp_lm[kf][idx_a] = lm_idx
 
         slot = self._new_keyframe(feats, frame_id, R, t)
-        self.map.add_observations(slot, lm_idx, _host(x2)[inl_np])
+        self.map.add_observations(slot, lm_idx, tv.x2[inl_np])
         self.map.kf_kp_lm[slot][idx_b] = lm_idx
         self._run_window_ba()
         if self.loop_closer is not None:

@@ -1,5 +1,13 @@
 """Two-view initialization (visualslam_tpu/slam/two_view.py): detect and
-describe two frames, match, RANSAC essential, pose + structure."""
+describe two frames, match, RANSAC essential, pose + structure.
+
+`two_view_reconstruction_jit` is the JAX package's jitted pixels-to-pose
+program. Here the frontend runs eagerly (ROADMAP A.2 gives it a program),
+then `two_view_from_features_jit` replays one captured CUDA graph of
+`two_view_from_features` per shape key: match, RANSAC, pose and
+triangulation, with no host sync (utils.graphs.GraphProgram). On the CPU,
+and for the plain kernel set (whose `torch.linalg` solvers read the host),
+both are the eager functions."""
 
 from __future__ import annotations
 
@@ -14,6 +22,7 @@ from visualslam_tpu_torch.models.matching import match_features
 from visualslam_tpu_torch.models.types import Features, Matches
 from visualslam_tpu_torch.ops.cuda import KERNELS, Kernels
 from visualslam_tpu_torch.utils.config import SlamConfig
+from visualslam_tpu_torch.utils.graphs import GraphProgram
 
 
 class TwoViewResult(NamedTuple):
@@ -38,12 +47,49 @@ def two_view_from_features(fa: Features, fb: Features, intr: torch.Tensor,
                          num_inliers=n)
 
 
+def _split(f: Features) -> tuple:
+    """Frames 0 and 1 of a batched Features."""
+    return tuple(Features(type(f.keypoints)(*(x[i] for x in f.keypoints)),
+                          f.descriptors[i]) for i in range(2))
+
+
 def two_view_reconstruction(img1: torch.Tensor, img2: torch.Tensor,
                             intr: torch.Tensor, cfg: SlamConfig,
                             gen: torch.Generator | None = None,
                             kernels: Kernels = KERNELS) -> TwoViewResult:
     """Pixels to pose on an image pair ([H, W] each, uint8 or float)."""
     f = detect_and_describe(torch.stack([img1, img2]), cfg, kernels=kernels)
-    fa, fb = (Features(type(f.keypoints)(*(x[i] for x in f.keypoints)),
-                       f.descriptors[i]) for i in range(2))
-    return two_view_from_features(fa, fb, intr, cfg, gen, kernels)
+    return two_view_from_features(*_split(f), intr, cfg, gen, kernels)
+
+
+def _from_features(x, cfg, gen):
+    fa, fb, intr = x
+    scfg, kernels = cfg
+    return two_view_from_features(fa, fb, intr, scfg, gen, kernels)
+
+
+_FROM_FEATURES = GraphProgram(_from_features)
+
+
+def two_view_from_features_jit(fa: Features, fb: Features,
+                               intr: torch.Tensor, cfg: SlamConfig,
+                               seed: int | None = None,
+                               kernels: Kernels = KERNELS) -> TwoViewResult:
+    """two_view_from_features as one captured graph per shape key and
+    (cfg, kernels): its RANSAC draws are those of
+    `geometry.ransac.generator(seed)` (cfg.ransac.seed by default)."""
+    seed = cfg.ransac.seed if seed is None else seed
+    return _FROM_FEATURES((fa, fb, intr), (cfg, kernels), seed)
+
+
+two_view_from_features_jit.program = _FROM_FEATURES
+
+
+def two_view_reconstruction_jit(img1: torch.Tensor, img2: torch.Tensor,
+                                intr: torch.Tensor, cfg: SlamConfig,
+                                seed: int | None = None,
+                                kernels: Kernels = KERNELS) -> TwoViewResult:
+    """two_view_reconstruction with a seed in place of a generator: the
+    frontend eagerly, then `two_view_from_features_jit`."""
+    f = detect_and_describe(torch.stack([img1, img2]), cfg, kernels=kernels)
+    return two_view_from_features_jit(*_split(f), intr, cfg, seed, kernels)

@@ -13,10 +13,17 @@ program of the port shares:
   * `_Graph` (one body captured, its kernel launches counted per replay),
     `_Capture` (the eager warm-up on a side stream, the captures, the
     2-NN scratch rule) and `_Uncaptured` (the same body run as it is);
+  * `_KeyGraphs` (a key's static inputs and captured bodies) and
+    `_Program` (the keyed cache of the most recently used keys, and the
+    dispatch between replaying and the eager function), which the two
+    program kinds below share;
   * `LoopProgram`: a solver of the form enter -> `cfg.iters` x step ->
     result (the LM loops of the pose graph and of bundle adjustment, the
     JAX package's `lax.scan` over a fixed carry) as two graphs per shape
-    key, an enter graph and a step graph replayed `cfg.iters` times.
+    key, an enter graph and a step graph replayed `cfg.iters` times;
+  * `GraphProgram`: its one-graph sibling, a function captured whole per
+    shape key (the two-view init's RANSAC and pose recovery), with a
+    generator of its own for the random draws inside it.
 
 `slam/engine.py` builds its programs from the same pieces.
 """
@@ -28,10 +35,12 @@ from collections import OrderedDict
 
 import torch
 
+from visualslam_tpu_torch.geometry.ransac import generator
 from visualslam_tpu_torch.ops.cuda import (
     add_launch_counts,
     distance,
     launch_counts,
+    reads_host,
     set_launch_counts,
 )
 from visualslam_tpu_torch.utils.precision import f32_matmul
@@ -96,11 +105,16 @@ class _Graph:
     each counted kernel (ops.cuda.COUNTED) that one replay makes. A capture
     runs the kernels' wrappers without launching anything, so the counters
     are put back after it and advanced on every replay instead. A body
-    that cannot be captured (a host sync, a pageable copy) raises here."""
+    that cannot be captured (a host sync, a pageable copy) raises here.
+    `generators`: the CUDA generators the body draws from other than the
+    default one, registered with the graph (capture refuses an unregistered
+    one); each replay draws from the state a generator has at that time."""
 
-    def __init__(self, body):
+    def __init__(self, body, generators=()):
         before = launch_counts()
         self.graph = torch.cuda.CUDAGraph()
+        for gen in generators:
+            self.graph.register_generator_state(gen)
         try:
             with torch.cuda.graph(self.graph):
                 self.out = body()
@@ -143,9 +157,9 @@ class _Capture:
             fn()
         cur.wait_stream(side)
 
-    def graph(self, body) -> _Graph:
+    def graph(self, body, generators=()) -> _Graph:
         with distance.owned_scratch(self.scratch, grow=False):
-            return _Graph(body)
+            return _Graph(body, generators)
 
     def done(self) -> tuple[float, int]:
         torch.cuda.synchronize(self.dev)
@@ -155,9 +169,10 @@ class _Capture:
 
 
 class _Uncaptured:
-    """A body run as it is on every replay: `_BatchGraphs(graphs=False)`
-    and `LoopGraphs(graphs=False)`, which run a graph program's data flow
-    on any device (the CPU tests' view of it)."""
+    """A body run as it is on every replay: `_BatchGraphs(graphs=False)`,
+    `LoopGraphs(graphs=False)` and `ProgramGraph(graphs=False)`, which run
+    a graph program's data flow on any device (the CPU tests' view of
+    it)."""
 
     def __init__(self, body):
         self.body = body
@@ -168,12 +183,101 @@ class _Uncaptured:
         return self.out
 
 
+
+
+# ---------------------------------------------------------------------
+# what both program kinds share: static inputs, graphs, the keyed cache
+# ---------------------------------------------------------------------
+
+
+class _KeyGraphs:
+    """One shape key of a program: static copies of the inputs, and the
+    bodies over them captured as graphs (or, with graphs=False, run as they
+    are, on any device). `capture_s` and `pool_bytes` give the seconds and
+    the device memory the key's statics and graphs' private pools took."""
+
+    def __init__(self, x, graphs: bool):
+        self._cap = _Capture(_leaves(x)[0].device) if graphs else None
+        self.x = _map(_static, x)
+        _copy_all(_leaves(self.x), _leaves(x))
+        self.capture_s, self.pool_bytes = 0.0, 0
+
+    def _capture(self, warm_up, bodies, generators=()) -> None:
+        """`graphs`: the bodies' graphs, in order, captured after warm_up()
+        ran eagerly on a side stream; a body may read the graphs captured
+        before it there (the list fills as they are captured)."""
+        self.graphs: list = []
+        if self._cap is None:
+            self.graphs.extend(_Uncaptured(b) for b in bodies)
+            return
+        cap, self._cap = self._cap, None
+        cap.warm_up(warm_up)
+        for body in bodies:
+            self.graphs.append(cap.graph(body, generators))
+        self.scratch = cap.scratch      # the graphs read it: keep it alive
+        self.capture_s, self.pool_bytes = cap.done()
+
+
+class _Program:
+    """A function `fn(x, cfg)` compiled per key (the JAX package's
+    `jax.jit(fn, static_argnums=1)`): x a NamedTuple or tuple of tensors,
+    cfg a frozen, hashable configuration. On a CUDA device a call replays
+    the graphs of its key, the shape, dtype and device of every input
+    tensor and cfg (jit's cache on the shapes and the static argument),
+    captured by the key's first call (`_key_graphs`); a body that cannot be
+    captured raises, and the call never runs the function eagerly instead.
+    Where `_replays` is false (the CPU: the caller asked for it) the
+    program is `fn` itself. Replays run on the current stream, one call at
+    a time per program.
+
+    The cache keeps the KEYS most recently used keys and drops the least
+    recently used one past that (its graphs and their pools with it)."""
+
+    # The callers use one shape at a time: the loop closer one capacity (it
+    # only grows, doubling past 256 nodes), the host-path window BA its
+    # fixed padding, the global BA one problem (new shapes at every call)
+    # and its warm rerun, the tracker its match capacity. Four keys hold
+    # those and a prepared key with room to spare, and bound what a run
+    # whose shapes keep changing can hold on the card.
+    KEYS = 4
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.__name__ = fn.__name__ + "_jit"
+        self.__doc__ = fn.__doc__
+        self.captured: OrderedDict = OrderedDict()
+
+    def _key_graphs(self, x, cfg) -> _KeyGraphs:
+        raise NotImplementedError
+
+    def _replays(self, x, cfg) -> bool:
+        return _leaves(x)[0].device.type == "cuda"
+
+    def _graphs(self, x, cfg) -> _KeyGraphs:
+        f32_matmul()
+        key = (_signature(x), cfg)
+        graphs = self.captured.get(key)
+        if graphs is None:
+            graphs = self._key_graphs(x, cfg)
+            while len(self.captured) >= self.KEYS:
+                self.captured.popitem(last=False)
+            self.captured[key] = graphs
+        self.captured.move_to_end(key)
+        return graphs
+
+    def prepare(self, x, cfg) -> None:
+        """Capture the graphs of x's shapes and cfg without running them
+        (where the program does not replay: nothing to prepare)."""
+        if self._replays(x, cfg):
+            self._graphs(x, cfg)
+
+
 # ---------------------------------------------------------------------
 # LoopProgram: enter, cfg.iters steps over a static carry, result
 # ---------------------------------------------------------------------
 
 
-class LoopGraphs:
+class LoopGraphs(_KeyGraphs):
     """One shape key of a LoopProgram: static copies of the inputs and of
     the carry, an enter graph (the loop's set-up: plans, initial cost and
     damping, written into the carry; it returns the loop's constants, `aux`)
@@ -184,10 +288,8 @@ class LoopGraphs:
     buffers without capturing them, on any device."""
 
     def __init__(self, prog: "LoopProgram", x, cfg, graphs: bool = True):
+        super().__init__(x, graphs)
         self.prog, self.cfg = prog, cfg
-        cap = _Capture(_leaves(x)[0].device) if graphs else None
-        self.x = _map(_static, x)
-        _copy_all(_leaves(self.x), _leaves(x))
         # the carry's shapes and types, from one eager enter
         self.carry = _map(_static, prog.enter(self.x, cfg)[1])
 
@@ -199,17 +301,9 @@ class LoopGraphs:
         def step(aux):
             _assign(self.carry, prog.step(self.x, cfg, aux, self.carry))
 
-        self.capture_s, self.pool_bytes = 0.0, 0
-        if not graphs:
-            self.g_enter = _Uncaptured(enter)
-            self.g_step = _Uncaptured(lambda: step(self.g_enter.out))
-            return
-        cap.warm_up(lambda: step(enter()))
-        self.g_enter = cap.graph(enter)
-        self.g_step = cap.graph(lambda: step(self.g_enter.out))
-        self.scratch = cap.scratch      # the graphs read it: keep it alive
-        # the statics and the two graphs' private pools
-        self.capture_s, self.pool_bytes = cap.done()
+        self._capture(lambda: step(enter()),
+                      [enter, lambda: step(self.graphs[0].out)])
+        self.g_enter, self.g_step = self.graphs
 
     def run(self, x):
         _copy_all(_leaves(self.x), _leaves(x))
@@ -220,11 +314,9 @@ class LoopGraphs:
                                            self.carry))
 
 
-class LoopProgram:
+class LoopProgram(_Program):
     """A solver `fn(x, cfg)` that runs enter, `cfg.iters` steps and result
-    (the JAX package's `jax.jit(fn, static_argnums=1)` over a `lax.scan`),
-    called as program(x, cfg): x a NamedTuple of tensors, cfg a frozen,
-    hashable configuration.
+    (the JAX package's jitted `lax.scan`), called as program(x, cfg):
 
       enter(x, cfg)               -> (aux, carry): the loop's constants
                                      (the segment-sum plans, the initial
@@ -234,54 +326,85 @@ class LoopProgram:
 
     `fn` itself runs the three in that order, eagerly; so on the card the
     graphs launch the eager function's kernels in the eager function's
-    order, and their results equal its bits.
-
-    On a CUDA device a call replays LoopGraphs, one per key: the shape,
-    dtype and device of every input tensor, and cfg (jit's cache on the
-    shapes and the static argument). The first call of a key captures its
-    graphs after an eager warm-up of enter and one step; a body that
-    cannot be captured raises, and the call never runs the eager loop
-    instead. On the CPU the program is `fn` itself (the caller asked for
-    the CPU). Replays run on the current stream, one call at a time per
-    program.
-
-    The cache keeps the KEYS most recently used keys and drops the least
-    recently used one past that (its graphs and their pools with it)."""
-
-    # A key holds two graphs and their pools. The callers use one shape at a
-    # time: the loop closer one capacity (it only grows, doubling past 256
-    # nodes), the host-path window BA its fixed padding, the global BA one
-    # problem (new shapes at every call) and its warm rerun. Four keys hold
-    # those and a prepared key with room to spare, and bound what a run
-    # whose shapes keep changing can hold on the card.
-    KEYS = 4
+    order, and their results equal its bits. A key holds LoopGraphs: the
+    first call of a key captures them after an eager warm-up of enter and
+    one step (`_Program` says the rest)."""
 
     def __init__(self, fn, enter, step, result):
-        self.fn, self.enter, self.step, self.result = fn, enter, step, result
-        self.__name__ = fn.__name__ + "_jit"
-        self.__doc__ = fn.__doc__
-        self.captured: OrderedDict = OrderedDict()
+        super().__init__(fn)
+        self.enter, self.step, self.result = enter, step, result
 
-    def _graphs(self, x, cfg) -> LoopGraphs:
-        key = (_signature(x), cfg)
-        graphs = self.captured.get(key)
-        if graphs is None:
-            graphs = LoopGraphs(self, x, cfg)
-            while len(self.captured) >= self.KEYS:
-                self.captured.popitem(last=False)
-            self.captured[key] = graphs
-        self.captured.move_to_end(key)
-        return graphs
-
-    def prepare(self, x, cfg) -> None:
-        """Capture the graphs of x's shapes and cfg without running them
-        (on the CPU: nothing to prepare)."""
-        if _leaves(x)[0].device.type == "cuda":
-            f32_matmul()
-            self._graphs(x, cfg)
+    def _key_graphs(self, x, cfg) -> LoopGraphs:
+        return LoopGraphs(self, x, cfg)
 
     def __call__(self, x, cfg):
-        if _leaves(x)[0].device.type != "cuda":
+        if not self._replays(x, cfg):
             return self.fn(x, cfg)
-        f32_matmul()
         return self._graphs(x, cfg).run(x)
+
+
+# ---------------------------------------------------------------------
+# GraphProgram: a function captured whole, drawing from a seed
+# ---------------------------------------------------------------------
+
+
+class ProgramGraph(_KeyGraphs):
+    """One shape key of a GraphProgram: static copies of the inputs and
+    one graph of the function over them, whose outputs live in the graph's
+    pool. `run` copies the caller's inputs in, seeds the program's
+    generator, replays, and returns copies of the outputs, so no later
+    replay overwrites what a caller holds. graphs=False runs the same body
+    over the same static buffers without capturing it, on any device."""
+
+    def __init__(self, prog: "GraphProgram", x, cfg, graphs: bool = True):
+        super().__init__(x, graphs)
+        self.gen = prog.generator(_leaves(x)[0].device)
+
+        def body():
+            return prog.fn(self.x, cfg, self.gen)
+
+        self._capture(body, [body], (self.gen,))
+        self.graph, = self.graphs
+
+    def run(self, x, seed: int):
+        _copy_all(_leaves(self.x), _leaves(x))
+        # the replay draws what a fresh generator(seed) draws eagerly:
+        # seeding resets the generator's offset, which the replay reads
+        self.gen.manual_seed(int(seed))
+        return _clone_all(self.graph.replay())
+
+
+class GraphProgram(_Program):
+    """A function `fn(x, cfg, gen)` that draws its random numbers from gen,
+    called as program(x, cfg, seed): cfg = (config, kernels), and the draws
+    are those of `geometry.ransac.generator(seed)` on the inputs' device.
+    A key holds one ProgramGraph, captured on the key's first call after an
+    eager warm-up on a side stream (`_Program` says the rest). The program
+    owns one generator per device, registered with every graph it captures
+    there, and seeds it before each replay. With a kernel set whose solvers
+    read the host (`ops.cuda.reads_host`: the plain path's cuSOLVER status
+    reads), as on the CPU, the program is `fn` itself, decided from the
+    arguments before anything runs."""
+
+    def __init__(self, fn):
+        super().__init__(fn)
+        self.generators: dict = {}
+
+    def generator(self, dev: torch.device) -> torch.Generator:
+        """The program's generator on `dev` (registered with its graphs
+        there)."""
+        gen = self.generators.get(dev)
+        if gen is None:
+            gen = self.generators[dev] = torch.Generator(device=dev)
+        return gen
+
+    def _key_graphs(self, x, cfg) -> ProgramGraph:
+        return ProgramGraph(self, x, cfg)
+
+    def _replays(self, x, cfg) -> bool:
+        return super()._replays(x, cfg) and not reads_host(cfg[1])
+
+    def __call__(self, x, cfg, seed: int):
+        if not self._replays(x, cfg):
+            return self.fn(x, cfg, generator(seed, _leaves(x)[0].device))
+        return self._graphs(x, cfg).run(x, seed)
