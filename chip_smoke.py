@@ -35,9 +35,10 @@ launch counters reset just before it and read just after:
 Phases, each printing its own lines:
 
   1. device    the card's name and power limit, CUDA version; TF32 off
-  2. build     nvcc-compiles the kernels from csrc/, one process per
-               source, all at once (timed, with the compiler's register /
-               spill report)
+  2. build     nvcc-compiles the kernels from csrc/ and the latency
+               probes tests/add_chain.cu and tests/rotation_chain.cu, one
+               process per source, all at once (timed, with the
+               compiler's register / spill report)
   3. kernels   each kernel against its plain version on the card at the
                main path's shapes: the extrema winners and the score map
                bit for bit and equal run to run at each of the 3 octaves
@@ -81,7 +82,10 @@ Phases, each printing its own lines:
                eigenvalue-cluster gate of ops/cuda/small_linalg.py, the
                off-diagonal norms per sweep, the 8-point batches timed
                beside their bounds, the plain version and torch.linalg
-               with and without its status read
+               with and without its status read; the latency of one
+               dependent Jacobi rotation in float64 and float32 (cycles,
+               ns; tests/rotation_chain.cu) and the solver kernels' chain
+               floors (the rotations of the longest matrix x that latency)
   4. slice     the frontend + matching through the public entry points;
                the plain path on the same batch as the reference; keypoint
                and match floors; frames/s of both paths; the frontend's
@@ -234,6 +238,17 @@ shape set in turns (parent, change, change, parent), sweeps this kernel's
 long-segment threshold over 16..256 rows on the power-law set (patched
 copies of its kernel and wrapper), and exits after printing both as JSON
 lines.
+
+    python3 chip_smoke.py --solver-turns PARENT
+
+takes sym_eigh and triangulate_dlt of the checkout at PARENT through its
+own wrappers and build, checks them bit for bit against this checkout's
+on the init's and the engine's own inputs (sym_eigh at [512, 9, 9],
+[1, 9, 9], [128, 9, 9] and [1280, 10, 10]; triangulate_dlt at N = 512 and
+1024), times both alone and per call in turns (parent, change, change,
+parent) beside the chain floor (tests/rotation_chain.cu's rotation
+latency) and torch.linalg.eigh, and exits after printing them as a JSON
+line.
 
     python3 chip_smoke.py --save-features engine_feats.npz
 
@@ -549,14 +564,39 @@ def phase_device():
     return torch.device("cuda:0"), card
 
 
+# latency probes under tests/ that only this script builds
+PROBES = ("add_chain", "rotation_chain")
+
+
+def probe_path(name: str):
+    return build.BUILD_DIR / f"lib{name}.so"
+
+
+def build_probe(name: str) -> None:
+    """nvcc tests/<name>.cu into the build directory."""
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                       f"{name}.cu")
+    proc = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o",
+                           str(probe_path(name)), src],
+                          capture_output=True, text=True)
+    check(proc.returncode == 0, f"nvcc builds {src}: {proc.stderr}")
+
+
 def phase_build() -> None:
+    from concurrent.futures import ThreadPoolExecutor
+
     t0 = time.perf_counter()
-    build.build_all()
+    with ThreadPoolExecutor(max_workers=1 + len(PROBES)) as pool:
+        jobs = [pool.submit(build.build_all)] + [
+            pool.submit(build_probe, name) for name in PROBES]
+        for job in jobs:
+            job.result()
     for name in build.SOURCES:
         build.load_library(name)
     print(f"build: {time.perf_counter() - t0:.1f} s for "
-          f"{len(build.SOURCES)} sources in parallel (nvcc "
-          f"{' '.join(build.NVCC_FLAGS[:2])})")
+          f"{len(build.SOURCES)} sources and {len(PROBES)} probes in "
+          f"parallel (nvcc {' '.join(build.NVCC_FLAGS[:2])})")
     for name in build.SOURCES:
         for line in build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
@@ -656,6 +696,63 @@ def kernel_2nn(feats: Features, dev) -> tuple:
                 bound_ms=bms, bound_by=by, library_ms=library_ms)
 
 
+def rotation_latency(dev) -> dict:
+    """The latency of one Jacobi rotation's dependent chain on the card, in
+    float64 and float32: one thread carries out 2^16 rotations in a row,
+    each pivot the row update of the last (tests/rotation_chain.cu). Cycles
+    per rotation from the SM's clock counter, ns per rotation from CUDA
+    events around the launch. A matrix's Jacobi goes no faster than its
+    rotations times the ns per rotation: its chain floor."""
+    lib = ctypes.CDLL(str(probe_path("rotation_chain")))
+    n = 1 << 16
+    out = {}
+    card = card_name()
+    for dtype in (torch.float64, torch.float32):
+        fn = getattr(lib, "rotation_chain_f64" if dtype == torch.float64
+                     else "rotation_chain_f32")
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_void_p]
+        x = torch.tensor([0.3, 1.7, 0.5, 0.9], dtype=dtype, device=dev)
+        res = torch.empty(1, dtype=dtype, device=dev)
+        cycles = torch.empty(1, dtype=torch.int64, device=dev)
+        for reps in (64, n):                  # the first warms the launch
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            rc = fn(x.data_ptr(), reps, res.data_ptr(), cycles.data_ptr(),
+                    build.stream_handle(dev))
+            end.record()
+            build.check_launch(rc, "rotation_chain")
+            end.synchronize()
+        out[dtype] = ns = start.elapsed_time(end) * 1e6 / n
+        print(f"rotation latency {str(dtype)[6:]} ({card}): "
+              f"{int(cycles.item()) / n:.1f} cycles per dependent rotation "
+              f"(SM clock counter), {ns:.2f} ns (CUDA events)")
+    return out
+
+
+@contextlib.contextmanager
+def counted_rotations(batch: int):
+    """Per matrix, the rotations small_linalg's replays carry out while the
+    block runs (a zero pivot is skipped): yields the counts [batch]."""
+    counts = torch.zeros(batch, dtype=torch.int64)
+    real = ksl._rotate
+
+    def counting(a, v, p, q, rn):
+        counts.add_((a[:, p, q] != 0).long())
+        return real(a, v, p, q, rn)
+
+    ksl._rotate = counting
+    try:
+        yield counts
+    finally:
+        ksl._rotate = real
+
+
+# the rotations of the longest point's chain: every pivot counted
+TRI_ROTATIONS = ktri.SWEEPS * len(ktri.PAIRS)
+
+
 # floating-point operations per point of csrc/triangulate.cu: the DLT rows
 # (16 products, 16 differences), the 10 entries of A^T A (4 products, 3
 # sums each), SWEEPS x 6 rotations of 66 (the rotation's angle 16, the
@@ -683,14 +780,15 @@ def triangulation_inputs(feats: Features, seq, a: int, b: int, cfg, dev):
     return R.contiguous(), t.contiguous(), x1, x2, m.valid
 
 
-def kernel_triangulate(feats: Features, seq, dev) -> dict:
+def kernel_triangulate(feats: Features, seq, dev, lat: dict) -> dict:
     """triangulate_dlt at the engine's shapes (ENGINE_CONFIG's 1024 match
     slots; keyframe 8, frame 12, the bootstrap's spacing): bit for bit
     against its float32 replay on the CPU (ops/cuda/triangulate.py
     triangulate_jacobi), equal run to run, and against the plain version
     (cuSOLVER eigh) under the eigengap gate stated there; the replay's
     off-diagonal norms after each sweep; times beside the bound, the plain
-    version and torch.linalg.eigh of the same normal matrices."""
+    version and torch.linalg.eigh of the same normal matrices, and the
+    chain floor (TRI_ROTATIONS x the float32 rotation latency `lat`)."""
     R, t, x1, x2, valid = triangulation_inputs(feats, seq, 0, 4,
                                                ENGINE_CONFIG, dev)
     n = x1.shape[0]
@@ -732,6 +830,12 @@ def kernel_triangulate(feats: Features, seq, dev) -> dict:
     M = ktri.normal_matrices(R, t, x1, x2)
     library_ms = time_ms(lambda: torch.linalg.eigh(M), 20)
     bms, by = least_ms(nbytes(R, t, x1, x2, got), float(TRI_FLOPS) * n)
+    chain_ms = TRI_ROTATIONS * lat[torch.float32] * 1e-6
+    alone = ("not measured" if kernel_ms is None else f"{kernel_ms:.4f} ms")
+    print(f"time triangulate_dlt N = {n}: kernel alone {alone}, "
+          f"bound {bms:.6f} ms ({by}), chain floor {chain_ms:.6f} ms "
+          f"({TRI_ROTATIONS} dependent float32 rotations a point, every "
+          f"pivot counted, at {lat[torch.float32]:.2f} ns)")
     return dict(err=err, ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms,
                 bound_ms=bms, bound_by=by, library_ms=library_ms)
 
@@ -797,7 +901,8 @@ def check_small_linalg(name: str, x: torch.Tensor, what: str) -> dict:
     (eigenvalues within EIG_TOL, eigenvector clusters within VEC_TOL x
     eps32 / gap); the replay's off-diagonal norm per sweep, which must lie
     below float32 epsilon before the last sweep. Returns the kernel's outputs, the
-    comparison, the rotations the replay carried out and the norms."""
+    comparison, the rotations the replay carried out (in all, and for the
+    matrix that needed most) and the norms."""
     fn, replay, plain, compare = {
         "sym_eigh": (ksl.sym_eigh, ksl.sym_eigh_jacobi, ksl.sym_eigh_ref,
                      ksl.compare_eigh),
@@ -805,7 +910,9 @@ def check_small_linalg(name: str, x: torch.Tensor, what: str) -> dict:
                  ksl.compare_svd3)}[name]
     got = fn(x)
     offs, done = [], []
-    want = replay(x.cpu(), offs=offs, done=done)
+    n = x.shape[-1]
+    with counted_rotations(x.numel() // (n * n)) as per_matrix:
+        want = replay(x.cpu(), offs=offs, done=done)
     same = all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
     again = all(torch.equal(a, b) for a, b in zip(fn(x), got))
     ref = plain(x)
@@ -830,11 +937,11 @@ def check_small_linalg(name: str, x: torch.Tensor, what: str) -> dict:
     check(worst[-2] < ktri.EPS32, f"{name} {what}: the off-diagonal norm "
           "below float32 rounding before the last sweep")
     return dict(got=got, cmp=r, abs_err=abs_err, rotations=sum(done),
-                offs=worst)
+                longest=int(per_matrix.max()), offs=worst)
 
 
 def kernel_small_linalg(frames_dev: torch.Tensor, frontend: SiftFrontend,
-                        seq, dev) -> dict:
+                        seq, dev, lat: dict) -> dict:
     """sym_eigh and svd3 on the two-view init's own matrices (frames 0 ->
     8): the 8-point's 512 normal matrices and its refit, the five-point's
     128 9x9 nullspace systems and 1280 10x10 systems, the 512 Fs of the
@@ -842,7 +949,9 @@ def kernel_small_linalg(frames_dev: torch.Tensor, frontend: SiftFrontend,
     check_small_linalg; the main path's batches (8-point) timed per call,
     alone, beside the bound, the plain version and torch.linalg.eigh / svd
     with its status read (host clock) and without it (its device kernels
-    alone, profiler)."""
+    alone, profiler), and the chain floor (the rotations of the matrix
+    that needs most x the rotation latency `lat`: float64 for sym_eigh,
+    float32 for svd3)."""
     t0 = time.perf_counter()
     fa, fb, intr, _ = two_view_pair(frames_dev, frontend, seq, dev)
     mats = init_matrices(fa, fb, intr, dev)
@@ -874,13 +983,16 @@ def kernel_small_linalg(frames_dev: torch.Tensor, frontend: SiftFrontend,
         rate = PEAK_F64_S if name == "sym_eigh" else PEAK_F32_S
         bms, by = least_ms(nbytes(x, r["got"]), float(flops), rate)
         b32, _ = least_ms(nbytes(x, r["got"]), float(flops), PEAK_F32_S)
+        ns = lat[torch.float64 if name == "sym_eigh" else torch.float32]
+        chain_ms = r["longest"] * ns * 1e-6
         print(f"time {name} {tuple(x.shape)}: kernel call {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms (CUDA events), bound {bms:.6f} ms "
               f"({by}: {flops} flop over the rotations this batch needs, "
               f"at {rate / 1e12:g} TFLOP/s; at the float32 rate of the "
               f"function's float32 contract {b32:.6f} ms; "
-              f"{nbytes(x, r['got'])} bytes; one thread's chain of "
-              f"dependent rotations sets the floor), torch.linalg "
+              f"{nbytes(x, r['got'])} bytes), chain floor {chain_ms:.6f} "
+              f"ms ({r['longest']} dependent rotations in the longest "
+              f"matrix at {ns:.2f} ns), torch.linalg "
               f"{library_ms:.4f} ms per call with its status read (host "
               f"clock), {lib_dev:.4f} ms of device kernels without it "
               f"({lib_launches:g} launches, profiler)")
@@ -1171,14 +1283,7 @@ def add_latency(dev) -> dict:
     from CUDA events around the launch, beside the SM clock nvidia-smi
     reports just after. A long segment's sum can go no faster than its
     rows times the ns per add."""
-    lib = build.BUILD_DIR / "libadd_chain.so"
-    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
-                       "add_chain.cu")
-    proc = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(lib),
-                           src], capture_output=True, text=True)
-    check(proc.returncode == 0, f"nvcc builds {src}: {proc.stderr}")
-    chain = ctypes.CDLL(str(lib))
+    chain = ctypes.CDLL(str(probe_path("add_chain")))
     n = 1 << 24
     out = {}
     card = card_name()
@@ -1330,11 +1435,11 @@ SEGMENT_FILES = ("ops/cuda/build.py", "ops/cuda/segment.py",
                  "csrc/segment.cu")
 
 
-def segment_module(root: str):
-    """The segment sum of the checkout at `root` (its ops/cuda/segment.py,
-    with its own plan, wrapper and build into root's _build), imported
-    beside this process's package: the package __init__ files are left
-    out, and sys.modules is restored after."""
+def checkout_modules(root: str, names) -> list:
+    """The modules ops/cuda/<name>.py of the checkout at `root` (with their
+    own build into root's _build), imported beside this process's package:
+    the package __init__ files are left out, and sys.modules is restored
+    after."""
     prefix = "visualslam_tpu_torch"
     own = {k: m for k, m in sys.modules.items()
            if k == prefix or k.startswith(prefix + ".")}
@@ -1342,11 +1447,12 @@ def segment_module(root: str):
     try:
         for k in own:
             del sys.modules[k]
-        for sub in ("", ".ops", ".ops.cuda"):
+        for sub in ("", ".ops", ".ops.cuda", ".utils"):
             stub = types.ModuleType(prefix + sub)
             stub.__path__ = [os.path.join(pkg, *sub.split(".")[1:])]
             sys.modules[prefix + sub] = stub
-        return importlib.import_module(prefix + ".ops.cuda.segment")
+        return [importlib.import_module(f"{prefix}.ops.cuda.{name}")
+                for name in names]
     finally:
         for k in [k for k in sys.modules
                   if k == prefix or k.startswith(prefix + ".")]:
@@ -1370,7 +1476,7 @@ def threshold_variant(long_rows: int) -> object:
         dst = root / "visualslam_tpu_torch" / rel
         dst.parent.mkdir(parents=True, exist_ok=True)
         dst.write_text(text)
-    return segment_module(str(root))
+    return checkout_modules(str(root), ("segment",))[0]
 
 
 def segment_turns(parent_root: str, dev) -> None:
@@ -1382,7 +1488,7 @@ def segment_turns(parent_root: str, dev) -> None:
     (patched copies of this kernel and wrapper, alone times)."""
     from concurrent.futures import ThreadPoolExecutor
 
-    parent = segment_module(parent_root)
+    parent, = checkout_modules(parent_root, ("segment",))
     variants = {t: threshold_variant(t) for t in (16, 32, 128, 256)}
     mods = [parent, *variants.values()]
     with ThreadPoolExecutor(max_workers=len(mods)) as pool:
@@ -1431,6 +1537,71 @@ def segment_turns(parent_root: str, dev) -> None:
           f"float32): {json.dumps(sweep)}")
 
 
+def solver_turns(parent_root: str, dev, frames_dev: torch.Tensor,
+                 frontend: SiftFrontend, seq) -> None:
+    """sym_eigh and triangulate_dlt of another checkout (the parent
+    commit's: `git archive <commit> | tar -x -C <dir>`), through its own
+    wrappers and build, against this one's on the init's and the engine's
+    own inputs (frames 0 -> 8: the 8-point's 512 normal matrices and its
+    refit, the five-point's 128 9x9 and 1280 10x10 systems; keyframe 8,
+    frame 12 at DEFAULT_CONFIG's 512 and ENGINE_CONFIG's 1024 match slots):
+    equal bit for bit, then each alone (profiler) and per call (CUDA
+    events) in turns parent, change, change, parent, beside the chain
+    floor (the longest matrix's rotations x the rotation latency) and
+    torch.linalg.eigh's device kernels on the same matrices."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    names = ("small_linalg", "triangulate")
+    parent_sl, parent_tri = checkout_modules(parent_root, names)
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        list(pool.map(parent_sl.build.build, names))
+    lat = rotation_latency(dev)
+    fa, fb, intr, _ = two_view_pair(frames_dev, frontend, seq, dev)
+    mats = init_matrices(fa, fb, intr, dev)
+    e8, e5 = mats["8pt"]["sym_eigh"], mats["5pt"]["sym_eigh"]
+    feats = frontend(frames_dev[8:8 + BATCH])
+    cases = [("sym_eigh", (x,), ksl.sym_eigh, parent_sl.sym_eigh)
+             for x in (e8[0], e8[1], e5[0], e5[1].reshape(-1, 10, 10))]
+    cases += [("triangulate_dlt",
+               triangulation_inputs(feats, seq, 0, 4, cfg, dev)[:4],
+               ktri.triangulate_dlt, parent_tri.triangulate_dlt)
+              for cfg in (DEFAULT_CONFIG, ENGINE_CONFIG)]
+    rows = []
+    for name, args, mine, theirs in cases:
+        got, ref = mine(*args), theirs(*args)
+        got, ref = ((got,), (ref,)) if name == "triangulate_dlt" else (
+            got, ref)
+        check(all(torch.equal(a, b) for a, b in zip(got, ref)),
+              f"{name} {tuple(args[-1].shape)}: parent and change agree bit "
+              f"for bit")
+        order = (theirs, mine, mine, theirs)
+        alone = [device_ms(lambda f=f: f(*args), 20, DEVICE_NAMES[name])[0]
+                 for f in order]
+        call = [time_ms(lambda f=f: f(*args), 20) for f in order]
+        if name == "sym_eigh":
+            x = args[0]
+            n = x.shape[-1]
+            with counted_rotations(x.numel() // (n * n)) as per_matrix:
+                ksl.sym_eigh_jacobi(x.cpu())
+            longest, ns = int(per_matrix.max()), lat[torch.float64]
+            M = x
+        else:
+            longest, ns = TRI_ROTATIONS, lat[torch.float32]
+            M = ktri.normal_matrices(*args)
+        lib = device_ms(lambda: torch.linalg.eigh(M), 20, None)[0]
+        rows.append(dict(kernel=name, shape=list(args[-1].shape),
+                         parent_ms=[alone[0], alone[3]],
+                         change_ms=[alone[1], alone[2]],
+                         parent_call_ms=[call[0], call[3]],
+                         change_call_ms=[call[1], call[2]],
+                         rotations=longest,
+                         chain_ms=longest * ns * 1e-6, eigh_ms=lib))
+    print(f"solver turns ({card_name()}; ms alone on the device and per "
+          f"call, parent {parent_root}; chain floor = the longest matrix's "
+          f"rotations x the rotation latency; eigh_ms = torch.linalg.eigh's "
+          f"device kernels on the same matrices): {json.dumps(rows)}")
+
+
 def phase_kernels(batch: torch.Tensor, frontend: SiftFrontend, seq,
                   dev, frames_dev: torch.Tensor) -> dict:
     """Each kernel against its plain version at the main path's shapes
@@ -1449,8 +1620,9 @@ def phase_kernels(batch: torch.Tensor, frontend: SiftFrontend, seq,
     feats = frontend(batch)
     out["l2_2nn"] = kernel_2nn(feats, dev)
     out["segment_sum"] = kernel_segment(dev)
-    out["triangulate_dlt"] = kernel_triangulate(feats, seq, dev)
-    out.update(kernel_small_linalg(frames_dev, frontend, seq, dev))
+    lat = rotation_latency(dev)
+    out["triangulate_dlt"] = kernel_triangulate(feats, seq, dev, lat)
+    out.update(kernel_small_linalg(frames_dev, frontend, seq, dev, lat))
     for name, r in out.items():
         lib = ("none" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms")
@@ -4010,6 +4182,10 @@ def main() -> None:
     frames, seq = render_frames()
     frames_dev = torch.from_numpy(frames).to(dev)
     frontend = SiftFrontend(FAST_CONFIG).to(dev)
+    if "--solver-turns" in args:
+        solver_turns(args[args.index("--solver-turns") + 1], dev,
+                     frames_dev, frontend, seq)
+        return
     plain = SiftFrontend(FAST_CONFIG, PLAIN).to(dev)
     # warm both paths (allocator, band buffers, cuBLAS handles)
     frontend(frames_dev[:BATCH])

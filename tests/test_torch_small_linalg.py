@@ -15,6 +15,7 @@ nullspace is one such cluster: any orthonormal basis of it is right, so
 candidates are compared as sets, never slot by slot."""
 
 import ast
+import hashlib
 import subprocess
 import sys
 from pathlib import Path
@@ -118,6 +119,37 @@ def test_sym_eigh_replay_matches_jax_eigh_on_random_matrices(rng, n):
     np.testing.assert_allclose(torch.linalg.vector_norm(V, dim=1), 1.0,
                                atol=1e-5)
     _assert_eigh_matches(w, V, *_jax_eigh(M))
+
+
+# SHA-256 of sym_eigh_jacobi's (w, V) bytes on _pinned_matrices(n),
+# recorded before the kernel moved to a lane group per matrix: the replay
+# keeps its bits, so a kernel held to it bit for bit keeps them too
+REPLAY_DIGESTS = {
+    4: "6e70a12d75d7a75ec36dcc347e80c2188b5e7eb56494bd709f6e9f7060d5cc8e",
+    9: "cca2db71e1b98d01eb5b19cb426ecb07cb86384bca81462efd77615d4b19eff7",
+    10: "ebd310d4b09c1bed67e5e9f3e4ce84f449995d34f36479c45c9d92c93f261d3e",
+}
+
+
+def _pinned_matrices(n, B=32):
+    """[B, n, n] float32: sums of outer products of seeded float64 columns,
+    added elementwise in a fixed order (no BLAS, so the same bits on any
+    CPU) and rounded once; every fourth of rank n - 2."""
+    r = np.random.default_rng(1000 + n)
+    X = r.standard_normal((B, n, n))
+    X[::4, :, n - 2:] = 0.0
+    M = np.zeros((B, n, n))
+    for k in range(n):
+        M += X[:, :, k, None] * X[:, None, :, k]
+    return torch.from_numpy(M.astype(np.float32))
+
+
+@pytest.mark.parametrize("n", sorted(REPLAY_DIGESTS))
+def test_sym_eigh_replay_bits_are_pinned(n):
+    """sym_eigh_jacobi gives the recorded bits on seeded matrices."""
+    w, V = sl.sym_eigh_jacobi(_pinned_matrices(n))
+    digest = hashlib.sha256(w.numpy().tobytes() + V.numpy().tobytes())
+    assert digest.hexdigest() == REPLAY_DIGESTS[n]
 
 
 def test_small_linalg_replays_converge_within_their_sweeps(rng):

@@ -11,7 +11,7 @@
 //
 // For the relative pose (R [3, 3], t [3]: X2 = R X1 + t) and the
 // normalized coordinates x1, x2 [n, 2] (all float32, contiguous), it writes
-// X [n, 3] in camera 1's frame, one thread per point:
+// X [n, 3] in camera 1's frame:
 //
 //   A = [x1.x P1[2] - P1[0]; x1.y P1[2] - P1[1];      P1 = [I | 0]
 //        x2.x P2[2] - P2[0]; x2.y P2[2] - P2[1]]      P2 = [R | t]
@@ -35,43 +35,80 @@
 //
 // Bounds: 28 bytes in and 12 out per point, and ~2.3 kFLOP of scalar
 // float32 (the rotations); at the main path's n = 512 or 1024 the work is a
-// few microseconds of one wave of threads, so the call costs what its
-// launch costs. The design is one thread per point with the 4x4 matrices
-// in registers (every index is a compile-time constant) and no shared
-// memory: what the PyTorch path needed was one launch and no host sync, in
-// place of a batched matrix product, cuSOLVER's batched eigensolver and
-// its error-flag read.
+// few microseconds of one wave of threads. What sets the time is each
+// point's chain of 6 x `sweeps` dependent rotations, each a coefficient
+// chain of four quotients and two square roots, then the update the next
+// pivot reads (chip_smoke.py measures that latency with
+// tests/rotation_chain.cu and prints rotations x latency as the chain
+// floor).
+//
+// Design: four lanes per point, eight points a warp, blocks of one warp (n
+// = 1024 takes 128 blocks, against 8 blocks of 128 threads with a thread
+// per point). Every lane of the four holds all of M and rotates it itself,
+// the thread-per-point arithmetic as it stood; lane r holds row r of V
+// and turns only its V[r][p], V[r][q]; one shuffle at the end brings V's
+// last row to the others for the sign. Late sweeps leave tiny pivots, on
+// which __fdiv_rn and __fsqrt_rn take their slow paths; `rotation` gives
+// their IEEE results without them. The pair order, the skip of a zero
+// pivot (by keeping every value: nothing branches on it), each entry's
+// rot_p / rot_q on the same operands, the selection, the sign and the
+// quotients are the thread-per-point design's, so the points keep their
+// bits (tests/test_torch_gpu.py, chip_smoke.py). Lanes on the rows of M
+// (the pivot by shuffle, lanes p and q swapping rows) measured the same
+// within 2% (PERF.md); the simpler design stays.
 
 #include <cuda_runtime.h>
+#include <math.h>
 
 namespace {
 
 constexpr float kEps = 1e-12f;
-constexpr int kThreads = 128;
+constexpr int kLanes = 4;          // per point
+constexpr int kThreads = 32;       // one warp: 8 points
+constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
 __device__ __forceinline__ float dvd(float a, float b) { return __fdiv_rn(a, b); }
 
-// One Jacobi rotation zeroing a[P][Q] of the symmetric a (both triangles
-// kept), accumulated into the columns P and Q of v.
-template <int P, int Q>
-__device__ __forceinline__ void rotate(float (&a)[4][4], float (&v)[4][4]) {
-  const float apq = a[P][Q];
-  if (apq == 0.f) return;
-  const float theta = dvd(sub(a[Q][Q], a[P][P]), mul(2.f, apq));
-  float t = dvd(1.f, add(fabsf(theta),
-                         __fsqrt_rn(add(mul(theta, theta), 1.f))));
+// Rutishauser's coefficients (s, tau, h) for the pivot apq, each value the
+// IEEE one that __fdiv_rn / __fsqrt_rn give, without the slow paths that
+// late sweeps would take. A divisor 2 apq below 2^-90 (a quotient that may
+// overflow, or a subnormal divisor) is divided in float64 and rounded once
+// (exact: 53 >= 2 x 24 + 2 bits). Where theta * theta overflows, t = 1 /
+// (|theta| + sqrt(inf)) is +0 before its sign, and a zero s over the
+// positive 1 + c is that zero: there the quotients run on stand-in operands
+// and their results are replaced, so nothing branches but the float64
+// division.
+__device__ __forceinline__ void rotation(float app, float aqq, float apq,
+                                         float& s, float& tau, float& h) {
+  const float num = sub(aqq, app), den = mul(2.f, apq);
+  const bool tiny = !(fabsf(den) >= 0x1p-90f);
+  float theta = dvd(num, tiny ? 1.f : den);
+  if (tiny) theta = __double2float_rn(__ddiv_rn(num, den));
+  const float tt = mul(theta, theta);
+  const bool huge = isinf(tt);
+  float t = dvd(1.f, add(fabsf(huge ? 0.f : theta),
+                         __fsqrt_rn(add(huge ? 0.f : tt, 1.f))));
+  if (huge) t = 0.f;
   if (theta < 0.f) t = -t;
   const float c = dvd(1.f, __fsqrt_rn(add(mul(t, t), 1.f)));
-  const float s = mul(t, c);
-  const float tau = dvd(s, add(1.f, c));
-  const float h = mul(t, apq);
-  a[P][P] = sub(a[P][P], h);
-  a[Q][Q] = add(a[Q][Q], h);
-  a[P][Q] = 0.f;
-  a[Q][P] = 0.f;
+  s = mul(t, c);
+  const float q = dvd(s == 0.f ? 1.f : s, add(1.f, c));
+  tau = s == 0.f ? s : q;
+  h = mul(t, apq);
+}
+
+// One Jacobi rotation zeroing a[P][Q] of the symmetric a (every lane of the
+// group holds all of it), accumulated into this lane's row of V. A zero
+// pivot keeps every value; nothing branches on it.
+template <int P, int Q>
+__device__ __forceinline__ void rotate(float (&a)[4][4], float (&v)[4]) {
+  const float apq = a[P][Q];
+  const bool skip = apq == 0.f;
+  float s, tau, h;
+  rotation(a[P][P], a[Q][Q], skip ? 1.f : apq, s, tau, h);
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     if (r == P || r == Q) continue;
@@ -79,37 +116,39 @@ __device__ __forceinline__ void rotate(float (&a)[4][4], float (&v)[4][4]) {
     const float hh = a[r][Q];
     const float np = sub(g, mul(s, add(hh, mul(g, tau))));
     const float nq = add(hh, mul(s, sub(g, mul(hh, tau))));
-    a[r][P] = np;
-    a[P][r] = np;
-    a[r][Q] = nq;
-    a[Q][r] = nq;
+    a[r][P] = skip ? g : np;
+    a[P][r] = skip ? g : np;
+    a[r][Q] = skip ? hh : nq;
+    a[Q][r] = skip ? hh : nq;
   }
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const float g = v[r][P];
-    const float hh = v[r][Q];
-    v[r][P] = sub(g, mul(s, add(hh, mul(g, tau))));
-    v[r][Q] = add(hh, mul(s, sub(g, mul(hh, tau))));
-  }
+  const float app = a[P][P], aqq = a[Q][Q];
+  a[P][P] = skip ? app : sub(app, h);
+  a[Q][Q] = skip ? aqq : add(aqq, h);
+  a[P][Q] = skip ? apq : 0.f;
+  a[Q][P] = skip ? apq : 0.f;
+  const float g = v[P], hh = v[Q];
+  const float np = sub(g, mul(s, add(hh, mul(g, tau))));
+  const float nq = add(hh, mul(s, sub(g, mul(hh, tau))));
+  v[P] = skip ? g : np;
+  v[Q] = skip ? hh : nq;
 }
 
 __global__ void __launch_bounds__(kThreads)
 triangulate_kernel(const float* __restrict__ Rg, const float* __restrict__ tg,
                    const float* __restrict__ x1, const float* __restrict__ x2,
                    float* __restrict__ X, int n, int sweeps) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n) return;
+  const int i = blockIdx.x * (kThreads / kLanes) + threadIdx.x / kLanes;
+  const int r = threadIdx.x % kLanes;
+  const int at = i < n ? i : n - 1;
   float P2[3][4];
 #pragma unroll
-  for (int r = 0; r < 3; ++r) {
+  for (int row = 0; row < 3; ++row) {
 #pragma unroll
-    for (int c = 0; c < 3; ++c) P2[r][c] = Rg[3 * r + c];
-    P2[r][3] = tg[r];
+    for (int c = 0; c < 3; ++c) P2[row][c] = Rg[3 * row + c];
+    P2[row][3] = tg[row];
   }
-  const float u1 = x1[2 * i], v1 = x1[2 * i + 1];
-  const float u2 = x2[2 * i], v2 = x2[2 * i + 1];
-  // the DLT rows; P1 = [I | 0]: u P1[2] - P1[0] = (u*0 - 1, u*0 - 0, u*1 - 0,
-  // u*0 - 0), rounded as the plain version's elementwise ops round them
+  const float u1 = x1[2 * at], v1 = x1[2 * at + 1];
+  const float u2 = x2[2 * at], v2 = x2[2 * at + 1];
   float A[4][4];
 #pragma unroll
   for (int c = 0; c < 4; ++c) {
@@ -119,19 +158,18 @@ triangulate_kernel(const float* __restrict__ Rg, const float* __restrict__ tg,
     A[2][c] = sub(mul(u2, P2[2][c]), P2[0][c]);
     A[3][c] = sub(mul(v2, P2[2][c]), P2[1][c]);
   }
-  float a[4][4], v[4][4];
+  float a[4][4], v[4];
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
 #pragma unroll
-    for (int k = j; k < 4; ++k) {
-      float m = mul(A[0][j], A[0][k]);
+    for (int c = j; c < 4; ++c) {
+      float m = mul(A[0][j], A[0][c]);
 #pragma unroll
-      for (int r = 1; r < 4; ++r) m = add(m, mul(A[r][j], A[r][k]));
-      a[j][k] = m;
-      a[k][j] = m;
+      for (int row = 1; row < 4; ++row) m = add(m, mul(A[row][j], A[row][c]));
+      a[j][c] = m;
+      a[c][j] = m;
     }
-#pragma unroll
-    for (int k = 0; k < 4; ++k) v[j][k] = j == k ? 1.f : 0.f;
+    v[j] = j == r ? 1.f : 0.f;
   }
   for (int s = 0; s < sweeps; ++s) {
     rotate<0, 1>(a, v);
@@ -141,30 +179,20 @@ triangulate_kernel(const float* __restrict__ Rg, const float* __restrict__ tg,
     rotate<1, 3>(a, v);
     rotate<2, 3>(a, v);
   }
-  // the first smallest diagonal entry; select by value so that v stays in
-  // registers
   float best = a[0][0];
-  float e0 = v[0][0], e1 = v[1][0], e2 = v[2][0], e3 = v[3][0];
+  float e = v[0];
 #pragma unroll
   for (int k = 1; k < 4; ++k) {
     if (a[k][k] < best) {
       best = a[k][k];
-      e0 = v[0][k];
-      e1 = v[1][k];
-      e2 = v[2][k];
-      e3 = v[3][k];
+      e = v[k];
     }
   }
-  if (e3 < 0.f) {
-    e0 = -e0;
-    e1 = -e1;
-    e2 = -e2;
-    e3 = -e3;
-  }
-  const float w = fabsf(e3) < kEps ? kEps : e3;
-  X[3 * i] = dvd(e0, w);
-  X[3 * i + 1] = dvd(e1, w);
-  X[3 * i + 2] = dvd(e2, w);
+  const float e3 = __shfl_sync(kFull, e, 3, kLanes);
+  if (e3 < 0.f) e = -e;
+  const float w3 = e3 < 0.f ? -e3 : e3;
+  const float w = fabsf(w3) < kEps ? kEps : w3;
+  if (i < n && r < 3) X[3 * i + r] = dvd(e, w);
 }
 
 }  // namespace
@@ -173,7 +201,8 @@ extern "C" int triangulate_dlt(const float* R, const float* t, const float* x1,
                                const float* x2, float* X, int n, int sweeps,
                                cudaStream_t stream) {
   if (n <= 0) return 0;
-  const int blocks = (n + kThreads - 1) / kThreads;
+  constexpr int per_block = kThreads / kLanes;
+  const int blocks = (n + per_block - 1) / per_block;
   triangulate_kernel<<<blocks, kThreads, 0, stream>>>(R, t, x1, x2, X, n,
                                                       sweeps);
   return static_cast<int>(cudaGetLastError());

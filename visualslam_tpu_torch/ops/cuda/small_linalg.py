@@ -8,8 +8,9 @@ The JAX package solves the two-view init's small systems with
 `torch.linalg` calls. On the card each is cuSOLVER's batched solver
 followed by a host read of its error flags: one host sync per call, and a
 CUDA graph cannot capture it. The kernels (csrc/small_linalg.cu) solve each
-matrix by cyclic Jacobi in one thread, one launch and no host read, so the
-init captures.
+matrix by cyclic Jacobi (sym_eigh on a group of lanes, each holding the
+whole matrix and one row of the eigenvectors; svd3 in one thread), one
+launch and no host read, so the init captures.
 
   sym_eigh(M)   symmetric [..., n, n] float32, n <= 10 -> (w [..., n]
                 ascending, V [..., n, n] eigenvectors as columns):
@@ -55,7 +56,7 @@ import torch
 from visualslam_tpu_torch.ops.cuda import build
 from visualslam_tpu_torch.ops.cuda.triangulate import EPS32, GAP_MIN, VEC_TOL
 
-MAX_N = 10          # kMaxN in the .cu
+MAX_N = 10          # the largest n sym_eigh's launcher dispatches
 # Jacobi sweeps. Cyclic Jacobi converges quadratically once it is close; the
 # counts are those after which the largest relative off-diagonal norm of
 # every matrix of the tests' and the card's two-view inits lies below

@@ -7,8 +7,9 @@ no Pallas kernel). The plain version here does the same with
 `torch.linalg.eigh`, which on the card is cuSOLVER's batched eigensolver
 followed by a host read of its error flags: one host sync per call, and a
 CUDA graph cannot capture it. The kernel (csrc/triangulate.cu) solves each
-point's matrix by cyclic Jacobi in one thread, one launch and no host
-read, so a keyframe promotion captures.
+point's matrix by cyclic Jacobi on four lanes (each holding the whole
+matrix and one row of the eigenvectors), one launch and no host read, so a
+keyframe promotion captures.
 
 `triangulate_jacobi` repeats the kernel's arithmetic operation for
 operation (every product, sum, quotient and square root rounded to float32
