@@ -83,9 +83,11 @@ Phases, each printing its own lines:
                off-diagonal norms per sweep, the 8-point batches timed
                beside their bounds, the plain version and torch.linalg
                with and without its status read; the latency of one
-               dependent Jacobi rotation in float64 and float32 (cycles,
-               ns; tests/rotation_chain.cu) and the solver kernels' chain
-               floors (the rotations of the longest matrix x that latency)
+               dependent Jacobi rotation in float64 and of the float32
+               kernels' own rotations (cycles, ns; tests/rotation_chain.cu)
+               and the solver kernels' chain floors (the rotations of the
+               longest matrix x the fastest latency of arithmetic that
+               keeps their bits)
   4. slice     the frontend + matching through the public entry points;
                the plain path on the same batch as the reference; keypoint
                and match floors; frames/s of both paths; the frontend's
@@ -241,14 +243,17 @@ lines.
 
     python3 chip_smoke.py --solver-turns PARENT
 
-takes sym_eigh and triangulate_dlt of the checkout at PARENT through its
-own wrappers and build, checks them bit for bit against this checkout's
-on the init's and the engine's own inputs (sym_eigh at [512, 9, 9],
-[1, 9, 9], [128, 9, 9] and [1280, 10, 10]; triangulate_dlt at N = 512 and
-1024), times both alone and per call in turns (parent, change, change,
+takes sym_eigh, svd3 and triangulate_dlt of the checkout at PARENT
+through its own wrappers and build, checks them bit for bit against this
+checkout's on the init's and the engine's own inputs (sym_eigh at [512,
+9, 9], [9, 9], [128, 9, 9] and [1280, 10, 10]; svd3 at the 8-point's
+[512, 3, 3] Fs, the [4, 3, 3] refit Fs and essential matrices and the
+8-point's essential matrix as [1, 3, 3]; triangulate_dlt at N = 512 and
+1024), times them alone and per call in turns (parent, change, change,
 parent) beside the chain floor (tests/rotation_chain.cu's rotation
-latency) and torch.linalg.eigh, and exits after printing them as a JSON
-line.
+latency: sym_eigh's float64 rotation, the one-test float32 rotation for
+svd3 and triangulate_dlt) and torch.linalg's device kernels, and exits
+after printing them as a JSON line.
 
     python3 chip_smoke.py --save-features engine_feats.npz
 
@@ -350,7 +355,7 @@ from visualslam_tpu_torch.slam.window import (
 )
 from visualslam_tpu_torch.utils.card import card_name
 from visualslam_tpu_torch.utils.config import DEFAULT_CONFIG, FAST_CONFIG
-from visualslam_tpu_torch.utils.graphs import _leaves, _signature
+from visualslam_tpu_torch.utils.graphs import GraphProgram, _leaves, _signature
 from visualslam_tpu_torch.utils.masked import block_top_k_select
 from visualslam_tpu_torch.utils.profiling import StageTimer
 
@@ -696,20 +701,31 @@ def kernel_2nn(feats: Features, dev) -> tuple:
                 bound_ms=bms, bound_by=by, library_ms=library_ms)
 
 
+# the rotation chains of tests/rotation_chain.cu: sym_eigh's float64
+# formulas and the float32 kernels' own rotations (csrc/jacobi_f32.cuh:
+# triangulate_dlt's stand-ins, svd3's one test). The float32 chain floors
+# are taken at the fastest of them that keeps the bits, the one test
+# (PERF.md); triangulate_dlt's own chain is printed beside its floor
+ROTATION_PROBES = {"f64": (torch.float64, "rotation_chain_f64"),
+                   "f32_stand_ins": (torch.float32,
+                                     "rotation_chain_f32_stand_ins"),
+                   "f32_one_test": (torch.float32,
+                                    "rotation_chain_f32_one_test")}
+
+
 def rotation_latency(dev) -> dict:
-    """The latency of one Jacobi rotation's dependent chain on the card, in
-    float64 and float32: one thread carries out 2^16 rotations in a row,
-    each pivot the row update of the last (tests/rotation_chain.cu). Cycles
-    per rotation from the SM's clock counter, ns per rotation from CUDA
-    events around the launch. A matrix's Jacobi goes no faster than its
-    rotations times the ns per rotation: its chain floor."""
+    """The latency of one Jacobi rotation's dependent chain on the card, per
+    probe of ROTATION_PROBES: one thread carries out 2^16 rotations in a
+    row, each pivot the row update of the last (tests/rotation_chain.cu).
+    Cycles per rotation from the SM's clock counter, ns per rotation from
+    CUDA events around the launch. A matrix's Jacobi goes no faster than
+    its rotations times the ns per rotation: its chain floor."""
     lib = ctypes.CDLL(str(probe_path("rotation_chain")))
     n = 1 << 16
     out = {}
     card = card_name()
-    for dtype in (torch.float64, torch.float32):
-        fn = getattr(lib, "rotation_chain_f64" if dtype == torch.float64
-                     else "rotation_chain_f32")
+    for name, (dtype, symbol) in ROTATION_PROBES.items():
+        fn = getattr(lib, symbol)
         fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
                        ctypes.c_void_p, ctypes.c_void_p]
         x = torch.tensor([0.3, 1.7, 0.5, 0.9], dtype=dtype, device=dev)
@@ -724,8 +740,8 @@ def rotation_latency(dev) -> dict:
             end.record()
             build.check_launch(rc, "rotation_chain")
             end.synchronize()
-        out[dtype] = ns = start.elapsed_time(end) * 1e6 / n
-        print(f"rotation latency {str(dtype)[6:]} ({card}): "
+        out[name] = ns = start.elapsed_time(end) * 1e6 / n
+        print(f"rotation latency {name} ({symbol}, {card}): "
               f"{int(cycles.item()) / n:.1f} cycles per dependent rotation "
               f"(SM clock counter), {ns:.2f} ns (CUDA events)")
     return out
@@ -788,7 +804,8 @@ def kernel_triangulate(feats: Features, seq, dev, lat: dict) -> dict:
     (cuSOLVER eigh) under the eigengap gate stated there; the replay's
     off-diagonal norms after each sweep; times beside the bound, the plain
     version and torch.linalg.eigh of the same normal matrices, and the
-    chain floor (TRI_ROTATIONS x the float32 rotation latency `lat`)."""
+    chain floor (TRI_ROTATIONS x the one-test float32 rotation latency in
+    `lat`) beside the chain of the kernel's own rotation (the stand-ins)."""
     R, t, x1, x2, valid = triangulation_inputs(feats, seq, 0, 4,
                                                ENGINE_CONFIG, dev)
     n = x1.shape[0]
@@ -830,12 +847,15 @@ def kernel_triangulate(feats: Features, seq, dev, lat: dict) -> dict:
     M = ktri.normal_matrices(R, t, x1, x2)
     library_ms = time_ms(lambda: torch.linalg.eigh(M), 20)
     bms, by = least_ms(nbytes(R, t, x1, x2, got), float(TRI_FLOPS) * n)
-    chain_ms = TRI_ROTATIONS * lat[torch.float32] * 1e-6
+    chain_ms = TRI_ROTATIONS * lat["f32_one_test"] * 1e-6
+    own_ms = TRI_ROTATIONS * lat["f32_stand_ins"] * 1e-6
     alone = ("not measured" if kernel_ms is None else f"{kernel_ms:.4f} ms")
     print(f"time triangulate_dlt N = {n}: kernel alone {alone}, "
           f"bound {bms:.6f} ms ({by}), chain floor {chain_ms:.6f} ms "
           f"({TRI_ROTATIONS} dependent float32 rotations a point, every "
-          f"pivot counted, at {lat[torch.float32]:.2f} ns)")
+          f"pivot counted, at the one test's {lat['f32_one_test']:.2f} ns; "
+          f"the kernel's own stand-ins chain {own_ms:.6f} ms at "
+          f"{lat['f32_stand_ins']:.2f} ns)")
     return dict(err=err, ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms,
                 bound_ms=bms, bound_by=by, library_ms=library_ms)
 
@@ -983,7 +1003,7 @@ def kernel_small_linalg(frames_dev: torch.Tensor, frontend: SiftFrontend,
         rate = PEAK_F64_S if name == "sym_eigh" else PEAK_F32_S
         bms, by = least_ms(nbytes(x, r["got"]), float(flops), rate)
         b32, _ = least_ms(nbytes(x, r["got"]), float(flops), PEAK_F32_S)
-        ns = lat[torch.float64 if name == "sym_eigh" else torch.float32]
+        ns = lat["f64" if name == "sym_eigh" else "f32_one_test"]
         chain_ms = r["longest"] * ns * 1e-6
         print(f"time {name} {tuple(x.shape)}: kernel call {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms (CUDA events), bound {bms:.6f} ms "
@@ -1460,22 +1480,29 @@ def checkout_modules(root: str, names) -> list:
         sys.modules.update(own)
 
 
+def patched_copy(root, files, patches: dict) -> None:
+    """Copies of the package's `files` (paths under visualslam_tpu_torch/)
+    under `root`, each (old, new) text of `patches[file]` replaced once."""
+    for rel in files:
+        text = (build.PACKAGE / rel).read_text()
+        for old, new in patches.get(rel, ()):
+            check(text.count(old) == 1, f"{rel} holds {old.strip()} once")
+            text = text.replace(old, new)
+        dst = root / "visualslam_tpu_torch" / rel
+        dst.parent.mkdir(parents=True, exist_ok=True)
+        dst.write_text(text)
+
+
 def threshold_variant(long_rows: int) -> object:
     """This checkout's segment sum with the long-segment threshold set to
     `long_rows` (LONG_ROWS in segment.py, kLongRows in segment.cu), from a
     patched copy of its three files under the build directory."""
     root = build.BUILD_DIR / f"long{long_rows}"
-    patches = {"ops/cuda/segment.py": "LONG_ROWS = {}\n",
-               "csrc/segment.cu": "kLongRows = {};"}
-    for rel in SEGMENT_FILES:
-        text = (build.PACKAGE / rel).read_text()
-        if rel in patches:
-            old = patches[rel].format(LONG_ROWS)
-            check(text.count(old) == 1, f"{rel} sets {old.strip()} once")
-            text = text.replace(old, patches[rel].format(long_rows))
-        dst = root / "visualslam_tpu_torch" / rel
-        dst.parent.mkdir(parents=True, exist_ok=True)
-        dst.write_text(text)
+    patched_copy(root, SEGMENT_FILES, {
+        "ops/cuda/segment.py": [(f"LONG_ROWS = {LONG_ROWS}\n",
+                                 f"LONG_ROWS = {long_rows}\n")],
+        "csrc/segment.cu": [(f"kLongRows = {LONG_ROWS};",
+                             f"kLongRows = {long_rows};")]})
     return checkout_modules(str(root), ("segment",))[0]
 
 
@@ -1537,18 +1564,52 @@ def segment_turns(parent_root: str, dev) -> None:
           f"float32): {json.dumps(sweep)}")
 
 
+def init_turn(fa: Features, fb: Features, intr, parent_sl) -> dict:
+    """The sequence's two-view init program (the tracker's "ransac" on
+    FAST_CONFIG, frames 0 -> 8's matches) with the parent's sym_eigh and
+    svd3 (parent_sl: its small_linalg module) and with this checkout's,
+    two programs captured side by side: equal bit for bit, then in turns
+    parent, change, change, parent each replay's host-clock ms (wall_ms,
+    synchronized) and its device ms (profiler, every kernel)."""
+    m = match_features(fa, fb, FAST_CONFIG.match)
+    x = (normalized(fa.keypoints.yx[m.idx_a.long()].flip(-1), intr),
+         normalized(fb.keypoints.yx[m.idx_b.long()].flip(-1), intr),
+         m.valid)
+    theirs = KERNELS._replace(sym_eigh=parent_sl.sym_eigh,
+                              svd3=parent_sl.svd3)
+    progs = {k: GraphProgram(slam_tracker._ransac_body) for k in "pc"}
+    runs = {"p": lambda: progs["p"](x, (FAST_CONFIG.ransac, theirs), 7),
+            "c": lambda: progs["c"](x, (FAST_CONFIG.ransac, KERNELS), 7)}
+    got = {k: fn() for k, fn in runs.items()}
+    check(all(torch.equal(a, b) for a, b in zip(got["p"], got["c"])),
+          "the init program with the parent's and this checkout's solvers "
+          "agrees bit for bit")
+    order = ("p", "c", "c", "p")
+    host = [wall_ms(runs[k], 20) for k in order]
+    device = [device_ms(runs[k], 20, None)[0] for k in order]
+    return dict(kernel="two-view init program (8-point, 512)",
+                parent_ms=[host[0], host[3]], change_ms=[host[1], host[2]],
+                parent_device_ms=[device[0], device[3]],
+                change_device_ms=[device[1], device[2]],
+                inliers=int(got["c"][4]))
+
+
 def solver_turns(parent_root: str, dev, frames_dev: torch.Tensor,
                  frontend: SiftFrontend, seq) -> None:
-    """sym_eigh and triangulate_dlt of another checkout (the parent
+    """sym_eigh, svd3 and triangulate_dlt of another checkout (the parent
     commit's: `git archive <commit> | tar -x -C <dir>`), through its own
     wrappers and build, against this one's on the init's and the engine's
     own inputs (frames 0 -> 8: the 8-point's 512 normal matrices and its
-    refit, the five-point's 128 9x9 and 1280 10x10 systems; keyframe 8,
-    frame 12 at DEFAULT_CONFIG's 512 and ENGINE_CONFIG's 1024 match slots):
-    equal bit for bit, then each alone (profiler) and per call (CUDA
-    events) in turns parent, change, change, parent, beside the chain
-    floor (the longest matrix's rotations x the rotation latency) and
-    torch.linalg.eigh's device kernels on the same matrices."""
+    refit, the five-point's 128 9x9 and 1280 10x10 systems; the 8-point's
+    512 Fs, the refit Fs and essential matrices of both solvers, the
+    8-point's essential matrix alone; keyframe 8, frame 12 at
+    DEFAULT_CONFIG's 512 and ENGINE_CONFIG's 1024 match slots): equal bit
+    for bit, then each alone (profiler) and per call (CUDA events) in turns
+    parent, change, change, parent, beside the chain floor (the longest
+    matrix's rotations x the rotation latency of ROTATION_PROBES that
+    kernel_small_linalg and kernel_triangulate take it at; triangulate_dlt
+    also beside its own rotation's chain) and torch.linalg.eigh's / svd's
+    device kernels on the same matrices."""
     from concurrent.futures import ThreadPoolExecutor
 
     names = ("small_linalg", "triangulate")
@@ -1559,9 +1620,14 @@ def solver_turns(parent_root: str, dev, frames_dev: torch.Tensor,
     fa, fb, intr, _ = two_view_pair(frames_dev, frontend, seq, dev)
     mats = init_matrices(fa, fb, intr, dev)
     e8, e5 = mats["8pt"]["sym_eigh"], mats["5pt"]["sym_eigh"]
+    s8, s5 = mats["8pt"]["svd3"], mats["5pt"]["svd3"]
     feats = frontend(frames_dev[8:8 + BATCH])
     cases = [("sym_eigh", (x,), ksl.sym_eigh, parent_sl.sym_eigh)
              for x in (e8[0], e8[1], e5[0], e5[1].reshape(-1, 10, 10))]
+    cases += [("svd3", (x,), ksl.svd3, parent_sl.svd3)
+              for x in (s8[0], torch.stack([x.reshape(3, 3)
+                                            for x in s8[-2:] + s5[-2:]]),
+                        s8[-1].reshape(1, 3, 3))]
     cases += [("triangulate_dlt",
                triangulation_inputs(feats, seq, 0, 4, cfg, dev)[:4],
                ktri.triangulate_dlt, parent_tri.triangulate_dlt)
@@ -1571,35 +1637,50 @@ def solver_turns(parent_root: str, dev, frames_dev: torch.Tensor,
         got, ref = mine(*args), theirs(*args)
         got, ref = ((got,), (ref,)) if name == "triangulate_dlt" else (
             got, ref)
+        shape = tuple(args[-1].shape)
         check(all(torch.equal(a, b) for a, b in zip(got, ref)),
-              f"{name} {tuple(args[-1].shape)}: parent and change agree bit "
-              f"for bit")
+              f"{name} {shape}: parent and change agree bit for bit")
         order = (theirs, mine, mine, theirs)
+        for _ in range(50):         # the card's clocks up before the turns
+            for f in order:
+                f(*args)
+        torch.cuda.synchronize()
         alone = [device_ms(lambda f=f: f(*args), 20, DEVICE_NAMES[name])[0]
                  for f in order]
         call = [time_ms(lambda f=f: f(*args), 20) for f in order]
-        if name == "sym_eigh":
-            x = args[0]
-            n = x.shape[-1]
-            with counted_rotations(x.numel() // (n * n)) as per_matrix:
-                ksl.sym_eigh_jacobi(x.cpu())
-            longest, ns = int(per_matrix.max()), lat[torch.float64]
-            M = x
-        else:
-            longest, ns = TRI_ROTATIONS, lat[torch.float32]
+        x = args[0]
+        own = {}
+        if name == "triangulate_dlt":
+            longest, ns = TRI_ROTATIONS, lat["f32_one_test"]
+            own = dict(own_chain_ms=longest * lat["f32_stand_ins"] * 1e-6)
             M = ktri.normal_matrices(*args)
-        lib = device_ms(lambda: torch.linalg.eigh(M), 20, None)[0]
-        rows.append(dict(kernel=name, shape=list(args[-1].shape),
-                         parent_ms=[alone[0], alone[3]],
-                         change_ms=[alone[1], alone[2]],
-                         parent_call_ms=[call[0], call[3]],
-                         change_call_ms=[call[1], call[2]],
-                         rotations=longest,
-                         chain_ms=longest * ns * 1e-6, eigh_ms=lib))
+            lib_fn = torch.linalg.eigh
+        else:
+            n = x.shape[-1]
+            replay = (ksl.sym_eigh_jacobi if name == "sym_eigh"
+                      else ksl.svd3_jacobi)
+            with counted_rotations(x.numel() // (n * n)) as per_matrix:
+                replay(x.cpu())
+            longest = int(per_matrix.max())
+            ns = lat["f64" if name == "sym_eigh" else "f32_one_test"]
+            M = x
+            lib_fn = (torch.linalg.eigh if name == "sym_eigh"
+                      else torch.linalg.svd)
+        lib = device_ms(lambda: lib_fn(M), 20, None)[0]
+        rows.append(dict(
+            kernel=name, shape=list(shape),
+            parent_ms=[alone[0], alone[3]], change_ms=[alone[1], alone[2]],
+            parent_call_ms=[call[0], call[3]],
+            change_call_ms=[call[1], call[2]],
+            rotations=longest, chain_ms=longest * ns * 1e-6, **own,
+            library_ms=lib))
+    rows.append(init_turn(fa, fb, intr, parent_sl))
     print(f"solver turns ({card_name()}; ms alone on the device and per "
           f"call, parent {parent_root}; chain floor = the longest matrix's "
-          f"rotations x the rotation latency; eigh_ms = torch.linalg.eigh's "
-          f"device kernels on the same matrices): {json.dumps(rows)}")
+          f"rotations x the fastest rotation latency that keeps the "
+          f"kernel's bits (own_chain_ms: triangulate_dlt's own rotation); "
+          f"library_ms = torch.linalg.eigh's (svd's for svd3) device "
+          f"kernels on the same matrices): {json.dumps(rows)}")
 
 
 def phase_kernels(batch: torch.Tensor, frontend: SiftFrontend, seq,

@@ -152,6 +152,66 @@ def test_sym_eigh_replay_bits_are_pinned(n):
     assert digest.hexdigest() == REPLAY_DIGESTS[n]
 
 
+def _pinned_svd3(kind, B=32):
+    """[B, 3, 3] float32 from seeded float64 values by elementwise
+    operations in a fixed order (no BLAS, no libm beyond the correctly
+    rounded sqrt, so the same bits on any CPU), rounded once: "random"
+    Gaussian entries; "essential" [t]x R with R from a unit quaternion;
+    "tiny" / "huge" essential matrices times 2^-60 / 2^50, whose A^T A
+    reaches float32's subnormal and overflow ranges; "rank1" outer
+    products."""
+    r = np.random.default_rng(2000 + ("random", "essential", "tiny", "huge",
+                                      "rank1").index(kind))
+    if kind == "random":
+        return torch.from_numpy(r.standard_normal((B, 3, 3))
+                                .astype(np.float32))
+    if kind == "rank1":
+        x, y = r.standard_normal((2, B, 3))
+        return torch.from_numpy((x[:, :, None] * y[:, None, :])
+                                .astype(np.float32))
+    q = r.standard_normal((B, 4))
+    w, x, y, z = (q / np.sqrt(q[:, 0] * q[:, 0] + q[:, 1] * q[:, 1]
+                              + q[:, 2] * q[:, 2] + q[:, 3] * q[:, 3])
+                  [:, None]).T
+    R = [[1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (x * z + y * w)],
+         [2 * (x * y + z * w), 1 - 2 * (x * x + z * z), 2 * (y * z - x * w)],
+         [2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y)]]
+    t = r.standard_normal((3, B))
+    zero = np.zeros(B)
+    tx = [[zero, -t[2], t[1]], [t[2], zero, -t[0]], [-t[1], t[0], zero]]
+    E = np.stack([np.stack([tx[i][0] * R[0][j] + tx[i][1] * R[1][j]
+                            + tx[i][2] * R[2][j] for j in range(3)], -1)
+                  for i in range(3)], 1).astype(np.float32)
+    scale = {"essential": 1.0, "tiny": 2.0 ** -60, "huge": 2.0 ** 50}[kind]
+    return torch.from_numpy(E * np.float32(scale))
+
+
+# SHA-256 of svd3_jacobi's (U, S, Vh) bytes on _pinned_svd3(kind), recorded
+# when the kernel moved to a lane group per matrix: the replay defines the
+# kernel's bits (tests/test_torch_gpu.py holds the kernel to it)
+SVD3_DIGESTS = {
+    "random":
+    "5e3537b421a4e5fa2645f8a775332396d7f883e867e9942f75f57cbdca0171e5",
+    "essential":
+    "97a9dd6595fbb12786569194e6ab16a078d41afe58b9cccf7db8b3f2752a469f",
+    "tiny":
+    "a45737f504b169025b3c6fd3d540938616d3bef2390f7401401780488b2350e1",
+    "huge":
+    "46cf8bcbc8b858b76e440d7bfa59e5f42b18b5beb7dea2936ced1fb2d6b89d47",
+    "rank1":
+    "f53d4f6810140934dd71663de933fa64468dc06d151a8c299069d5aaf5c6fe8f",
+}
+
+
+@pytest.mark.parametrize("kind", sorted(SVD3_DIGESTS))
+def test_svd3_replay_bits_are_pinned(kind):
+    """svd3_jacobi gives the recorded bits on seeded 3x3 batches."""
+    U, S, Vh = sl.svd3_jacobi(_pinned_svd3(kind))
+    digest = hashlib.sha256(U.numpy().tobytes() + S.numpy().tobytes()
+                            + Vh.numpy().tobytes())
+    assert digest.hexdigest() == SVD3_DIGESTS[kind]
+
+
 def test_small_linalg_replays_converge_within_their_sweeps(rng):
     """The relative off-diagonal norm of every matrix (random 9x9, 10x10
     and 3x3; the 8-point's normal matrices and Fs; the five-point's 9x9 and

@@ -48,8 +48,9 @@
 // the thread-per-point arithmetic as it stood; lane r holds row r of V
 // and turns only its V[r][p], V[r][q]; one shuffle at the end brings V's
 // last row to the others for the sign. Late sweeps leave tiny pivots, on
-// which __fdiv_rn and __fsqrt_rn take their slow paths; `rotation` gives
-// their IEEE results without them. The pair order, the skip of a zero
+// which __fdiv_rn and __fsqrt_rn take their slow paths; `rotation`
+// (csrc/jacobi_f32.cuh, shared with svd3) gives their IEEE results without
+// them. The pair order, the skip of a zero
 // pivot (by keeping every value: nothing branches on it), each entry's
 // rot_p / rot_q on the same operands, the selection, the sign and the
 // quotients are the thread-per-point design's, so the points keep their
@@ -60,45 +61,14 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "jacobi_f32.cuh"
+
 namespace {
 
 constexpr float kEps = 1e-12f;
 constexpr int kLanes = 4;          // per point
 constexpr int kThreads = 32;       // one warp: 8 points
 constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
-__device__ __forceinline__ float dvd(float a, float b) { return __fdiv_rn(a, b); }
-
-// Rutishauser's coefficients (s, tau, h) for the pivot apq, each value the
-// IEEE one that __fdiv_rn / __fsqrt_rn give, without the slow paths that
-// late sweeps would take. A divisor 2 apq below 2^-90 (a quotient that may
-// overflow, or a subnormal divisor) is divided in float64 and rounded once
-// (exact: 53 >= 2 x 24 + 2 bits). Where theta * theta overflows, t = 1 /
-// (|theta| + sqrt(inf)) is +0 before its sign, and a zero s over the
-// positive 1 + c is that zero: there the quotients run on stand-in operands
-// and their results are replaced, so nothing branches but the float64
-// division.
-__device__ __forceinline__ void rotation(float app, float aqq, float apq,
-                                         float& s, float& tau, float& h) {
-  const float num = sub(aqq, app), den = mul(2.f, apq);
-  const bool tiny = !(fabsf(den) >= 0x1p-90f);
-  float theta = dvd(num, tiny ? 1.f : den);
-  if (tiny) theta = __double2float_rn(__ddiv_rn(num, den));
-  const float tt = mul(theta, theta);
-  const bool huge = isinf(tt);
-  float t = dvd(1.f, add(fabsf(huge ? 0.f : theta),
-                         __fsqrt_rn(add(huge ? 0.f : tt, 1.f))));
-  if (huge) t = 0.f;
-  if (theta < 0.f) t = -t;
-  const float c = dvd(1.f, __fsqrt_rn(add(mul(t, t), 1.f)));
-  s = mul(t, c);
-  const float q = dvd(s == 0.f ? 1.f : s, add(1.f, c));
-  tau = s == 0.f ? s : q;
-  h = mul(t, apq);
-}
 
 // One Jacobi rotation zeroing a[P][Q] of the symmetric a (every lane of the
 // group holds all of it), accumulated into this lane's row of V. A zero
@@ -114,8 +84,8 @@ __device__ __forceinline__ void rotate(float (&a)[4][4], float (&v)[4]) {
     if (r == P || r == Q) continue;
     const float g = a[r][P];
     const float hh = a[r][Q];
-    const float np = sub(g, mul(s, add(hh, mul(g, tau))));
-    const float nq = add(hh, mul(s, sub(g, mul(hh, tau))));
+    const float np = rot_p(g, hh, s, tau);
+    const float nq = rot_q(g, hh, s, tau);
     a[r][P] = skip ? g : np;
     a[P][r] = skip ? g : np;
     a[r][Q] = skip ? hh : nq;
@@ -127,8 +97,8 @@ __device__ __forceinline__ void rotate(float (&a)[4][4], float (&v)[4]) {
   a[P][Q] = skip ? apq : 0.f;
   a[Q][P] = skip ? apq : 0.f;
   const float g = v[P], hh = v[Q];
-  const float np = sub(g, mul(s, add(hh, mul(g, tau))));
-  const float nq = add(hh, mul(s, sub(g, mul(hh, tau))));
+  const float np = rot_p(g, hh, s, tau);
+  const float nq = rot_q(g, hh, s, tau);
   v[P] = skip ? g : np;
   v[Q] = skip ? hh : nq;
 }

@@ -3,9 +3,10 @@
 Each `csrc/<name>.cu` has a plain C interface and is compiled by `nvcc` into
 a shared library that `ctypes` loads (no PyTorch headers, so a build takes
 seconds). Libraries go to `visualslam_tpu_torch/_build/` (git-ignored),
-named by a hash of the source and the flags, so an edited source is rebuilt
-on its next use and an unchanged one is loaded as it is. Nothing here runs
-at import: the first wrapper call that launches a kernel builds it.
+named by a hash of the source, the headers it includes and the flags, so an
+edited source or header is rebuilt on its next use and an unchanged one is
+loaded as it is. Nothing here runs at import: the first wrapper call that
+launches a kernel builds it.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import subprocess
 import tempfile
 from pathlib import Path
@@ -34,10 +36,28 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
+_INCLUDE = re.compile(r'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.M)
+
+
+def sources(name: str) -> list[Path]:
+    """csrc/<name>.cu and the headers it includes with quotes, those
+    headers' own included ones too: the files its library is built from."""
+    out, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path not in out:
+            out.append(path)
+            todo += [path.parent / inc
+                     for inc in _INCLUDE.findall(path.read_text())]
+    return out
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    digest = hashlib.sha256()
+    for path in sources(name):
+        digest.update(path.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Path:

@@ -8,9 +8,10 @@ The JAX package solves the two-view init's small systems with
 `torch.linalg` calls. On the card each is cuSOLVER's batched solver
 followed by a host read of its error flags: one host sync per call, and a
 CUDA graph cannot capture it. The kernels (csrc/small_linalg.cu) solve each
-matrix by cyclic Jacobi (sym_eigh on a group of lanes, each holding the
-whole matrix and one row of the eigenvectors; svd3 in one thread), one
-launch and no host read, so the init captures.
+matrix by cyclic Jacobi (on a group of lanes, each holding the whole
+matrix and one row of the eigenvectors: for sym_eigh n rounded up to a
+power of two, for svd3 a warp), one launch and no host read, so the init
+captures.
 
   sym_eigh(M)   symmetric [..., n, n] float32, n <= 10 -> (w [..., n]
                 ascending, V [..., n, n] eigenvectors as columns):
