@@ -113,13 +113,25 @@ Phases, each printing its own lines:
                promotion and per tracked frame, host syncs (checked: one
                per active frame), host launch calls, device kernels and
                busy share per batch; frames/s of frontend + engine
-  7. sequence  the bench protocol on the kernel path: sequence frames/s
+  7. sequence  first the tracker's frontend program (Tracker.detect_batch's
+               "frontend_batched", captured here): its replays on frames
+               8..23 and 24..39 against the eager frontend module bit for
+               bit (the first replay's features held across the second),
+               host syncs per replay (checked: none) and per warm eager
+               call, ms per 16-frame call graph / eager, host launch
+               calls, device kernels and busy share, the eager call's
+               top device kernels, capture seconds and pool bytes; then
+               the bench protocol on the kernel path:
+               sequence frames/s
                (median of 3 runs) and frontend frames/s, the time by stage
-               (StageTimer), the three runs' trajectories compared bit for
+               (StageTimer) and the frontend's share of it, the three
+               runs' trajectories compared bit for
                bit (printed); one timed eager-path run (EagerTracker: the
-               engine batch through run_engine_batch) against SEQ_BOUNDS;
+               frontend module, the engine batch through run_engine_batch)
+               against SEQ_BOUNDS;
                an instrumented kernel-path run: launch counts, host syncs
-               per process_stream call and inside every engine batch
+               per process_stream call (checked: at most 27) and inside
+               every engine batch
                (checked: one per active frame, none per promotion) and
                per two-view init (checked: one, the packed readback; ms
                per call; the first init's solve again on the "ransac"
@@ -132,8 +144,14 @@ Phases, each printing its own lines:
                the JAX package on the same features (frames 0..55); kernel
                path against plain path
   8. harris_5pt  the Harris frontend as `cli detect --frontend harris` runs
-               it on 16 frames (keypoint floor, unit descriptors,
-               frames/s); two-view relative pose of frames 0 and 8 with the
+               it (detect_and_describe_jit) on 16 frames, equal to the
+               eager module bit for bit (keypoint floor, unit descriptors,
+               frames/s of both); the module-level frontend programs
+               (detect_and_describe_jit under FAST, ORB and Harris,
+               build_pyramid_jit, detect_and_describe_sift_jit,
+               detect_and_describe_orb_jit, detect_harris_jit) on 4 frames,
+               each replay against its eager function bit for bit with no
+               host sync; two-view relative pose of frames 0 and 8 with the
                five-point and the eight-point RANSAC (estimate_relative_pose
                through two_view_from_features), each rotation against
                ground truth under a bound, with its time and host syncs;
@@ -146,7 +164,8 @@ Phases, each printing its own lines:
                plain path's rotation under the same bound
   9. reference DEFAULT_CONFIG on frames 8..23: launch counts (4 per
                kernel per detection call), keypoint and match floors,
-               kernel path against plain path; extrema_winners bit for bit
+               kernel path against plain path; the tracker's frontend
+               program as in the sequence phase; extrema_winners bit for bit
                at all 4 octaves and the float32 patch kernels within
                1e-4 * (1 + max |plain|) at octave 0 (752x2496), each timed
                alone and per call beside its bound; frontend frames/s of
@@ -162,7 +181,11 @@ Phases, each printing its own lines:
                2048 keypoints) on frames 8..23: floors, frames/s, the
                card's features against the CPU port's on frame 8
                (keypoint sets, Hamming distance per coincident keypoint);
-               frames 0..55 through process_stream, timed once, with the
+               the eager module's host syncs by the port's line on its
+               first call (the constants built) and a warm call (checked:
+               none); the tracker's frontend program as in the sequence
+               phase (its keys, like the reference's, released at the
+               phase's end); frames 0..55 through process_stream, timed once, with the
                same sync rule, plain-path run and bounds (ORB_BOUNDS)
  11. harness   harness.run_benchmarks on the card (`cli benchmark`): each
                row printed with the card's name, every row finite and
@@ -231,6 +254,9 @@ Phases, each printing its own lines:
                path for the others), then the last line
                {"ok": true, "device": {...}}
 
+Each phase prints its seconds and the device memory reserved after it,
+and the run its peak device memory.
+
     python3 chip_smoke.py --segment-turns PARENT
 
 takes the segment sum of the checkout at PARENT (another commit's, for
@@ -254,6 +280,14 @@ parent) beside the chain floor (tests/rotation_chain.cu's rotation
 latency: sym_eigh's float64 rotation, the one-test float32 rotation for
 svd3 and triangulate_dlt) and torch.linalg's device kernels, and exits
 after printing them as a JSON line.
+
+    python3 chip_smoke.py --frontend-syncs
+
+counts the eager frontend modules' host syncs (FAST_CONFIG, DEFAULT_CONFIG,
+ORB, Harris at 16 x 376x1248) by the port's line, on a first and a second
+call, and the tracker's frontend program's replay, and exits; it uses
+only make_frontend and the tracker's programs, so a copy of this file in
+another checkout (`git archive <commit>`) counts that checkout's syncs.
 
     python3 chip_smoke.py --save-features engine_feats.npz
 
@@ -2373,6 +2407,9 @@ SEQ_BOUND_FRAMES = 56       # frames 0..55: the saved features' prefix
 # Sim(3) alignment, 8 keyframes, mean inliers 81.04)
 SEQ_BOUNDS = dict(ok=0.5, ate=0.4163, keyframes=(4, 16),
                   mean_inliers=(40.52, 162.07))
+# host syncs per process_stream call: 16 need_kf reads of the engine batch,
+# the frontend's constant uploads (9, before its program) and the harvest
+SEQ_STREAM_SYNCS = 27
 SEQ_PATH_KEYFRAMES = 0      # kernel vs plain path: keyframe counts apart
 SEQ_PATH_ATE = 2.0          # kernel vs plain path: ATE within this factor
 FRONTEND_PATH = ("extrema_winners", "orient_hist", "descriptor")
@@ -2406,18 +2443,22 @@ class EagerProgram:
 
 
 class EagerTracker(Tracker):
-    """The tracker with every engine batch through the eager
-    run_engine_batch in place of engine_programs' captured graphs, the
-    loop closer's pose graph through the eager optimize_sim3_graph /
-    optimize_pose_graph in place of their programs, and the two-view
-    init's RANSAC through the eager estimate_relative_pose in place of the
-    "ransac" program: the graph path's comparison, here and nowhere in the
-    package."""
+    """The tracker with every detection through the eager frontend module
+    (Tracker.frontend) in place of the "frontend_batched" program, every
+    engine batch through the eager run_engine_batch in place of
+    engine_programs' captured graphs, the loop closer's pose graph through
+    the eager optimize_sim3_graph / optimize_pose_graph in place of their
+    programs, and the two-view init's RANSAC through the eager
+    estimate_relative_pose in place of the "ransac" program: the graph
+    path's comparison, here and nowhere in the package."""
 
     def __init__(self, *a, **kw):
         super().__init__(*a, **kw)
         if self.loop_closer is not None:
             self.loop_closer.program = EagerProgram(self.loop_closer.program)
+
+    def detect_batch(self, imgs) -> Features:
+        return self.frontend(self.upload_batch(imgs))
 
     def _engine_batch(self, persist, dyn, feats_b):
         return engine.run_engine_batch(persist, dyn, feats_b, self.intr,
@@ -2662,7 +2703,8 @@ def eager_sequence_run(frames, seq, dev, gt) -> dict:
     print(f"sequence eager path, frames 0..{SEQ_BOUND_FRAMES - 1}: "
           f"{json.dumps(pre)}")
     check_bounds("sequence eager path", pre, SEQ_BOUNDS)
-    return dict(fps=bench.SEQ_FRAMES / seconds, stats=pre)
+    return dict(fps=bench.SEQ_FRAMES / seconds, stats=pre,
+                frontend=frontend_share(timer, seconds))
 
 
 def phase_sequence(card: str, dev, save_features: str | None) -> dict:
@@ -2675,6 +2717,9 @@ def phase_sequence(card: str, dev, save_features: str | None) -> dict:
     frames, seq = bench.render_sequence(bench.SEQ_FRAMES + bench.INIT_FRAMES)
     n = len(frames)
     gt = seq.gt_poses[:, :, 3]
+    # the tracker's frontend program, captured here before any tracker runs
+    frontend_program("sequence", FAST_CONFIG,
+                     torch.from_numpy(frames[:40]).to(dev), dev)
     bench.warmup(FAST_CONFIG, dev, KERNELS)
     fps_runs, timers, trajs = [], [], []
     for k in range(3):
@@ -2703,6 +2748,9 @@ def phase_sequence(card: str, dev, save_features: str | None) -> dict:
           f"{[float(np.abs(trajs[0] - t).max()) for t in trajs[1:]]})")
     seconds, timer = sorted(timers, key=lambda x: x[0])[1]
     summ = timer.summary()
+    print(f"sequence frontend share (median run, graph path): "
+          f"{frontend_share(timer, seconds)}; eager path: "
+          f"{eager['frontend']}")
     print(f"sequence time by stage (median run, {seconds:.3f} s; host "
           f"clock, StageTimer): " + ", ".join(
               f"{k} {v['total_s']:.3f} s / {v['count']}"
@@ -2719,6 +2767,8 @@ def phase_sequence(card: str, dev, save_features: str | None) -> dict:
         check(counts[name] == 0, f"{name} not launched under FAST_CONFIG")
     print(f"sequence host syncs per process_stream call: {stream[:-1]} "
           f"(finish: {stream[-1]})")
+    check(max(stream[:-1]) <= SEQ_STREAM_SYNCS, f"sequence: at most "
+          f"{SEQ_STREAM_SYNCS} host syncs per process_stream call")
     warm = [(s_, round(ms, 3)) for s_, ms, cap in rec.inits if not cap]
     print(f"sequence two-view inits (host syncs, ms) per call: {warm}; "
           f"calls that captured the program: "
@@ -2812,6 +2862,134 @@ def feature_floors(name: str, feats: Features, cfg, min_kps: int,
         check(min(m) >= min_matches, f"{name}: >= {min_matches} matches")
 
 
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+def sync_sites(fn) -> dict:
+    """The host syncs torch reports while fn() runs (sync debug mode), by
+    the line of the port that made each (the innermost frame under
+    visualslam_tpu_torch/): {"path:line": count}."""
+    import traceback
+
+    sites: dict = {}
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        if "called a synchronizing" not in str(message):
+            return
+        port = [f for f in traceback.extract_stack()[:-1]
+                if "visualslam_tpu_torch" in f.filename]
+        where = (f"{os.path.relpath(port[-1].filename, ROOT)}:"
+                 f"{port[-1].lineno}" if port else "outside the port")
+        sites[where] = sites.get(where, 0) + 1
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return dict(sorted(sites.items()))
+
+
+def frontend_program(name: str, cfg, frames_dev: torch.Tensor, dev) -> dict:
+    """The tracker's frontend program under cfg (slam.tracker.
+    _shared_programs(cfg)["frontend_batched"], which Tracker.detect_batch
+    replays) on frames 8..23 and 24..39 as 16-frame uint8 batches: each
+    replay against the eager frontend module on the same frames bit for
+    bit, the first replay's features still equal after the second (the
+    lag-1 stream holds them), host syncs per replay (checked: none) and per
+    warm eager call (by the port's line), ms per call graph / eager (host
+    clock + synchronize), host launch calls, device kernels and busy share
+    of one call each (profiler), and the key's capture seconds and pool
+    bytes. Returns those figures."""
+    prog = slam_tracker._shared_programs(cfg)["frontend_batched"]
+    eager = make_frontend(cfg).to(dev)
+    batches = [frames_dev[8:8 + BATCH], frames_dev[24:24 + BATCH]]
+    pcfg = (cfg, KERNELS)
+    key = (_signature((batches[0],)), pcfg)
+    captured_here = key not in prog.captured
+    prog((batches[0],), pcfg)
+    graphs = prog.captured[key]
+    want = [eager(b) for b in batches]
+    out, syncs = [], []
+    for b in batches:
+        syncs.append(count_syncs(lambda b=b: out.append(prog((b,), pcfg))))
+    same = [_same(o, w) and o.descriptors.dtype == w.descriptors.dtype
+            for o, w in zip(out, want)]
+    eager_sites = sync_sites(lambda: eager(batches[0]))
+    graph_ms = wall_ms(lambda: prog((batches[0],), pcfg), 10)
+    eager_ms = wall_ms(lambda: eager(batches[0]), 10)
+    prof = {path: profile_launches(fn) for path, fn in (
+        ("graph", lambda: prog((batches[0],), pcfg)),
+        ("eager", lambda: eager(batches[0])))}
+    # the profiler slows a graph's replay (its nodes traced one by one):
+    # busy is also given against the unprofiled call's time
+    line = {path: (f"{host} host launch calls, {k} device kernels, busy "
+                   + ("not measured" if busy is None else
+                      f"{busy:.3f} ms, {100 * busy / wall:.1f}% of the "
+                      f"profiled call ({wall:.3f} ms), {100 * busy / ms:.1f}% "
+                      f"of the unprofiled call"))
+            for (path, (k, busy, wall, host)), ms in zip(
+                prof.items(), (graph_ms, eager_ms))}
+    print(f"{name} frontend program (the tracker's frontend_batched, "
+          f"{BATCH} x {H}x{W} uint8): replays equal the eager module bit for "
+          f"bit {same} (the first held across the second), host syncs per "
+          f"replay {syncs}, per warm eager call {sum(eager_sites.values())} "
+          f"{eager_sites}; {graph_ms:.3f} ms per call graph, "
+          f"{eager_ms:.3f} eager (host clock); graph {line['graph']}; "
+          f"eager {line['eager']}; launches per replay "
+          f"{graphs.graph.launches}; "
+          + _capture_line("key", graphs)
+          + ("" if captured_here else " (by an earlier call)"))
+    print(f"{name} eager frontend call's top device kernels (name, "
+          f"launches, ms): {top_kernels(lambda: eager(batches[0]))}")
+    check(all(same), f"{name}: the frontend program's replays equal the "
+          "eager frontend bit for bit")
+    check(syncs == [0, 0], f"{name}: no host sync in a frontend replay")
+    del eager
+    return dict(graph_ms=graph_ms, eager_ms=eager_ms, syncs=syncs,
+                eager_syncs=sum(eager_sites.values()),
+                capture_s=graphs.capture_s, pool_bytes=graphs.pool_bytes)
+
+
+def top_kernels(fn, n: int = 5) -> list:
+    """The n device kernels of one fn() that took the most device time
+    (profiler): (name, launches, device ms)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [(e.key[:70], e.count, getattr(e, "device_time_total", 0) / 1e3)
+            for e in prof.key_averages()]
+    return [(k, c, round(ms, 3)) for k, c, ms in
+            sorted(rows, key=lambda r: -r[2])[:n]]
+
+
+def release_frontend_programs(progs) -> None:
+    """Drop the captured keys of frontend programs no later phase runs
+    (their graphs and private pools go with them)."""
+    freed = sum(k.pool_bytes for p in progs for k in p.captured.values())
+    for p in progs:
+        p.captured.clear()
+    torch.cuda.empty_cache()
+    print(f"released the frontend programs' keys: {freed / 2 ** 30:.2f} GiB "
+          f"of static buffers and graph pools; device memory reserved now "
+          f"{torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB")
+
+
+def frontend_share(timer: StageTimer, seconds: float) -> str:
+    """The frontend's share of a timed run (StageTimer's frontend_dispatch
+    over the run's seconds)."""
+    fd = timer.summary().get("frontend_dispatch", {}).get("total_s", 0.0)
+    return (f"frontend_dispatch {fd:.3f} s, {100 * fd / seconds:.1f}% of "
+            f"the run")
+
+
 def sequence_run(name: str, cfg, frames, seq, dev, save: str | None,
                  bounds: dict) -> dict:
     """bench's protocol under `cfg` on `frames` (0..7 through
@@ -2828,7 +3006,7 @@ def sequence_run(name: str, cfg, frames, seq, dev, save: str | None,
     n_timed = len(frames) - bench.INIT_FRAMES
     print(f"{name} sequence frames/s: {n_timed / seconds:.2f} ({n_timed} "
           f"frames of process_stream in batches of {BATCH} + finish, one "
-          f"timed run, {seconds:.3f} s); "
+          f"timed run, {seconds:.3f} s; {frontend_share(timer, seconds)}); "
           f"{json.dumps(bench.diagnostics(tracker))}")
     print(f"{name} sequence time by stage (host clock, StageTimer): "
           + ", ".join(f"{k} {v['total_s']:.3f} s / {v['count']}"
@@ -2907,11 +3085,14 @@ def phase_reference(frames_dev: torch.Tensor, card: str, dev,
     print(f"peak device memory: "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del frontend, plain
+    frontend_program("reference", cfg, frames_dev, dev)
     frames, seq = bench.render_sequence(bench.SEQ_FRAMES + bench.INIT_FRAMES)
     counts = sequence_run("reference", cfg, frames, seq, dev, save,
                           REF_BOUNDS)
     for name in FRONTEND_KERNELS:
         check(counts[name] > 0, f"{name} launched on the reference sequence")
+    release_frontend_programs(
+        [slam_tracker._shared_programs(cfg)["frontend_batched"]])
     print(f"reference phase wall time: {time.perf_counter() - t_phase:.1f} s")
     return {n: counts[n] for n in FRONTEND_KERNELS}
 
@@ -2942,7 +3123,14 @@ def phase_orb(frames_dev: torch.Tensor, card: str, dev,
     cfg = ORB_CONFIG.replace(match=ORB_CONFIG.match.replace(metric="hamming"))
     fe = make_frontend(cfg).to(dev)
     batch = frames_dev[8:8 + BATCH]
-    fe(batch)
+    # the first call builds the constants (once per device); the parent
+    # made those copies from host memory on every call
+    first = sync_sites(lambda: fe(batch))
+    warm = sync_sites(lambda: fe(frames_dev[24:24 + BATCH]))
+    print(f"orb eager frontend host syncs: first call "
+          f"{sum(first.values())} {first}, warm call {sum(warm.values())} "
+          f"{warm}")
+    check(not warm, "orb: a warm eager frontend call makes no host sync")
     reset_launch_counts()
     feats = fe(batch)
     torch.cuda.synchronize()
@@ -2982,8 +3170,11 @@ def phase_orb(frames_dev: torch.Tensor, card: str, dev,
     check(float(ham.median()) == 0 and within >= ORB_CPU_HAMMING[1],
           "orb: card descriptors match the CPU port's")
     del fe
+    frontend_program("orb", cfg, frames_dev, dev)
     frames, seq = bench.render_sequence(SEQ_BOUND_FRAMES)
     sequence_run("orb", ORB_CONFIG, frames, seq, dev, save, ORB_BOUNDS)
+    release_frontend_programs(
+        [slam_tracker._shared_programs(cfg)["frontend_batched"]])
     print(f"orb phase wall time: {time.perf_counter() - t_phase:.1f} s")
 
 
@@ -3003,18 +3194,26 @@ def phase_harris_5pt(frames_dev: torch.Tensor, frontend: SiftFrontend,
     relative pose of frames 0 and 8 (FAST_CONFIG's SIFT features, its
     matcher) with the five-point and the eight-point RANSAC: each
     rotation against ground truth, inliers, time and host syncs."""
+    from visualslam_tpu_torch.frontend import detect_and_describe_jit
+
     t_phase = time.perf_counter()
     print(f"harris_5pt: {card}")
     fe = make_frontend(HARRIS_CONFIG).to(dev)
     batch = frames_dev[8:8 + BATCH]
-    feats = fe(batch)
+    feats = detect_and_describe_jit(batch, HARRIS_CONFIG)
+    check(_same(feats, fe(batch)), "harris: detect_and_describe_jit equals "
+          "the eager frontend bit for bit")
     feature_floors("harris", feats, HARRIS_CONFIG, HARRIS_MIN_KEYPOINTS, 0,
                    256, H, W)
     norms = torch.linalg.vector_norm(feats.descriptors, dim=-1)
     check(bool(((norms - 1).abs() < 1e-4)[feats.keypoints.valid].all()),
           "harris: unit descriptors")
+    jit_fps = frontend_fps(
+        lambda b: detect_and_describe_jit(b, HARRIS_CONFIG), frames_dev)
     print(f"harris frontend frames/s (median of 8 batches of {BATCH}): "
+          f"detect_and_describe_jit {jit_fps:.1f}, eager module "
           f"{frontend_fps(fe, frames_dev):.1f}")
+    frontend_names(frames_dev[:4], dev)
     fa, fb, intr, R_rel = two_view_pair(frames_dev, frontend, seq, dev)
     for solver, N in (("5pt", 128), ("8pt", 512)):
         cfg = two_view_config(solver, N)
@@ -3037,6 +3236,57 @@ def phase_harris_5pt(frames_dev: torch.Tensor, frontend: SiftFrontend,
                           R_rel, dev)
     print(f"harris_5pt phase wall time: "
           f"{time.perf_counter() - t_phase:.1f} s")
+
+
+def frontend_names(imgs: torch.Tensor, dev) -> None:
+    """The module-level frontend programs (the JAX package's `*_jit`
+    names) on 4 frames: each replay against its eager function bit for
+    bit, with no host sync; the captures' seconds and bytes."""
+    from visualslam_tpu_torch import frontend as tfe
+    from visualslam_tpu_torch.models import harris as tharris
+    from visualslam_tpu_torch.models import orb as torb
+    from visualslam_tpu_torch.models import pyramid as tpyr
+    from visualslam_tpu_torch.models import sift as tsift
+
+    img = imgs.float() * (1.0 / 255.0)
+    orb = ORB_CONFIG.orb
+    cases = [(f"detect_and_describe_jit ({c.frontend})",
+              tfe.detect_and_describe_jit.program,
+              lambda c=c: tfe.detect_and_describe_jit(imgs, c),
+              lambda c=c: tfe.detect_and_describe(imgs, c))
+             for c in (FAST_CONFIG, ORB_CONFIG, HARRIS_CONFIG)]
+    cases += [
+        ("build_pyramid_jit", tpyr.build_pyramid_jit.program,
+         lambda: tpyr.build_pyramid_jit(img, FAST_CONFIG.pyramid),
+         lambda: tpyr.build_pyramid(img, FAST_CONFIG.pyramid)),
+        ("detect_and_describe_sift_jit",
+         tsift.detect_and_describe_sift_jit.program,
+         lambda: tsift.detect_and_describe_sift_jit(img, FAST_CONFIG.pyramid,
+                                                    FAST_CONFIG.sift),
+         lambda: tsift.detect_and_describe_sift(img, FAST_CONFIG.pyramid,
+                                                FAST_CONFIG.sift)),
+        ("detect_and_describe_orb_jit", torb.detect_and_describe_orb_jit
+         .program, lambda: torb.detect_and_describe_orb_jit(img, orb),
+         lambda: torb.detect_and_describe_orb(img, orb)),
+        ("detect_harris_jit", tharris.detect_harris_jit.program,
+         lambda: tharris.detect_harris_jit(img, HARRIS_CONFIG.harris),
+         lambda: tharris.detect_harris(img, HARRIS_CONFIG.harris))]
+    rows = []
+    for name, prog, jit, eager in cases:
+        jit()
+        key = next(reversed(prog.captured.values()), None)
+        got = []
+        syncs = count_syncs(lambda: got.append(jit()))
+        same = _same(got[0], eager()) and all(
+            a.dtype == b.dtype for a, b in zip(_leaves(got[0]),
+                                               _leaves(eager())))
+        rows.append((name, same, syncs))
+        print(f"frontend program {name} on {tuple(imgs.shape)}: replay equal "
+              f"to the eager function bit for bit {same}, host syncs per "
+              f"replay {syncs}; " + _capture_line("key", key))
+    check(all(r[1] and r[2] == 0 for r in rows), "every frontend program "
+          "replays its eager function bit for bit with no host sync")
+    release_frontend_programs({prog for _, prog, _, _ in cases})
 
 
 def _same(a, b) -> bool:
@@ -4245,6 +4495,36 @@ def phase_parallel(frames: np.ndarray, frontend: SiftFrontend, card: str,
     return counts
 
 
+def frontend_syncs(dev) -> None:
+    """The eager frontend modules' host syncs by the port's line, on the
+    first call (the constants built) and a second call on other frames,
+    for FAST_CONFIG, DEFAULT_CONFIG, ORB and Harris at 16 x 376x1248, and
+    the tracker's frontend program's replay where the checkout has one.
+    Uses only make_frontend and the tracker's programs, so this file run
+    from another checkout counts that checkout's syncs."""
+    seq = SyntheticSequence(num_frames=40, h=H, w=W, n_dots=8000, step=0.4)
+    imgs = torch.from_numpy(np.clip(np.stack(
+        [seq.frame(k) for k in range(8, 40)]) * 255.0, 0, 255).astype(
+            np.uint8)).to(dev)
+    orb = ORB_CONFIG.replace(match=ORB_CONFIG.match.replace(metric="hamming"))
+    for name, cfg in (("fast", FAST_CONFIG), ("default", DEFAULT_CONFIG),
+                      ("orb", orb), ("harris", HARRIS_CONFIG)):
+        fe = make_frontend(cfg).to(dev)
+        first = sync_sites(lambda: fe(imgs[:BATCH]))
+        second = sync_sites(lambda: fe(imgs[BATCH:]))
+        prog = slam_tracker._shared_programs(cfg).get("frontend_batched")
+        replay = None
+        if prog is not None:
+            prog((imgs[:BATCH],), (cfg, KERNELS))
+            replay = sync_sites(lambda: prog((imgs[BATCH:],),
+                                             (cfg, KERNELS)))
+        print(json.dumps({"frontend_syncs": name, "first_call": first,
+                          "second_call": second,
+                          "second_call_total": sum(second.values()),
+                          "program_replay": replay}))
+        del fe
+
+
 def main() -> None:
     args = sys.argv[1:]
     save = args[args.index("--save-features") + 1] \
@@ -4260,6 +4540,9 @@ def main() -> None:
     if "--segment-turns" in args:
         segment_turns(args[args.index("--segment-turns") + 1], dev)
         return
+    if "--frontend-syncs" in args:
+        frontend_syncs(dev)
+        return
     frames, seq = render_frames()
     frames_dev = torch.from_numpy(frames).to(dev)
     frontend = SiftFrontend(FAST_CONFIG).to(dev)
@@ -4271,21 +4554,39 @@ def main() -> None:
     # warm both paths (allocator, band buffers, cuBLAS handles)
     frontend(frames_dev[:BATCH])
     plain(frames_dev[:BATCH])
-    timings = phase_kernels(frames_dev[8:8 + BATCH], frontend, seq, dev,
-                            frames_dev)
-    phase_slice(frames_dev, frontend, plain)
-    track = phase_track(frames_dev, seq, frontend, card, dev)
-    engine_counts = phase_engine(frames_dev, seq, card, dev, save)
+    seconds: dict = {}
+
+    def phase(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        seconds[name] = round(time.perf_counter() - t0, 1)
+        print(f"phase {name}: {seconds[name]:.1f} s; device memory reserved "
+              f"{torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB")
+        return out
+
+    timings = phase("kernels", phase_kernels, frames_dev[8:8 + BATCH],
+                    frontend, seq, dev, frames_dev)
+    phase("slice", phase_slice, frames_dev, frontend, plain)
+    track = phase("track", phase_track, frames_dev, seq, frontend, card, dev)
+    engine_counts = phase("engine", phase_engine, frames_dev, seq, card, dev,
+                          save)
     del plain
-    sequence_counts = phase_sequence(card, dev, save_seq)
-    phase_harris_5pt(frames_dev, frontend, seq, card, dev)
-    reference_counts = phase_reference(frames_dev, card, dev, save_ref)
-    phase_orb(frames_dev, card, dev, save_orb)
-    harness_counts = phase_harness(card)
+    sequence_counts = phase("sequence", phase_sequence, card, dev, save_seq)
+    phase("harris_5pt", phase_harris_5pt, frames_dev, frontend, seq, card,
+          dev)
+    reference_counts = phase("reference", phase_reference, frames_dev, card,
+                             dev, save_ref)
+    phase("orb", phase_orb, frames_dev, card, dev, save_orb)
+    harness_counts = phase("harness", phase_harness, card)
     del frames_dev
-    _, ks_tracker = phase_full_sequence(card, dev)
-    parallel_counts = phase_parallel(frames, frontend, card, dev, ks_tracker)
+    _, ks_tracker = phase("full_sequence", phase_full_sequence, card, dev)
+    parallel_counts = phase("parallel", phase_parallel, frames, frontend,
+                            card, dev, ks_tracker)
     del ks_tracker
+    print(f"phase seconds: {json.dumps(seconds)}; peak device memory of "
+          f"the run {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB "
+          f"allocated, {torch.cuda.max_memory_reserved() / 2 ** 30:.2f} GiB "
+          f"reserved")
     # each kernel's launches on the paths that run it: the main path (the
     # sequence), the reference sequence, the harness's SIFT row and the
     # data-parallel frontend for the three frontend kernels, the engine

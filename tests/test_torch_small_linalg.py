@@ -605,10 +605,8 @@ def test_tracker_two_view_solve_reads_back_one_buffer(rng):
 
 
 # the JAX package's re-exported `*_jit` programs the port has not ported
-# yet (ROADMAP A.2-A.3): the list shrinks as they land
-QUEUED_JIT = {"build_pyramid_jit", "detect_harris_jit",
-              "detect_and_describe_sift_jit", "detect_and_describe_orb_jit",
-              "match_features_jit"}
+# yet (ROADMAP A.3): the list shrinks as they land
+QUEUED_JIT = {"match_features_jit"}
 SUBPACKAGES = ("models", "slam", "backend", "geometry", "ops", "io", "utils")
 
 

@@ -12,7 +12,9 @@ hand-written in CUDA for sm_90a (`ops/cuda/`, sources in `csrc/`). The
 parallel paths (`parallel/`) run over an in-process mesh of torch devices:
 landmark- and trajectory-sharded BA, sharded 2-NN, the data-parallel
 frontend, the stage-overlapped pipeline and the multi-process bootstrap.
-The port imports torch and never jax.
+On the card the JAX package's jitted programs are captured CUDA graphs
+(`utils/graphs.py`): the frontends, the engine, the solvers and the
+two-view init. The port imports torch and never jax.
 """
 
 from visualslam_tpu_torch.frontend import (
@@ -20,6 +22,7 @@ from visualslam_tpu_torch.frontend import (
     OrbFrontend,
     SiftFrontend,
     detect_and_describe,
+    detect_and_describe_jit,
     make_frontend,
 )
 from visualslam_tpu_torch.models.matching import match_features
@@ -41,4 +44,5 @@ __all__ = ["BAConfig", "DEFAULT_CONFIG", "FAST_CONFIG", "Features",
            "HarrisConfig", "HarrisFrontend", "Keypoints", "MatchConfig",
            "Matches", "OrbConfig", "OrbFrontend", "PyramidConfig",
            "RansacConfig", "SiftConfig", "SiftFrontend", "SlamConfig",
-           "detect_and_describe", "make_frontend", "match_features"]
+           "detect_and_describe", "detect_and_describe_jit",
+           "make_frontend", "match_features"]

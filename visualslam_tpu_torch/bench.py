@@ -9,9 +9,10 @@ synthetic sequence in batches of 16 uint8 frames under FAST_CONFIG, after
 `process_batch` of its first 8 frames (bootstrap + two-view init) outside
 the timed region; the median of 3 runs, each on a fresh tracker, after a
 warmup tracker on 24 frames of another seed. vs_baseline = value / 30
-(the repository's north-star frames/s). The frontend alone (16-frame uint8
-batches, `torch.cuda.synchronize()` around the timed calls) is an extra
-key, as in bench.py.
+(the repository's north-star frames/s). The frontend alone (the
+tracker's frontend program on 16-frame uint8 batches on the device,
+`torch.cuda.synchronize()` around the timed calls) is an extra key, as in
+bench.py.
 """
 
 from __future__ import annotations
@@ -53,10 +54,12 @@ def render_sequence(num_frames: int, seed: int = 0):
 
 def bench_frontend(cfg: SlamConfig = FAST_CONFIG, device="cuda",
                    kernels: Kernels = KERNELS) -> float:
-    """Frames/s of the tracker's frontend on random uint8 16-frame
-    batches (distinct buffers), ITERS calls after two warmup calls."""
+    """Frames/s of the tracker's frontend program (`Tracker.detect_batch`,
+    a replay of its captured graph on the card and the copy of its
+    features) on random uint8 16-frame batches on the device (distinct
+    buffers), ITERS calls after two warmup calls."""
     fe = Tracker(cfg, np.ones(4, np.float32), device=device,
-                 kernels=kernels, loop_closure=False).frontend
+                 kernels=kernels, loop_closure=False).detect_batch
     rng = np.random.default_rng(0)
     batches = [torch.from_numpy(rng.integers(0, 256, (BATCH, H, W),
                                              dtype=np.uint8)).to(device)

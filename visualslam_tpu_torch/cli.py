@@ -32,7 +32,7 @@ import numpy as np
 def cmd_detect(args) -> None:
     import torch
 
-    from visualslam_tpu_torch.frontend import detect_and_describe
+    from visualslam_tpu_torch.frontend import detect_and_describe_jit
     from visualslam_tpu_torch.io.serialization import save_descriptors_dat
     from visualslam_tpu_torch.models.types import Features, Keypoints
     from visualslam_tpu_torch.slam.viz import draw_keypoints
@@ -41,7 +41,7 @@ def cmd_detect(args) -> None:
 
     cfg = DEFAULT_CONFIG.replace(frontend=args.frontend)
     img = load_gray(args.image)
-    f = detect_and_describe(
+    f = detect_and_describe_jit(
         torch.as_tensor(img, device=args.device)[None], cfg)
     feats = Features(Keypoints(*(x[0] for x in f.keypoints)),
                      f.descriptors[0])
@@ -238,7 +238,7 @@ def cmd_two_view(args) -> None:
     """Two-view reconstruction demo: detect+match+essential+triangulate."""
     import torch
 
-    from visualslam_tpu_torch.frontend import detect_and_describe
+    from visualslam_tpu_torch.frontend import detect_and_describe_jit
     from visualslam_tpu_torch.geometry.ransac import generator
     from visualslam_tpu_torch.models.types import Features, Keypoints
     from visualslam_tpu_torch.slam.two_view import two_view_from_features
@@ -254,8 +254,8 @@ def cmd_two_view(args) -> None:
                         device=args.device)
 
     def detect(img):
-        f = detect_and_describe(torch.as_tensor(img, device=args.device)[None],
-                                cfg)
+        f = detect_and_describe_jit(
+            torch.as_tensor(img, device=args.device)[None], cfg)
         return Features(Keypoints(*(x[0] for x in f.keypoints)),
                         f.descriptors[0])
 

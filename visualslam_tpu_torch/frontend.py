@@ -8,6 +8,16 @@ per shape, moved with the module): `SiftFrontend` (the blur's band
 matrices and the 2x upsample's weights), `OrbFrontend` (the level
 resizes' weights) and `HarrisFrontend`; `make_frontend(cfg)` builds the
 one `cfg.frontend` names.
+
+`detect_and_describe_jit(imgs, cfg, kernels)` is the JAX package's jitted
+frontend (visualslam_tpu/frontend.py `detect_and_describe_jit`; batched, so
+it also stands for the JAX tracker's vmapped `"frontend_batched"`): on the
+card one captured CUDA graph per shape key and (cfg, kernels)
+(`utils.graphs.GraphProgram`, seedless), which reads the constants of the
+process's frontend module for that config (`frontend_module`); on the CPU,
+and for the plain kernel set, the same function run eagerly. Every
+constant the frontends build on the host is built once per device, so no
+call after the first copies from host memory.
 """
 
 from __future__ import annotations
@@ -25,6 +35,7 @@ from visualslam_tpu_torch.ops.cuda import KERNELS, Kernels
 from visualslam_tpu_torch.ops.patches import extract_patches
 from visualslam_tpu_torch.ops.resize import ResizeWeights
 from visualslam_tpu_torch.utils.config import FAST_CONFIG, SlamConfig
+from visualslam_tpu_torch.utils.graphs import GraphProgram
 from visualslam_tpu_torch.utils.precision import f32_matmul
 
 HARRIS_PATCH = 16       # side of the raw patch a Harris descriptor holds
@@ -112,3 +123,40 @@ def make_frontend(cfg: SlamConfig, kernels: Kernels = KERNELS) -> nn.Module:
         if cls.name == cfg.frontend:
             return cls(cfg, kernels)
     raise ValueError(f"unknown frontend {cfg.frontend!r}")
+
+
+_MODULES: dict = {}
+
+
+def frontend_module(cfg: SlamConfig, kernels: Kernels,
+                    device: torch.device) -> nn.Module:
+    """The process's frontend module of (cfg, kernels) on `device`, made on
+    first use and kept: the frontend programs read its constants, which a
+    captured graph holds pointers to."""
+    key = (cfg, kernels, torch.device(device))
+    mod = _MODULES.get(key)
+    if mod is None:
+        mod = _MODULES[key] = make_frontend(cfg, kernels).to(device)
+    return mod
+
+
+def frontend_body(x: tuple, cfg: tuple) -> Features:
+    """The frontend programs' function: x = (imgs [B, H, W],), cfg =
+    (SlamConfig, Kernels); the frames through `frontend_module`."""
+    imgs, = x
+    scfg, kernels = cfg
+    return frontend_module(scfg, kernels, imgs.device)(imgs)
+
+
+_DETECT = GraphProgram(frontend_body, seeded=False)
+
+
+def detect_and_describe_jit(imgs: torch.Tensor, cfg: SlamConfig,
+                            kernels: Kernels = KERNELS) -> Features:
+    """detect_and_describe as one captured graph per shape key and
+    (cfg, kernels); the results are the caller's (copies of the graph's
+    outputs)."""
+    return _DETECT((imgs,), (cfg, kernels))
+
+
+detect_and_describe_jit.program = _DETECT

@@ -11,9 +11,17 @@
     bilinearly on a sigma-2 blur, packed to [K, 8] uint32
   - the levels merged by a global top-k of the scores
 
+The moment weights and the BRIEF pattern are built once per device
+(`utils.constants.device_constant`), as are the blurs' taps and pads.
 Bit packing runs in int64 and the words are kept as int32 until the merge
 is done, then viewed as uint32 (torch has few kernels for uint32:
 ops/distance.packed_words).
+
+`detect_and_describe_orb_jit(img, cfg)` is the JAX package's jitted ORB
+frontend: on the card one captured CUDA graph per shape key and cfg
+(`utils.graphs.GraphProgram`, seedless; the descriptors keep their uint32
+type) over the process's resize weights for the device; on the CPU the
+function run eagerly.
 """
 
 from __future__ import annotations
@@ -23,6 +31,7 @@ import torch
 
 from visualslam_tpu_torch.models.types import Features, Keypoints
 from visualslam_tpu_torch.ops.blur import gaussian_blur
+from visualslam_tpu_torch.ops.cuda import KERNELS
 from visualslam_tpu_torch.ops.distance import pack_words
 from visualslam_tpu_torch.ops.fast import fast_score_map
 from visualslam_tpu_torch.ops.gradients import central_diff
@@ -35,6 +44,8 @@ from visualslam_tpu_torch.ops.patches import (
 )
 from visualslam_tpu_torch.ops.resize import ResizeWeights, resize_linear
 from visualslam_tpu_torch.utils.config import OrbConfig
+from visualslam_tpu_torch.utils.constants import device_constant
+from visualslam_tpu_torch.utils.graphs import GraphProgram
 from visualslam_tpu_torch.utils.masked import block_top_k_select, top_k_select
 
 BRIEF_PATCH = 44    # crop side covering the rotated BRIEF offsets
@@ -95,8 +106,10 @@ def _detect_level(img: torch.Tensor, cfg: OrbConfig, k: int):
     yx = torch.stack([idx // W, idx % W], dim=-1).float()
 
     # intensity-centroid orientation (moments over a circular patch)
-    wy, wx, _ = (torch.from_numpy(a).to(img.device)
-                 for a in _centroid_weights(cfg.patch_size))
+    wy, wx = (device_constant(("orb_centroid", cfg.patch_size, i),
+                              img.device,
+                              lambda i=i: _centroid_weights(cfg.patch_size)[i])
+              for i in (0, 1))
     patches = extract_patches(img, yx, cfg.patch_size)
     m01 = (patches * wy).sum(dim=(-2, -1))
     m10 = (patches * wx).sum(dim=(-2, -1))
@@ -112,7 +125,9 @@ def _describe_level(img: torch.Tensor, yx: torch.Tensor, angle: torch.Tensor,
     """Steered BRIEF bits of one level -> [B, K, pairs / 32] words, int32
     with the uint32 words' bits."""
     smoothed = gaussian_blur(img, 2.0)
-    pat = torch.from_numpy(brief_pattern(cfg)).to(img.device)    # [P, 2, 2]
+    pat = device_constant(("brief", cfg.brief_seed, cfg.patch_size,
+                           cfg.brief_pairs), img.device,
+                          lambda: brief_pattern(cfg))           # [P, 2, 2]
     theta = torch.deg2rad(angle)
     c = torch.cos(theta)[..., None, None]
     s = torch.sin(theta)[..., None, None]
@@ -177,3 +192,26 @@ def detect_and_describe_orb(img: torch.Tensor, cfg: OrbConfig,
     desc = take(5)
     desc = torch.where(m2, desc, torch.zeros_like(desc)).view(torch.uint32)
     return Features(kps, desc)
+
+
+_RESIZE: dict = {}
+
+
+def _detect_and_describe_orb(x: tuple, cfg: tuple) -> Features:
+    img, = x
+    resize = _RESIZE.get(img.device)
+    if resize is None:
+        resize = _RESIZE[img.device] = ResizeWeights()
+    return detect_and_describe_orb(img, cfg[0], resize)
+
+
+_ORB = GraphProgram(_detect_and_describe_orb, seeded=False)
+
+
+def detect_and_describe_orb_jit(img: torch.Tensor, cfg: OrbConfig) -> Features:
+    """detect_and_describe_orb as one captured graph per shape key and
+    cfg; the features are the caller's (copies of the graph's outputs)."""
+    return _ORB((img,), (cfg, KERNELS))
+
+
+detect_and_describe_orb_jit.program = _ORB

@@ -9,6 +9,12 @@ kernel, `kernels.blur_stack`; "conv": separable convolutions; "incremental":
 chained convolutions), DoG as adjacent level differences, gradients of the
 levels the SIFT path reads, and the next octave's base as the stride-2
 downsample of level s.
+
+`build_pyramid_jit(img, cfg, kernels)` is the JAX package's jitted
+pyramid: on the card one captured CUDA graph per shape key and
+(cfg, kernels) (`utils.graphs.GraphProgram`, seedless) over the process's
+constants for cfg (`pyramid_constants`); on the CPU, and for the plain
+kernel set, the function run eagerly.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ from visualslam_tpu_torch.ops.resize import (
     upsample2x_linear,
 )
 from visualslam_tpu_torch.utils.config import PyramidConfig
+from visualslam_tpu_torch.utils.graphs import GraphProgram
 
 
 class ScaleSpace(NamedTuple):
@@ -107,3 +114,39 @@ def build_pyramid(img: torch.Tensor, cfg: PyramidConfig,
         base = downsample2x_nearest(stack[:, s])                # next octave base
     return ScaleSpace(tuple(gauss), tuple(dog), tuple(gx), tuple(gy),
                       tuple(gm), tuple(go))
+
+
+_CONSTANTS: dict = {}
+
+
+def pyramid_constants(cfg: PyramidConfig, device: torch.device) -> tuple:
+    """(BlurBands, ResizeWeights) for cfg on `device`, one pair per process
+    (made on first use and kept: a captured graph holds pointers to their
+    buffers)."""
+    key = (cfg, torch.device(device))
+    pair = _CONSTANTS.get(key)
+    if pair is None:
+        pair = _CONSTANTS[key] = (BlurBands(level_sigmas(cfg), cfg.truncate),
+                                  ResizeWeights())
+    return pair
+
+
+def _build_pyramid(x: tuple, cfg: tuple) -> ScaleSpace:
+    img, = x
+    pcfg, kernels = cfg
+    bands, resize = pyramid_constants(pcfg, img.device)
+    return build_pyramid(img, pcfg, bands, kernels, resize)
+
+
+_PYRAMID = GraphProgram(_build_pyramid, seeded=False)
+
+
+def build_pyramid_jit(img: torch.Tensor, cfg: PyramidConfig,
+                      kernels: Kernels = KERNELS) -> ScaleSpace:
+    """build_pyramid as one captured graph per shape key and
+    (cfg, kernels); the stacks are the caller's (copies of the graph's
+    outputs)."""
+    return _PYRAMID((img,), (cfg, kernels))
+
+
+build_pyramid_jit.program = _PYRAMID

@@ -19,6 +19,12 @@ formulation: float32 patches of 28 rows, tent-sampled windows and a soft
 histogram computed in `hist_compute`'s dtype, in plain torch on any device.
 Keypoints come back in input-image pixels (octave-0 pixels halved under the
 2x upsample).
+
+`detect_and_describe_sift_jit(img, pyr_cfg, cfg, kernels)` is the JAX
+package's jitted SIFT frontend: on the card one captured CUDA graph per
+shape key and configuration (`utils.graphs.GraphProgram`, seedless) over
+the process's pyramid constants (`models.pyramid.pyramid_constants`); on
+the CPU, and for the plain kernel set, the function run eagerly.
 """
 
 from __future__ import annotations
@@ -28,7 +34,11 @@ from typing import NamedTuple
 
 import torch
 
-from visualslam_tpu_torch.models.pyramid import ScaleSpace, build_pyramid
+from visualslam_tpu_torch.models.pyramid import (
+    ScaleSpace,
+    build_pyramid,
+    pyramid_constants,
+)
 from visualslam_tpu_torch.models.types import Features, Keypoints
 from visualslam_tpu_torch.ops.blur import BlurBands
 from visualslam_tpu_torch.ops.cuda import KERNELS, Kernels
@@ -41,6 +51,7 @@ from visualslam_tpu_torch.ops.histograms import histogram_peaks
 from visualslam_tpu_torch.ops.patches import patch_origins
 from visualslam_tpu_torch.ops.resize import ResizeWeights
 from visualslam_tpu_torch.utils.config import PyramidConfig, SiftConfig
+from visualslam_tpu_torch.utils.graphs import GraphProgram
 from visualslam_tpu_torch.utils.masked import top_k_select
 
 
@@ -235,3 +246,26 @@ def detect_and_describe_sift(img: torch.Tensor, pyr_cfg: PyramidConfig,
         desc = describe_octave(src, cand_idx, kps, cfg, kernels)
         per_oct.append(octave_result(kps, desc, o, pyr_cfg))
     return merge_octaves(per_oct, cfg)
+
+
+def _detect_and_describe_sift(x: tuple, cfg: tuple) -> Features:
+    img, = x
+    (pyr_cfg, sift_cfg), kernels = cfg
+    bands, resize = pyramid_constants(pyr_cfg, img.device)
+    return detect_and_describe_sift(img, pyr_cfg, sift_cfg, bands, kernels,
+                                    resize)
+
+
+_SIFT = GraphProgram(_detect_and_describe_sift, seeded=False)
+
+
+def detect_and_describe_sift_jit(img: torch.Tensor, pyr_cfg: PyramidConfig,
+                                 cfg: SiftConfig,
+                                 kernels: Kernels = KERNELS) -> Features:
+    """detect_and_describe_sift as one captured graph per shape key and
+    (pyr_cfg, cfg, kernels); the features are the caller's (copies of the
+    graph's outputs)."""
+    return _SIFT((img,), ((pyr_cfg, cfg), kernels))
+
+
+detect_and_describe_sift_jit.program = _SIFT

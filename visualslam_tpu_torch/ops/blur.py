@@ -17,7 +17,9 @@ here they are plain `torch.matmul` calls; in float32 with TF32 off
 (frontend.detect_and_describe) they agree with the JAX package to float32
 rounding. The band matrices are constants of (axis length, sigma set):
 `BlurBands` keeps them as module buffers, built once per axis length and
-moved with the module.
+moved with the module. The pads' source indices and the convolutions' taps
+are built once per device (`utils.constants.device_constant`), so no call
+after the first copies from host memory and a captured program reads them.
 """
 
 from __future__ import annotations
@@ -30,6 +32,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from visualslam_tpu_torch.utils.constants import device_constant
 
 
 def gaussian_taps(sigma: float, radius: int | None = None,
@@ -71,7 +75,9 @@ def _pad_index(n: int, r: int, mode: str) -> np.ndarray:
 
 def pad_axis(x: torch.Tensor, dim: int, r: int,
              mode: str = "symmetric") -> torch.Tensor:
-    idx = torch.from_numpy(_pad_index(x.shape[dim], r, mode)).to(x.device)
+    n = x.shape[dim]
+    idx = device_constant(("pad", n, r, mode), x.device,
+                          lambda: _pad_index(n, r, mode))
     return x.index_select(dim, idx)
 
 
@@ -154,7 +160,8 @@ def blur_stack(img: torch.Tensor, sigmas: Sequence[float],
     key = taps_key(sigmas, truncate)
     R = max((len(t) - 1) // 2 for t in key)
     S, K = len(key), 2 * R + 1
-    taps = torch.from_numpy(taps_table(key, R)).to(img.device)
+    taps = device_constant(("taps_table", key, R), img.device,
+                           lambda: taps_table(key, R))
     x = _pad2d(img, R, R, mode)[:, None]                 # [B, 1, H+2R, W+2R]
     return _separable(x, taps.view(S, 1, 1, K), taps.view(S, 1, K, 1), S)
 
@@ -162,8 +169,9 @@ def blur_stack(img: torch.Tensor, sigmas: Sequence[float],
 def gaussian_blur(img: torch.Tensor, sigma: float, truncate: float = 4.0,
                   mode: str = "symmetric") -> torch.Tensor:
     """Separable Gaussian blur of [..., H, W] with one sigma."""
-    taps = torch.from_numpy(gaussian_taps(sigma, truncate=truncate)).to(
-        img.device)
+    taps = device_constant(
+        ("taps", float(sigma), float(truncate)), img.device,
+        lambda: gaussian_taps(sigma, truncate=truncate))
     K = taps.shape[0]
     r = (K - 1) // 2
     lead, (H, W) = img.shape[:-2], img.shape[-2:]

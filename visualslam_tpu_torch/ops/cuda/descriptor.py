@@ -88,8 +88,8 @@ def descriptor_ref(patches, y0, x0, yx, angle, width: int = 4,
     both = tent_sample_patches(patches, y0, x0, coords)      # [K, S, S, 2]
     rel = mod(both[..., 1] - angle[:, None, None], 360.0)
     cell = WIN // width
-    w_spatial = gaussian_window(WIN, torch.tensor(WIN / 2.0,
-                                                  device=yx.device))
+    w_spatial = gaussian_window(WIN, torch.full((), WIN / 2.0,
+                                                device=yx.device))
 
     def to_regions(a):   # [K, S, S] -> [K, regions, cell * cell]
         a = a.reshape(K, width, cell, width, cell)

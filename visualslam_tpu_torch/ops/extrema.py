@@ -15,11 +15,13 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from visualslam_tpu_torch.ops.cuda import KERNELS, Kernels
 from visualslam_tpu_torch.ops.cuda.extrema import NONE, TILE_H, extrema_mask
 from visualslam_tpu_torch.utils.config import SiftConfig
+from visualslam_tpu_torch.utils.constants import device_constant
 from visualslam_tpu_torch.utils.masked import block_top_k_select
 
 
@@ -57,6 +59,12 @@ _CUBE_OFFSETS = [(dl, dy, dx) for dl in (-1, 0, 1) for dy in (-1, 0, 1)
                  for dx in (-1, 0, 1)]
 
 
+def _cube_offsets(H: int, W: int) -> np.ndarray:
+    """The 27 flat offsets of a 3x3x3 cube in [D, H, W], int64."""
+    return np.array([(dl * H + dy) * W + dx for dl, dy, dx in _CUBE_OFFSETS],
+                    np.int64)
+
+
 def gather_cubes(dog: torch.Tensor, lvl: torch.Tensor, y: torch.Tensor,
                  x: torch.Tensor) -> torch.Tensor:
     """[B, K, 3, 3, 3] neighbourhoods of dog [B, D, H, W] centred at
@@ -64,8 +72,8 @@ def gather_cubes(dog: torch.Tensor, lvl: torch.Tensor, y: torch.Tensor,
     B, D, H, W = dog.shape
     K = lvl.shape[1]
     base = (lvl.long() * H + y.long()) * W + x.long()             # [B, K]
-    offs = torch.tensor([(dl * H + dy) * W + dx
-                         for dl, dy, dx in _CUBE_OFFSETS], device=dog.device)
+    offs = device_constant(("cube_offsets", H, W), dog.device,
+                           lambda: _cube_offsets(H, W))
     idx = (base[:, :, None] + offs).reshape(B, K * 27)
     return dog.reshape(B, -1).gather(1, idx).reshape(B, K, 3, 3, 3)
 

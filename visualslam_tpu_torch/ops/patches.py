@@ -146,7 +146,7 @@ def rotated_grid(yx: torch.Tensor, angle_deg: torch.Tensor, size: int,
     ry = s * gx + c * gy
     coords = torch.stack([ry, rx], dim=-1)
     if not (isinstance(step, float) and step == 1.0):
-        step = torch.as_tensor(step, dtype=torch.float32, device=yx.device)
+        step = _on(yx, step)
         coords = coords * step.expand(theta.shape)[..., None, None, None]
     return coords + yx[..., None, None, :]
 
@@ -261,16 +261,29 @@ def extract_rotated_patches(img: torch.Tensor, yx: torch.Tensor,
     return sample_bilinear(img, rotated_grid(yx, angle_deg, size, step))
 
 
+def _on(like: torch.Tensor, value) -> torch.Tensor:
+    """value as float32 on like's device: a tensor cast there, a number or
+    a tuple of numbers by device fills (no copy from host memory), an
+    array of host data copied."""
+    if torch.is_tensor(value):
+        return value.to(device=like.device, dtype=torch.float32)
+    if isinstance(value, (tuple, list)):
+        return torch.stack([_on(like, v) for v in value])
+    if getattr(value, "ndim", 0):
+        return torch.as_tensor(value, dtype=torch.float32, device=like.device)
+    return torch.full((), float(value), dtype=torch.float32,
+                      device=like.device)
+
+
 def rotate_points(yx: torch.Tensor, angle_deg, center,
                   clockwise: bool = False) -> torch.Tensor:
     """Rotate points [..., 2] (y, x) about a centre by angle_deg degrees,
     counter-clockwise in image coordinates (y down) unless clockwise."""
-    theta = torch.as_tensor(angle_deg, dtype=torch.float32,
-                            device=yx.device) * (math.pi / 180.0)
+    theta = _on(yx, angle_deg) * (math.pi / 180.0)
     if clockwise:
         theta = -theta
     c, s = torch.cos(theta), torch.sin(theta)
-    center = torch.as_tensor(center, dtype=torch.float32, device=yx.device)
+    center = _on(yx, center)
     d = yx - center
     ry = s * d[..., 1] + c * d[..., 0]
     rx = c * d[..., 1] - s * d[..., 0]

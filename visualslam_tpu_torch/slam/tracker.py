@@ -20,15 +20,18 @@ the JAX package's jitted programs): on the card every engine batch and
 database relocalization replays CUDA graphs captured once per shape, and
 the loop correction and host-path database append run eagerly; on the CPU
 the same entry points are the eager functions. Of the JAX package's other
-jitted programs (`_shared_programs`), "ransac" is one here too, shared per
-config: on the card the two-view init's RANSAC, pose recovery and
-triangulation replay one captured graph, and the init reads its results
-back as one packed buffer (one host sync per call); the others (the
-frontend, match, track and keyframe steps) are the functions, called
-directly. The tracker owns one frontend module (the one `cfg.frontend`
-names) and one `torch.Generator` as the RANSAC key chain, from which each
-two-view init draws the seed of its draws, as the reference splits its
-PRNG key. Everything runs on `device` (the card unless the caller asks
+jitted programs (`_shared_programs`), "frontend" / "frontend_batched"
+and "ransac" are programs here too, shared per config: on the card every
+detection call replays one captured graph of the batched frontend (the
+upload stays outside it), and the two-view init's RANSAC, pose recovery
+and triangulation replay one captured graph, the init reading its results
+back as one packed buffer (one host sync per call); the others (match,
+track and keyframe steps) are the functions, called directly. The tracker
+hands out the eager frontend module (`Tracker.frontend`, the one
+`cfg.frontend` names) to callers that ask for it, and owns one
+`torch.Generator` as the RANSAC key chain, from which each two-view init
+draws the seed of its draws, as the reference splits its PRNG key.
+Everything runs on `device` (the card unless the caller asks
 for the CPU); `kernels` picks the kernel
 path (ops.cuda.KERNELS) or the plain path (ops.cuda.PLAIN). The lag-1
 `process_stream` keeps the reference's contract; the engine's packed
@@ -51,6 +54,7 @@ from visualslam_tpu_torch.backend.ba import (
     run_ba_packed_jit,
     unpack_ba_result,
 )
+from visualslam_tpu_torch.frontend import frontend_body, frontend_module
 from visualslam_tpu_torch.geometry import ransac
 from visualslam_tpu_torch.geometry.camera import normalized
 from visualslam_tpu_torch.models.matching import match_features
@@ -104,12 +108,20 @@ def _shared_programs(cfg: SlamConfig) -> dict:
     (the JAX package's `_shared_programs`), so a warm-up tracker's capture
     serves the trackers after it:
 
+      "frontend", "frontend_batched"
+                 one seedless utils.graphs.GraphProgram of the batched
+                 frontend (frontend.frontend_body), called as
+                 program((imgs,), (cfg, kernels)) with imgs [B, H, W] on
+                 the device: the JAX package's single-frame program is its
+                 B = 1 key;
       "ransac"   utils.graphs.GraphProgram of estimate_relative_pose, called
-                 as program((x1, x2, valid), (cfg.ransac, kernels), seed):
-                 one captured graph per shape key on the card (the plain
-                 kernel set, which reads the host, runs eagerly), the
-                 function on the CPU."""
-    return {"ransac": GraphProgram(_ransac_body)}
+                 as program((x1, x2, valid), (cfg.ransac, kernels), seed).
+
+    Each is one captured graph per shape key on the card (the plain kernel
+    set, which reads the host, runs eagerly) and the function on the CPU."""
+    frontend = GraphProgram(frontend_body, seeded=False)
+    return {"frontend": frontend, "frontend_batched": frontend,
+            "ransac": GraphProgram(_ransac_body)}
 
 
 class TwoViewHost(NamedTuple):
@@ -265,7 +277,7 @@ class Tracker:
         # a fresh device generator per two-view init (the reference splits
         # its PRNG key there)
         self._gen = torch.Generator().manual_seed(cfg.ransac.seed)
-        self._frontend_module = None     # the frontend, built on first use
+        self._frame = None   # (frame shape, dtype) of the last detection
         self._track_ok_min = max(10, cfg.keyframe_min_inliers // 3)
         self._max_depth = float(init_depth) * 20.0
         self._eng_progs = engine_programs(self.cfg, self._track_ok_min,
@@ -310,14 +322,11 @@ class Tracker:
 
     @property
     def frontend(self):
-        """The tracker's frontend module (frontend.make_frontend: the one
-        cfg.frontend names) on `device`."""
-        if self._frontend_module is None:
-            from visualslam_tpu_torch.frontend import make_frontend
-
-            self._frontend_module = make_frontend(self.cfg, self.kernels).to(
-                self.device)
-        return self._frontend_module
+        """The eager frontend module of the tracker's config on `device`
+        (frontend.frontend_module: the one cfg.frontend names, whose
+        constants the "frontend_batched" program reads), for callers that
+        ask for it; detect_batch replays the program."""
+        return frontend_module(self.cfg, self.kernels, self.device)
 
     def _match(self, fa: Features, fb: Features):
         return match_features(fa, fb, self.cfg.match, self.kernels)
@@ -379,9 +388,12 @@ class Tracker:
 
     def detect_batch(self, imgs) -> Features:
         """Batched detection: [B, H, W] -> Features with a leading batch
-        axis, in one frontend call. uint8 input is uploaded as-is and
+        axis, in one call of the "frontend_batched" program (a replay of
+        its captured graph on the card). uint8 input is uploaded as-is and
         normalized to [0, 1] on the device."""
-        return self.frontend(self.upload_batch(imgs))
+        x = self.upload_batch(imgs)
+        self._frame = (tuple(x.shape[1:]), x.dtype)
+        return self._progs["frontend_batched"]((x,), (self.cfg, self.kernels))
 
     @staticmethod
     def features_at(batched: Features, i: int) -> Features:
@@ -488,15 +500,22 @@ class Tracker:
         """Capture the rare-event programs outside any timed loop, where
         the reference compiles them: the loop closer's pose-graph program
         (Sim(3) or SE(3) per cfg.loop.sim3, at the padded shapes its next
-        closure uses, on the tracker's device; LoopCloser.prepare) and,
-        once the engine has run (it reads the persist's shapes), the
-        database relocalization's graph (engine_programs' "relocalize").
-        Unlike the reference's warm-up, it runs no closure: the tracker's
-        state is left as it was, so any tracker may call it. The database
-        correction and append run eagerly: nothing to prepare. On the CPU
-        there is nothing to capture."""
+        closure uses, on the tracker's device; LoopCloser.prepare), once
+        the tracker has streamed a batch the frontend program's key at the
+        stream's batch shape, and, once the engine has run (it reads the
+        persist's shapes), the database relocalization's graph
+        (engine_programs' "relocalize"). Unlike the reference's warm-up, it
+        runs no closure: the tracker's state is left as it was, so any
+        tracker may call it. The database correction and append run
+        eagerly: nothing to prepare. On the CPU there is nothing to
+        capture."""
         if self.loop_closer is not None:
             self.loop_closer.prepare()
+        if self._stream_B is not None and self._frame is not None:
+            shape, dtype = self._frame
+            self._progs["frontend_batched"].prepare(
+                (torch.zeros((self._stream_B,) + shape, dtype=dtype,
+                             device=self.device),), (self.cfg, self.kernels))
         if self._eng_persist is None:
             return
         self._eng_progs["relocalize"].prepare(

@@ -2,12 +2,12 @@
 describe two frames, match, RANSAC essential, pose + structure.
 
 `two_view_reconstruction_jit` is the JAX package's jitted pixels-to-pose
-program. Here the frontend runs eagerly (ROADMAP A.2 gives it a program),
-then `two_view_from_features_jit` replays one captured CUDA graph of
-`two_view_from_features` per shape key: match, RANSAC, pose and
-triangulation, with no host sync (utils.graphs.GraphProgram). On the CPU,
-and for the plain kernel set (whose `torch.linalg` solvers read the host),
-both are the eager functions."""
+program: on the card one captured CUDA graph per shape key of the frontend
+on both frames, the match, RANSAC, pose and triangulation, with no host
+sync (utils.graphs.GraphProgram, its RANSAC generator registered with the
+graph). `two_view_from_features_jit` captures the part after the frontend
+the same way. On the CPU, and for the plain kernel set (whose
+`torch.linalg` solvers read the host), both are the eager functions."""
 
 from __future__ import annotations
 
@@ -15,7 +15,7 @@ from typing import NamedTuple
 
 import torch
 
-from visualslam_tpu_torch.frontend import detect_and_describe
+from visualslam_tpu_torch.frontend import detect_and_describe, frontend_body
 from visualslam_tpu_torch.geometry.camera import normalized
 from visualslam_tpu_torch.geometry.ransac import estimate_relative_pose
 from visualslam_tpu_torch.models.matching import match_features
@@ -85,11 +85,26 @@ def two_view_from_features_jit(fa: Features, fb: Features,
 two_view_from_features_jit.program = _FROM_FEATURES
 
 
+def _reconstruction(x, cfg, gen):
+    img1, img2, intr = x
+    scfg, kernels = cfg
+    f = frontend_body((torch.stack([img1, img2]),), cfg)
+    return two_view_from_features(*_split(f), intr, scfg, gen, kernels)
+
+
+_RECONSTRUCTION = GraphProgram(_reconstruction)
+
+
 def two_view_reconstruction_jit(img1: torch.Tensor, img2: torch.Tensor,
                                 intr: torch.Tensor, cfg: SlamConfig,
                                 seed: int | None = None,
                                 kernels: Kernels = KERNELS) -> TwoViewResult:
-    """two_view_reconstruction with a seed in place of a generator: the
-    frontend eagerly, then `two_view_from_features_jit`."""
-    f = detect_and_describe(torch.stack([img1, img2]), cfg, kernels=kernels)
-    return two_view_from_features_jit(*_split(f), intr, cfg, seed, kernels)
+    """two_view_reconstruction with a seed in place of a generator, as one
+    captured graph per shape key and (cfg, kernels), pixels to pose: its
+    RANSAC draws are those of `geometry.ransac.generator(seed)`
+    (cfg.ransac.seed by default)."""
+    seed = cfg.ransac.seed if seed is None else seed
+    return _RECONSTRUCTION((img1, img2, intr), (cfg, kernels), seed)
+
+
+two_view_reconstruction_jit.program = _RECONSTRUCTION

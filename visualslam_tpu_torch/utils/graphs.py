@@ -22,8 +22,9 @@ program of the port shares:
     JAX package's `lax.scan` over a fixed carry) as two graphs per shape
     key, an enter graph and a step graph replayed `cfg.iters` times;
   * `GraphProgram`: its one-graph sibling, a function captured whole per
-    shape key (the two-view init's RANSAC and pose recovery), with a
-    generator of its own for the random draws inside it.
+    shape key: the two-view init's RANSAC and pose recovery, with a
+    generator of its own for the random draws inside it, and (seeded=False)
+    the frontends, which draw nothing.
 
 `slam/engine.py` builds its programs from the same pieces.
 """
@@ -344,7 +345,7 @@ class LoopProgram(_Program):
 
 
 # ---------------------------------------------------------------------
-# GraphProgram: a function captured whole, drawing from a seed
+# GraphProgram: a function captured whole, with or without a seed
 # ---------------------------------------------------------------------
 
 
@@ -352,42 +353,53 @@ class ProgramGraph(_KeyGraphs):
     """One shape key of a GraphProgram: static copies of the inputs and
     one graph of the function over them, whose outputs live in the graph's
     pool. `run` copies the caller's inputs in, seeds the program's
-    generator, replays, and returns copies of the outputs, so no later
-    replay overwrites what a caller holds. graphs=False runs the same body
-    over the same static buffers without capturing it, on any device."""
+    generator (a seeded program), replays, and returns copies of the
+    outputs, so no later replay overwrites what a caller holds (the
+    tracker's lag-1 stream holds one batch's features across the next
+    batch's frontend). graphs=False runs the same body over the same static
+    buffers without capturing it, on any device."""
 
     def __init__(self, prog: "GraphProgram", x, cfg, graphs: bool = True):
         super().__init__(x, graphs)
-        self.gen = prog.generator(_leaves(x)[0].device)
+        gens = ((prog.generator(_leaves(x)[0].device),) if prog.seeded
+                else ())
+        self.gen = gens[0] if gens else None
 
         def body():
-            return prog.fn(self.x, cfg, self.gen)
+            return prog.fn(self.x, cfg, *gens)
 
-        self._capture(body, [body], (self.gen,))
+        self._capture(body, [body], gens)
         self.graph, = self.graphs
 
-    def run(self, x, seed: int):
+    def run(self, x, *seed: int):
         _copy_all(_leaves(self.x), _leaves(x))
-        # the replay draws what a fresh generator(seed) draws eagerly:
-        # seeding resets the generator's offset, which the replay reads
-        self.gen.manual_seed(int(seed))
+        if self.gen is not None:
+            # the replay draws what a fresh generator(seed) draws eagerly:
+            # seeding resets the generator's offset, which the replay reads
+            self.gen.manual_seed(int(seed[0]))
         return _clone_all(self.graph.replay())
 
 
 class GraphProgram(_Program):
-    """A function `fn(x, cfg, gen)` that draws its random numbers from gen,
-    called as program(x, cfg, seed): cfg = (config, kernels), and the draws
-    are those of `geometry.ransac.generator(seed)` on the inputs' device.
-    A key holds one ProgramGraph, captured on the key's first call after an
-    eager warm-up on a side stream (`_Program` says the rest). The program
-    owns one generator per device, registered with every graph it captures
-    there, and seeds it before each replay. With a kernel set whose solvers
-    read the host (`ops.cuda.reads_host`: the plain path's cuSOLVER status
-    reads), as on the CPU, the program is `fn` itself, decided from the
-    arguments before anything runs."""
+    """A function captured whole per shape key (`_Program` says the rest;
+    a key holds one ProgramGraph, captured on the key's first call after an
+    eager warm-up on a side stream). cfg = (config, kernels).
 
-    def __init__(self, fn):
+    seeded (the default): `fn(x, cfg, gen)` draws its random numbers from
+    gen and is called as program(x, cfg, seed); the draws are those of
+    `geometry.ransac.generator(seed)` on the inputs' device. The program
+    owns one generator per device, registered with every graph it captures
+    there, and seeds it before each replay.
+    seeded=False: `fn(x, cfg)` draws nothing and is called as
+    program(x, cfg) (the frontends).
+
+    With a kernel set whose solvers read the host (`ops.cuda.reads_host`:
+    the plain path's cuSOLVER status reads), as on the CPU, the program is
+    `fn` itself, decided from the arguments before anything runs."""
+
+    def __init__(self, fn, seeded: bool = True):
         super().__init__(fn)
+        self.seeded = seeded
         self.generators: dict = {}
 
     def generator(self, dev: torch.device) -> torch.Generator:
@@ -404,7 +416,12 @@ class GraphProgram(_Program):
     def _replays(self, x, cfg) -> bool:
         return super()._replays(x, cfg) and not reads_host(cfg[1])
 
-    def __call__(self, x, cfg, seed: int):
+    def __call__(self, x, cfg, *seed: int):
+        if len(seed) != int(self.seeded):
+            raise TypeError(f"{self.__name__} takes (x, cfg"
+                            f"{', seed' if self.seeded else ''})")
         if not self._replays(x, cfg):
-            return self.fn(x, cfg, generator(seed, _leaves(x)[0].device))
-        return self._graphs(x, cfg).run(x, seed)
+            gens = ((generator(seed[0], _leaves(x)[0].device),)
+                    if self.seeded else ())
+            return self.fn(x, cfg, *gens)
+        return self._graphs(x, cfg).run(x, *seed)
