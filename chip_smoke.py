@@ -3,7 +3,7 @@
     python3 chip_smoke.py        # from the repository root, one CUDA device
 
 The benchmark's main path at its own shapes: batches of 16 uint8 frames of
-376x1248 from the synthetic sequence. Eight paths run, each with the
+376x1248 from the synthetic sequence. Nine paths run, each with the
 launch counters reset just before it and read just after:
 
   - the frontend slice: the batched SIFT frontend (FAST_CONFIG, 3 octaves)
@@ -19,6 +19,10 @@ launch counters reset just before it and read just after:
     the engine batch over the three batches (tracking, in-batch promotions
     with window BA, triangulation, loop-database append, retrieval and
     verification), replayed from engine_programs' captured CUDA graphs;
+  - the host path: Tracker(TRACK_CONFIG, engine=False) on frames 0-47 in
+    batches of 16 through process_batch (two-view init, track_batch,
+    keyframe promotions with triangulation, window BA, the loop database),
+    replayed from the tracker's captured programs;
   - the sequence: the bench's protocol through Tracker.process_stream;
   - the reference profile: DEFAULT_CONFIG (2x upsample to 752x2496, 4
     octaves, float32 patch kernels), the frontend and bench-96's reference
@@ -113,7 +117,24 @@ Phases, each printing its own lines:
                promotion and per tracked frame, host syncs (checked: one
                per active frame), host launch calls, device kernels and
                busy share per batch; frames/s of frontend + engine
-  7. sequence  first the tracker's frontend program (Tracker.detect_batch's
+  7. host_path  Tracker(TRACK_CONFIG, engine=False) on frames 0..47 in
+               batches of 16 through process_batch: a warm-up run (the
+               programs' keys, capture seconds and pool bytes), then the
+               graph path and the eager path (EagerTracker) timed per call
+               (ms) and compared bit for bit (frames, map, loop database),
+               each again instrumented (per call: host syncs by the port's
+               line, pinned read-backs, counted launches with graph
+               replays; the graph path's call 1's host launch calls,
+               device kernels and busy;
+               l2_2nn and triangulate_dlt launched, checked) and equal to
+               its timed run; the plain kernel set from the graph path's
+               two-view init within PATH_*; then the
+               loop closer's verifiers on the run's keyframe database,
+               match_features_jit, refine_pose_jit and track_step_jit on
+               frames 45..47 and db_correct / db_append on the engine
+               phase's persist, each against its eager function bit for
+               bit with 0 host syncs a replay (append at CAP drops)
+  8. sequence  first the tracker's frontend program (Tracker.detect_batch's
                "frontend_batched", captured here): its replays on frames
                8..23 and 24..39 against the eager frontend module bit for
                bit (the first replay's features held across the second),
@@ -143,7 +164,7 @@ Phases, each printing its own lines:
                (Sim(3)-aligned), keyframes and inliers against bounds from
                the JAX package on the same features (frames 0..55); kernel
                path against plain path
-  8. harris_5pt  the Harris frontend as `cli detect --frontend harris` runs
+  9. harris_5pt  the Harris frontend as `cli detect --frontend harris` runs
                it (detect_and_describe_jit) on 16 frames, equal to the
                eager module bit for bit (keypoint floor, unit descriptors,
                frames/s of both); the module-level frontend programs
@@ -162,7 +183,7 @@ Phases, each printing its own lines:
                syncs per replay, ms per call of the graph, the eager and
                the plain path, the captures' seconds and bytes, and the
                plain path's rotation under the same bound
-  9. reference DEFAULT_CONFIG on frames 8..23: launch counts (4 per
+ 10. reference DEFAULT_CONFIG on frames 8..23: launch counts (4 per
                kernel per detection call), keypoint and match floors,
                kernel path against plain path; the tracker's frontend
                program as in the sequence phase; extrema_winners bit for bit
@@ -177,7 +198,7 @@ Phases, each printing its own lines:
                untimed plain-path run of frames 0..55; frames 0..55 of
                both paths against REF_BOUNDS (half / twice the JAX
                package's Tracker on the same features)
- 10. orb       the ORB frontend (FAST_CONFIG with frontend="orb", 8 levels,
+ 11. orb       the ORB frontend (FAST_CONFIG with frontend="orb", 8 levels,
                2048 keypoints) on frames 8..23: floors, frames/s, the
                card's features against the CPU port's on frame 8
                (keypoint sets, Hamming distance per coincident keypoint);
@@ -187,21 +208,22 @@ Phases, each printing its own lines:
                phase (its keys, like the reference's, released at the
                phase's end); frames 0..55 through process_stream, timed once, with the
                same sync rule, plain-path run and bounds (ORB_BOUNDS)
- 11. harness   harness.run_benchmarks on the card (`cli benchmark`): each
+ 12. harness   harness.run_benchmarks on the card (`cli benchmark`): each
                row printed with the card's name, every row finite and
                positive, the three frontend kernels launched (in the SIFT
                row, on their float32 branch) and the opt-in ones not,
                benchmarks/results.json byte for byte as before
- 12. full_sequence  kitti_scale.run, benchmarks/kitti_scale.py's protocol
+ 13. full_sequence  kitti_scale.run, benchmarks/kitti_scale.py's protocol
                on the port, not cut: 500 frames of 376x1248 on the loop rectangle (rendered
                in a process pool, untimed), FAST_CONFIG with
                ba.solver="schur_mf"; frames/s over the 492 streamed frames,
                the time by stage, host syncs per process_stream call and
                the engine's sync rule through the closures, the frontend
                kernels' launches, keyframes, loop closures, ATE / RPE;
-               the same protocol with EagerTracker (engine_dispatch
-               seconds, frames/s, keyframes, closures beside the graph
-               path's; the eager engine batch, pose graph and global BA);
+               the same protocol with EagerTracker on frames 0..103
+               (engine_dispatch seconds and ms a frame, frames/s,
+               keyframes, closures beside the graph path's; the eager
+               engine batch, pose graph and global BA);
                loop_optimize split into the pose-graph program,
                db_correct, the wait for queued device work and host work,
                on both paths; the first closure's padded Sim(3) graph and
@@ -221,7 +243,7 @@ Phases, each printing its own lines:
                bit, and the resumed tracker's global BA); the pose file.
                Checked against half / twice the JAX package's figures on
                the same protocol (benchmarks/kitti_scale.json)
- 13. parallel  a 4-shard virtual mesh of the one card (and cuda:0..3 too
+ 14. parallel  a 4-shard virtual mesh of the one card (and cuda:0..3 too
                where four cards are visible; a virtual mesh runs its
                shards one after another, so its times are no multi-GPU
                scaling figure): parallel/dryrun.run_dryrun(4); the
@@ -244,7 +266,7 @@ Phases, each printing its own lines:
                against ground truth); pipelined_process
                against chunked detect_batch + process_features, bit for
                bit in the default mode, with frames/s of both
- 14. result    one JSON line of per-kernel numbers (the extrema kernels'
+ 15. result    one JSON line of per-kernel numbers (the extrema kernels'
                per batch: summed over the 3 octaves, one launch each; the
                others per call at octave 0 or a tracked frame; launches on
                the sequence, the reference sequence, the harness and the
@@ -2205,7 +2227,8 @@ def phase_engine(frames_dev: torch.Tensor, seq: SyntheticSequence, card: str,
     (engine_programs' captured graphs) and plain path (eager by
     construction); the graph program against the eager run_engine_batch
     bit for bit on the three batches; times of both. Returns the kernel
-    path's launch counts."""
+    path's launch counts and (the persist after the last batch, ok_min,
+    max_depth)."""
     cfg = ENGINE_CONFIG
     print(f"engine: {card}")
     nb = ENGINE_BATCHES
@@ -2329,6 +2352,7 @@ def phase_engine(frames_dev: torch.Tensor, seq: SyntheticSequence, card: str,
     prog = engine_programs(cfg, run.ok_min, run.max_depth)["batch"]
     for b, (persist, dyn) in enumerate(run.calls):
         pg, sg = prog(persist, dyn, feats[b], intr)
+        final = (sg, run.ok_min, run.max_depth)
         pe, se = run_engine_batch(persist, dyn, feats[b], intr, cfg,
                                   run.ok_min, run.max_depth)
         differ = [f for f, x, y in zip(engine.EnginePersist._fields, sg, se)
@@ -2397,7 +2421,344 @@ def phase_engine(frames_dev: torch.Tensor, seq: SyntheticSequence, card: str,
     print(f"frontend frames/s, kernel path (median of 8 batches of {BATCH}, "
           f"in turns): ENGINE_CONFIG {med['ENGINE_CONFIG']:.1f}, "
           f"TRACK_CONFIG {med['TRACK_CONFIG']:.1f}")
-    return counts
+    return counts, final
+
+
+HOST_FRAMES = 48            # frames 0..47 in three batches of 16
+
+
+def host_tracker(cls, seq, dev, kernels=KERNELS):
+    """Tracker (or EagerTracker) on the host path (engine=False) under
+    TRACK_CONFIG whose async window BA always lands at the next keyframe
+    (the flush waits for it): whether the device has finished is the host
+    path's one timing-dependent choice, so runs decide alike."""
+    t = cls(TRACK_CONFIG, seq.intrinsics, engine=False, device=dev,
+            kernels=kernels)
+    t._flush_pending_ba = lambda wait=True: cls._flush_pending_ba(t, True)
+    return t
+
+
+def host_run(tracker, frames: np.ndarray, each=None) -> list:
+    """Frames 0..47 through process_batch in batches of 16; each(k, call)
+    runs call k (default: call()). Returns each's results."""
+    out = []
+    for k in range(0, HOST_FRAMES, BATCH):
+        def call(k=k):
+            return tracker.process_batch(frames[k:k + BATCH], k)
+        out.append(call() if each is None else each(k // BATCH, call))
+    return out
+
+
+def recorded_inits(tracker) -> list:
+    """The tracker's two-view init results (Tracker._two_view_solve's
+    TwoViewHost), appended as they are made."""
+    inits, solve = [], tracker._two_view_solve
+
+    def record(prev, feats):
+        inits.append(solve(prev, feats))
+        return inits[-1]
+
+    tracker._two_view_solve = record
+    return inits
+
+
+def timed_call(_, call) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    call()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0)
+
+
+def instrumented_call(tracker, profiled=None):
+    """each() for host_run: one call's host syncs by the port's line
+    (sync_sites), the pinned readbacks it waited for (Tracker._fetch: an
+    event wait, which the sync debug mode does not count), its counted
+    kernel launches (graph replays included) and, for call number
+    `profiled` alone, its profile (device kernels, busy ms, wall ms, host
+    launch calls; None for the others): the profiler's bookkeeping of a
+    call's ~86 k device kernels takes ~10 s, of an eager call's host
+    events ~40 s."""
+    fetch = tracker._fetch
+
+    def each(k, call):
+        n = [0]
+
+        def counted(rb):
+            n[0] += 1
+            return fetch(rb)
+
+        tracker._fetch = counted
+        reset_launch_counts()
+        prof = []
+        try:
+            sites = sync_sites(lambda: prof.append(
+                profile_launches(call) if k == profiled else call()))
+        finally:
+            del tracker._fetch
+        torch.cuda.synchronize()
+        return dict(sites=sites, fetches=n[0], launches=launch_counts(),
+                    prof=prof[0] if k == profiled else None)
+    return each
+
+
+def program_replays(name: str, prog, xs: list, pcfg, eager) -> None:
+    """A seedless program on two inputs of one key after a first call (a
+    capture, or a replay of a key captured earlier): each replay against
+    the eager function bit for bit, the first held across the second, 0
+    host syncs a replay; the key's capture seconds and bytes."""
+    prog(xs[0], pcfg)
+    outs, syncs = [], []
+    for x in xs:
+        syncs.append(count_syncs(lambda x=x: outs.append(prog(x, pcfg))))
+    same = [_same(o, eager(x)) for o, x in zip(outs, xs)]
+    same.append(_same(outs[0], eager(xs[0])))
+    key = prog.captured.get((_signature(xs[0]), pcfg))
+    print(f"host_path {name}: replays equal the eager function bit for bit "
+          f"{same} (the first again after the second), host syncs per "
+          f"replay {syncs}; launches per replay "
+          f"{getattr(key and key.graph, 'launches', None)}; "
+          + _capture_line("key", key))
+    check(all(same) and syncs == [0, 0], f"host_path {name}: replays equal "
+          "the eager function bit for bit with no host sync")
+
+
+def host_programs(tracker, frames: np.ndarray, dev, engine_final) -> None:
+    """The loop closer's verifiers on the run's own keyframe database,
+    match_features_jit, refine_pose_jit and track_step_jit on frames
+    45..47 against the tracker's final state, and db_correct / db_append
+    on the engine phase's persist, each against its eager function."""
+    from visualslam_tpu_torch.backend import pnp
+    from visualslam_tpu_torch.models import matching
+    from visualslam_tpu_torch.slam import loop_closure as tlc
+    from visualslam_tpu_torch.slam import track_step as ts
+
+    cfg, intr = TRACK_CONFIG, tracker.intr
+    lc = tracker.loop_closer
+    host = [e for e in lc.entries if e.desc is not None]
+    T = lc._T
+    vcfg = (lc.match_cfg, lc.kernels)
+
+    def batch(a, cands):
+        return lc._entry_side(a) + (
+            T(np.stack([e.desc for e in cands])),
+            T(np.stack([e.yx for e in cands]), np.float32),
+            T(np.stack([e.R for e in cands])),
+            T(np.stack([e.t for e in cands])), lc._intr_dev)
+
+    def single(x):
+        return x[:4] + tuple(v[0] for v in x[4:8]) + x[8:]
+
+    vb = [batch(host[-1], [host[0], host[1], host[0]]),
+          batch(host[-2], [host[1], host[2], host[1]])]
+    program_replays("_shared_verifier_batch", lc._verifier_batch, vb, vcfg,
+                    lambda x: tlc._verify_batch_body(x, vcfg))
+    program_replays("_shared_verifier", lc._verifier,
+                    [single(x) for x in vb], vcfg,
+                    lambda x: tlc._verify(*x, *vcfg))
+    fb = tracker.detect_batch(frames[HOST_FRAMES - BATCH:HOST_FRAMES])
+    f = [ts.index_features(fb, k) for k in range(BATCH - 3, BATCH)]
+    mcfg = (cfg.match, KERNELS)
+    program_replays("match_features_jit", matching.match_features_jit.program,
+                    [(f[0], f[1]), (f[1], f[2])], mcfg,
+                    lambda x: match_features(*x, cfg.match))
+    ok_min, md = tracker._track_ok_min, tracker._max_depth
+    lmap, st, kf = tracker._lmap, tracker._state, tracker._kf_ref
+    lites = [ts.track_step_lite(lmap, g, st, intr, cfg, ok_min)
+             for g in f[1:]]
+    program_replays(
+        "refine_pose_jit", pnp.refine_pose_jit.program,
+        [(st.R, st.t, lmap.X[li.ml_idx_a.long()], li.ml_x, li.ml_gated)
+         for li in lites], ((10, 5e-3, 6e-3, 1e-4), KERNELS),
+        lambda x: pnp.refine_pose(*x))
+    program_replays(
+        "track_step_jit", ts.track_step_jit.program,
+        [(kf, lmap, g, st, intr) for g in f[1:]],
+        ((cfg, ok_min, md), KERNELS),
+        lambda x: ts.track_step(*x, cfg, ok_min, md))
+
+    persist, e_ok, e_md = engine_final
+    progs = engine_programs(ENGINE_CONFIG, e_ok, e_md)
+    cap = persist.db_g.shape[0]
+    Ks, D = persist.db_desc.shape[1:]
+    r = np.random.default_rng(7)
+    f32 = np.float32
+
+    def rot(n):
+        q = r.standard_normal((n, 4))
+        q /= np.linalg.norm(q, axis=1, keepdims=True)
+        w, x, y, z = q.T
+        return np.stack([
+            1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (x * z + y * w),
+            2 * (x * y + z * w), 1 - 2 * (x * x + z * z), 2 * (y * z - x * w),
+            2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y),
+        ], 1).reshape(n, 3, 3).astype(f32)
+
+    n_db = int(persist.db_n)
+    cases = {
+        "db_correct": (engine.apply_correction, [
+            (rot(cap), r.normal(0, 0.3, (cap, 3)).astype(f32),
+             r.uniform(0.9, 1.1, cap).astype(f32), rot(cap),
+             r.normal(0, 0.3, (cap, 3)).astype(f32), max(n_db, 1) + s,
+             rot(1)[0], r.normal(0, 0.3, 3).astype(f32), f32(1.0 + 0.01 * s))
+            for s in range(3)]),
+        "db_append": (engine.db_append_host, [
+            (n, r.standard_normal(D).astype(f32),
+             r.standard_normal((Ks, D)).astype(f32),
+             (r.random((Ks, 2)) * 1000).astype(f32),
+             r.standard_normal((Ks, 3)).astype(f32), r.random(Ks) > 0.5,
+             rot(1)[0], r.standard_normal(3).astype(f32))
+            for n in (n_db, n_db + 1, cap)])}
+    for name, (eager, args) in cases.items():
+        prog = progs[name]
+        prog(persist, *args[0])
+        outs, syncs = [], []
+        for a in args[1:]:
+            syncs.append(count_syncs(
+                lambda a=a: outs.append(prog(persist, *a))))
+        same = [_same(o, eager(persist, *a)) for o, a in zip(outs, args[1:])]
+        key = next(iter(prog.program.captured.values()), None)
+        print(f"host_path {name} (the engine phase's persist, db_n {n_db} of "
+              f"{cap}): calls equal the eager function bit for bit {same}, "
+              f"host syncs per call (upload + replay) {syncs}; "
+              + _capture_line("key", key))
+        check(all(same) and syncs == [0, 0], f"host_path {name}: equal to "
+              "the eager function bit for bit with no host sync")
+    check(int(outs[-1].db_n) == cap + 1 and torch.equal(outs[-1].db_g,
+                                                        persist.db_g),
+          "host_path db_append at CAP drops the entry")
+    release_frontend_programs(
+        [progs["db_correct"].program, progs["db_append"].program,
+         matching.match_features_jit.program, pnp.refine_pose_jit.program,
+         ts.track_step_jit.program], "module-level and database")
+
+
+def phase_host_path(frames: np.ndarray, seq: SyntheticSequence, card: str,
+                    dev, engine_final) -> None:
+    """The host path (Tracker(TRACK_CONFIG, engine=False)) on frames 0..47
+    of the bench's 376x1248 world in batches of 16 through process_batch:
+    a warm-up run captures the programs ("frontend_batched", "match",
+    "ransac", "track_batch", "kf_step", the loop closer's verifiers); then
+    the graph path and the eager path (EagerTracker) timed per call and
+    compared bit for bit, each again instrumented (host syncs by line,
+    pinned readbacks, launches with graph replays counted, the profile of
+    the graph path's call 1), and the plain kernel set from the graph path's two-view
+    init within PATH_*; then the programs' own checks (host_programs)."""
+    from visualslam_tpu_torch.slam import tracker as tr
+
+    t_phase = time.perf_counter()
+    print(f"host_path: {card}")
+    warm = host_tracker(Tracker, seq, dev)
+    host_run(warm, frames)
+    torch.cuda.synchronize()
+    progs = dict(tr._shared_programs(TRACK_CONFIG))
+    lc = warm.loop_closer
+    progs.update(verifier=lc._verifier, verifier_batch=lc._verifier_batch,
+                 matcher=lc._match)
+    print("host_path programs' keys after the warm-up run (keys, capture s, "
+          "static buffers and graph pools MiB): " + ", ".join(
+              f"{n} {len(p.captured)} / "
+              f"{sum(k.capture_s for k in p.captured.values()):.3f} / "
+              f"{sum(k.pool_bytes for k in p.captured.values()) / 2 ** 20:.1f}"
+              for n, p in progs.items() if n != "frontend"))
+    del warm
+    print(f"host_path warm-up run: {time.perf_counter() - t_phase:.1f} s "
+          f"into the phase")
+
+    runs, ms = {}, {}
+    for name, cls in (("graph", Tracker), ("eager", EagerTracker)):
+        runs[name] = host_tracker(cls, seq, dev)
+        if name == "graph":
+            inits = recorded_inits(runs[name])
+        ms[name] = host_run(runs[name], frames, timed_call)
+    graph, eager = runs["graph"], runs["eager"]
+    diffs = state_diffs(graph, eager)
+    kf = [f.frame_id for f in graph.frames if f.is_keyframe]
+    ok = np.mean([f.tracking_ok for f in graph.frames])
+    print(f"host_path ({card}): {len(graph.frames)} frames, keyframes {kf}, "
+          f"tracking ok {ok:.3f}, loop database {len(graph.loop_closer.entries)}"
+          f" entries, inliers {[f.num_inliers for f in graph.frames]}")
+    print(f"host_path ms per process_batch call (host clock + synchronize; "
+          f"the init's in call 0): graph "
+          f"{[round(x, 3) for x in ms['graph']]}, eager "
+          f"{[round(x, 3) for x in ms['eager']]}")
+    print(f"host_path graph path against the eager path: state that differs "
+          f"{diffs} (frames, map, loop database, host mirrors)")
+    check(len(graph.frames) == HOST_FRAMES and len(kf) >= 3,
+          "host_path: every frame committed, keyframes promoted")
+    check(diffs == [], "host_path: the graph path equals the eager path bit "
+          "for bit (stats, poses, map)")
+    print(f"host_path timed runs: {time.perf_counter() - t_phase:.1f} s into "
+          f"the phase")
+
+    for name, cls in (("graph", Tracker), ("eager", EagerTracker)):
+        t = host_tracker(cls, seq, dev)
+        rows = host_run(t, frames, instrumented_call(
+            t, 1 if name == "graph" else None))
+        again = state_diffs(t, runs[name])
+        for k, r in enumerate(rows):
+            prof = "not profiled"
+            if r["prof"] is not None:
+                kern, busy, wall, host = r["prof"]
+                busy_s = ("not measured" if busy is None
+                          else f"{busy:.3f} ms")
+                prof = (f"{host} host launch calls, {kern} device kernels, "
+                        f"busy {busy_s} of {wall:.3f} ms profiled")
+            print(f"host_path {name} call {k}: host syncs "
+                  f"{sum(r['sites'].values())} {r['sites']}, pinned readbacks "
+                  f"{r['fetches']} (event waits, not counted as syncs); "
+                  f"{prof}; launches "
+                  f"{ {n: c for n, c in r['launches'].items() if c} }")
+        print(f"host_path {name} instrumented run: "
+              f"{time.perf_counter() - t_phase:.1f} s into the phase")
+        total = {n: sum(r["launches"][n] for r in rows)
+                 for n in rows[0]["launches"]}
+        print(f"host_path {name} launches over the run (graph replays "
+              f"counted): l2_2nn {total['l2_2nn']}, triangulate_dlt "
+              f"{total['triangulate_dlt']}; repeats the timed run bit for "
+              f"bit: {again == []}")
+        check(again == [], f"host_path {name}: the instrumented run repeats "
+              "the timed run bit for bit")
+        check(total["l2_2nn"] > 0 and total["triangulate_dlt"] > 0,
+              f"host_path {name}: l2_2nn and triangulate_dlt launched")
+
+    # the plain kernel set from the graph path's two-view init, as the track
+    # and engine phases start both paths from one bootstrap: the init's
+    # own paths part by its float32 solves (harris_5pt compares them)
+    plain = host_tracker(Tracker, seq, dev, PLAIN)
+    plain._two_view_solve = lambda prev, feats: inits.pop(0)
+    host_run(plain, frames)
+    R_gt, t_gt = world_to_camera(seq.gt_poses[:HOST_FRAMES])
+    base = np.linalg.norm(centres(R_gt, t_gt)[-1] - centres(R_gt, t_gt)[0])
+    both = np.array([a.tracking_ok and b.tracking_ok and a.num_inliers > 0
+                     for a, b in zip(graph.frames, plain.frames)])
+    Rk = np.stack([f.R for f in graph.frames])[both]
+    Rp = np.stack([f.R for f in plain.frames])[both]
+    tk = np.stack([f.t for f in graph.frames])[both]
+    tp = np.stack([f.t for f in plain.frames])[both]
+    ik = np.array([f.num_inliers for f in graph.frames])[both]
+    ip = np.array([f.num_inliers for f in plain.frames])[both]
+    dr = rot_deg(Rk, Rp)
+    dp = np.linalg.norm(centres(Rk, tk) - centres(Rp, tp), axis=1)
+    di = np.abs(ik - ip) / np.maximum(ip, 1)
+    print(f"host_path kernel vs plain (the kernel path's two-view init on "
+          f"both) over {int(both.sum())} tracked frames: "
+          f"rotation max {dr.max():.5f} deg, position max {dp.max():.3e} "
+          f"(baseline {base:.3f}), inliers max {di.max():.3f} relative, "
+          f"keyframes {sum(f.is_keyframe for f in plain.frames)} vs "
+          f"{len(kf)}")
+    check(dr.max() <= PATH_ROT_DEG, "host_path: paths agree in rotation")
+    check(dp.max() <= PATH_POS_FRAC * base,
+          "host_path: paths agree in position")
+    check(di.max() <= PATH_INLIER_FRAC,
+          "host_path: paths agree in inlier counts")
+    print(f"host_path plain run: {time.perf_counter() - t_phase:.1f} s into "
+          f"the phase")
+
+    host_programs(graph, frames, dev, engine_final)
+    del runs, graph, eager, plain
+    release_frontend_programs(set(progs.values()), "host-path")
+    print(f"host_path wall time {time.perf_counter() - t_phase:.1f} s")
 
 
 SEQ_BOUND_FRAMES = 56       # frames 0..55: the saved features' prefix
@@ -2429,8 +2790,9 @@ def sequence_stats(tracker, gt_centres: np.ndarray, n: int) -> dict:
 
 
 class EagerProgram:
-    """A solver program's eager function in the program's place, called as
-    the program is (prepare: nothing to capture)."""
+    """A solver's or a seedless GraphProgram's eager function in the
+    program's place, called as the program is (prepare: nothing to
+    capture)."""
 
     def __init__(self, prog):
         self.fn = prog.fn
@@ -2442,20 +2804,36 @@ class EagerProgram:
         pass
 
 
+# the tracker's seedless programs besides the frontend's
+HOST_PROGRAMS = ("match", "track_lite", "track_batch", "kf_step",
+                 "stack_stats")
+
+
 class EagerTracker(Tracker):
     """The tracker with every detection through the eager frontend module
     (Tracker.frontend) in place of the "frontend_batched" program, every
     engine batch through the eager run_engine_batch in place of
-    engine_programs' captured graphs, the loop closer's pose graph through
-    the eager optimize_sim3_graph / optimize_pose_graph in place of their
-    programs, and the two-view init's RANSAC through the eager
-    estimate_relative_pose in place of the "ransac" program: the graph
-    path's comparison, here and nowhere in the package."""
+    engine_programs' captured graphs, the database correction and append
+    through apply_correction / db_append_host, the loop closer's pose
+    graph through the eager optimize_sim3_graph / optimize_pose_graph and
+    its verify programs through their functions, the two-view init's
+    RANSAC through the eager estimate_relative_pose in place of the
+    "ransac" program, and the match, tracking and keyframe programs
+    (HOST_PROGRAMS) through their functions: the graph path's comparison,
+    here and nowhere in the package."""
 
     def __init__(self, *a, **kw):
         super().__init__(*a, **kw)
-        if self.loop_closer is not None:
-            self.loop_closer.program = EagerProgram(self.loop_closer.program)
+        self._progs = dict(self._progs, **{
+            k: EagerProgram(self._progs[k]) for k in HOST_PROGRAMS})
+        self._eng_progs = dict(self._eng_progs, **{
+            k: self._eng_progs[k].fn for k in ("db_correct", "db_append")})
+        lc = self.loop_closer
+        if lc is not None:
+            lc.program = EagerProgram(lc.program)
+            lc._match, lc._verifier, lc._verifier_batch = (
+                EagerProgram(p) for p in (lc._match, lc._verifier,
+                                          lc._verifier_batch))
 
     def detect_batch(self, imgs) -> Features:
         return self.frontend(self.upload_batch(imgs))
@@ -2970,14 +3348,14 @@ def top_kernels(fn, n: int = 5) -> list:
             sorted(rows, key=lambda r: -r[2])[:n]]
 
 
-def release_frontend_programs(progs) -> None:
-    """Drop the captured keys of frontend programs no later phase runs
-    (their graphs and private pools go with them)."""
+def release_frontend_programs(progs, what: str = "frontend") -> None:
+    """Drop the captured keys of programs no later phase runs (their
+    graphs and private pools go with them)."""
     freed = sum(k.pool_bytes for p in progs for k in p.captured.values())
     for p in progs:
         p.captured.clear()
     torch.cuda.empty_cache()
-    print(f"released the frontend programs' keys: {freed / 2 ** 30:.2f} GiB "
+    print(f"released the {what} programs' keys: {freed / 2 ** 30:.2f} GiB "
           f"of static buffers and graph pools; device memory reserved now "
           f"{torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB")
 
@@ -3446,6 +3824,10 @@ def phase_harness(card: str) -> dict:
 # (benchmarks/kitti_scale.py's), with this phase's measurements added at
 # its hook points
 KS_FRAMES = kitti_scale.FRAMES
+# the eager comparison run's depth: the bench's (frames 0..103), where the
+# graph run streams all KS_FRAMES (the eager pose graph and global BA are
+# timed on the graph run's own problems below)
+KS_EAGER_FRAMES = kitti_scale.INIT + 6 * kitti_scale.BATCH
 KS_WORLD = kitti_scale.WORLD
 KS_CONFIG = kitti_scale.CONFIG
 # Bands: half / twice the JAX package's own figures on this protocol
@@ -3481,9 +3863,9 @@ KS_POSE_FILE_TOL = 1e-6     # ATE from the pose file vs in memory
 def state_diffs(a, b) -> list:
     """Names of the tracker state that differs between a and b, bit for
     bit: every map array, observation, archive entry and frame result, the
-    host mirrors and the engine persist (database rings up to the live
-    entry count: past it the ring holds no state, and the checkpoint
-    slices it off)."""
+    host mirrors and the engine persist where either has one (database
+    rings up to the live entry count: past it the ring holds no state, and
+    the checkpoint slices it off)."""
     diffs = []
 
     def eq(name, x, y):
@@ -3533,7 +3915,10 @@ def state_diffs(a, b) -> list:
               "_eng_uids", "_eng_gen", "_eng_db_n"):
         eq(n, getattr(a, n), getattr(b, n))
     n_db = a._eng_db_n
-    for n in engine.EnginePersist._fields:
+    if (a._eng_persist is None) != (b._eng_persist is None):
+        diffs.append("persist")
+    for n in (engine.EnginePersist._fields if a._eng_persist is not None
+              and b._eng_persist is not None else ()):
         x, y = getattr(a._eng_persist, n), getattr(b._eng_persist, n)
         if n.startswith("db_") and n != "db_n":
             x, y = x[:n_db], y[:n_db]
@@ -3879,18 +4264,24 @@ def phase_full_sequence(card: str, dev) -> tuple:
     n_kf = out["keyframes"]
     graph_dispatch = hooks.timer.summary()["engine_dispatch"]["total_s"]
     eager_out, eager_dispatch, eager_split = eager_kitti_run(
-        seq, frames, warm_seq, wf, dev)
+        seq, frames[:KS_EAGER_FRAMES], warm_seq, wf, dev)
+    n_graph = KS_FRAMES - kitti_scale.INIT
+    n_eager = KS_EAGER_FRAMES - kitti_scale.INIT
     print(f"full_sequence engine_dispatch ({card}): graph path "
-          f"{graph_dispatch:.3f} s, eager path {eager_dispatch:.3f} s over "
-          f"{KS_FRAMES - kitti_scale.INIT} streamed frames; sequence frames/s "
-          f"{out['sequence_fps']} / {eager_out['sequence_fps']} (the graph "
-          f"run with sync debug mode on); keyframes {n_kf} / "
+          f"{graph_dispatch:.3f} s over {n_graph} streamed frames "
+          f"({1e3 * graph_dispatch / n_graph:.3f} ms a frame), eager path "
+          f"{eager_dispatch:.3f} s over the first {n_eager} "
+          f"({1e3 * eager_dispatch / n_eager:.3f} ms a frame); sequence "
+          f"frames/s {out['sequence_fps']} / {eager_out['sequence_fps']} "
+          f"(the graph run with sync debug mode on); over frames 0.."
+          f"{KS_FRAMES - 1} / 0..{KS_EAGER_FRAMES - 1}: keyframes {n_kf} / "
           f"{eager_out['keyframes']}, loop closures {out['loop_closures']} / "
           f"{eager_out['loop_closures']}, tracked ATE {ate_track} / "
           f"{eager_out['ate_tracked_m']}")
 
     print_split("full_sequence graph path", hooks.split)
-    print_split("full_sequence eager path", eager_split)
+    print_split(f"full_sequence eager path (frames 0..{KS_EAGER_FRAMES - 1})",
+                eager_split)
     # the first closure's padded Sim(3) graph, and a synthetic SE(3) graph
     # padded as the loop closer pads it, through the programs and eagerly
     check(hooks.loop.first is not None, "full_sequence: the loop closer "
@@ -3908,7 +4299,9 @@ def phase_full_sequence(card: str, dev) -> tuple:
     print(f"full_sequence global BA wall s (kitti_scale: build, solve, "
           f"read-back), graph path run_ba_jit cold with its capture "
           f"{gba['wall_s_cold_incl_compile']} / warm {gba['wall_s_warm']}; "
-          f"eager run_ba cold {gba_e['wall_s_cold_incl_compile']} / warm "
+          f"eager run_ba on frames 0..{KS_EAGER_FRAMES - 1}'s problem "
+          f"({gba_e['cameras']} cameras) cold "
+          f"{gba_e['wall_s_cold_incl_compile']} / warm "
           f"{gba_e['wall_s_warm']}")
     check(list(run_ba_jit.captured) == hooks.ba_keys, "the warm global BA "
           "replayed the cold call's program (no capture)")
@@ -4568,8 +4961,10 @@ def main() -> None:
                     frontend, seq, dev, frames_dev)
     phase("slice", phase_slice, frames_dev, frontend, plain)
     track = phase("track", phase_track, frames_dev, seq, frontend, card, dev)
-    engine_counts = phase("engine", phase_engine, frames_dev, seq, card, dev,
-                          save)
+    engine_counts, engine_final = phase("engine", phase_engine, frames_dev,
+                                        seq, card, dev, save)
+    phase("host_path", phase_host_path, frames, seq, card, dev,
+          engine_final)
     del plain
     sequence_counts = phase("sequence", phase_sequence, card, dev, save_seq)
     phase("harris_5pt", phase_harris_5pt, frames_dev, frontend, seq, card,

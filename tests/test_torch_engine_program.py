@@ -65,13 +65,14 @@ def _equal(a, b, what):
 
 
 def test_cpu_batch_program_is_run_engine_batch(world):  # noqa: F811
-    """engine_programs' four keys; on the CPU "batch" runs
-    run_engine_batch and equals the fixture's call bit for bit."""
+    """engine_programs' four keys (the database correction and append
+    programs over apply_correction and db_append_host); on the CPU "batch"
+    runs run_engine_batch and equals the fixture's call bit for bit."""
     progs = teng.engine_programs(world.cfg, OK_MIN, MAX_DEPTH)
     assert set(progs) == {"batch", "relocalize", "db_correct", "db_append"}
     assert progs is teng.engine_programs(world.cfg, OK_MIN, MAX_DEPTH)
-    assert progs["db_correct"] is teng.apply_correction
-    assert progs["db_append"] is teng.db_append_host
+    assert progs["db_correct"].fn is teng.apply_correction
+    assert progs["db_append"].fn is teng.db_append_host
     packed, p2 = progs["batch"](world.tp, _tdyn(0, B, world), world.tf,
                                 torch.tensor(INTR))
     assert torch.equal(packed, world.tpacked)

@@ -605,8 +605,8 @@ def test_tracker_two_view_solve_reads_back_one_buffer(rng):
 
 
 # the JAX package's re-exported `*_jit` programs the port has not ported
-# yet (ROADMAP A.3): the list shrinks as they land
-QUEUED_JIT = {"match_features_jit"}
+# yet: none is left
+QUEUED_JIT = set()
 SUBPACKAGES = ("models", "slam", "backend", "geometry", "ops", "io", "utils")
 
 

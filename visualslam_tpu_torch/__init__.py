@@ -13,8 +13,9 @@ parallel paths (`parallel/`) run over an in-process mesh of torch devices:
 landmark- and trajectory-sharded BA, sharded 2-NN, the data-parallel
 frontend, the stage-overlapped pipeline and the multi-process bootstrap.
 On the card the JAX package's jitted programs are captured CUDA graphs
-(`utils/graphs.py`): the frontends, the engine, the solvers and the
-two-view init. The port imports torch and never jax.
+(`utils/graphs.py`): the frontends, the engine, the solvers, the two-view
+init, the host-path tracker and the loop closer's verification. The port
+imports torch and never jax.
 """
 
 from visualslam_tpu_torch.frontend import (

@@ -4,6 +4,11 @@
 Given 3D landmarks and their 2D observations in a new frame, refine the
 camera pose with landmarks fixed: a damped 6x6 solve per iteration, a fixed
 number of iterations, and a masked accept (no early exit and no host sync).
+
+`refine_pose_jit` is the JAX package's jitted solve: on the card one
+captured CUDA graph per shape key and set of the solve's constants
+(`utils.graphs.GraphProgram`, seedless: the LM loop holds no host read,
+so it captures whole); on the CPU the function itself.
 """
 
 from __future__ import annotations
@@ -13,6 +18,8 @@ from typing import NamedTuple
 import torch
 
 from visualslam_tpu_torch.geometry import se3
+from visualslam_tpu_torch.ops.cuda import KERNELS
+from visualslam_tpu_torch.utils.graphs import GraphProgram
 from visualslam_tpu_torch.utils.precision import f32_matmul
 
 
@@ -98,3 +105,27 @@ def refine_pose(R0: torch.Tensor, t0: torch.Tensor, X: torch.Tensor,
     inl = valid & (err < inlier_threshold) & (pc[:, 2] > 1e-6)
     return PnPResult(R=R, t=t, inliers=inl,
                      num_inliers=inl.sum(dtype=torch.int32), cost=cost)
+
+
+def _refine_pose(x: tuple, cfg: tuple) -> PnPResult:
+    """x = (R0, t0, X, uv, valid); cfg = ((iters, huber_delta,
+    inlier_threshold, damping), Kernels)."""
+    return refine_pose(*x, *cfg[0])
+
+
+_REFINE = GraphProgram(_refine_pose, seeded=False)
+
+
+def refine_pose_jit(R0: torch.Tensor, t0: torch.Tensor, X: torch.Tensor,
+                    uv: torch.Tensor, valid: torch.Tensor, iters: int = 10,
+                    huber_delta: float = 5e-3, inlier_threshold: float = 6e-3,
+                    damping: float = 1e-4) -> PnPResult:
+    """refine_pose as one captured graph per shape key and constants (the
+    JAX package traces the three float constants and keys on iters; here
+    all four are part of the key); the result is the caller's (copies of
+    the graph's outputs)."""
+    return _REFINE((R0, t0, X, uv, valid),
+                   ((iters, huber_delta, inlier_threshold, damping), KERNELS))
+
+
+refine_pose_jit.program = _REFINE

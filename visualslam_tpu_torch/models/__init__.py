@@ -1,6 +1,5 @@
 """Frontend models: the pyramid, the SIFT, ORB and Harris detectors and
-descriptors, and matching (visualslam_tpu/models/__init__.py's names; the
-matcher's `match_features_jit` program is queued, ROADMAP A.3).
+descriptors, and matching (visualslam_tpu/models/__init__.py's names).
 """
 
 from visualslam_tpu_torch.models.types import Features, Keypoints, Matches  # noqa: F401
@@ -14,4 +13,4 @@ from visualslam_tpu_torch.models.orb import (  # noqa: F401
     detect_and_describe_orb,
     detect_and_describe_orb_jit,
 )
-from visualslam_tpu_torch.models.matching import match_features  # noqa: F401
+from visualslam_tpu_torch.models.matching import match_features, match_features_jit  # noqa: F401

@@ -8,6 +8,11 @@ the JAX package does: "pallas" runs the streaming 2-NN kernel
 `cfg.tile` and the descriptor width of 128; otherwise the dense distance
 matrix, squared L2 or Hamming (`cfg.metric`; ORB's bit-packed
 descriptors).
+
+`match_features_jit(fa, fb, cfg, kernels)` is the JAX package's jitted
+matcher: on the card one captured CUDA graph per shape key and (cfg,
+kernels) (`utils.graphs.GraphProgram`, seedless); on the CPU, and for the
+plain kernel set, the function itself.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ from visualslam_tpu_torch.ops.distance import (
     l2sq_distance_matrix,
 )
 from visualslam_tpu_torch.utils.config import MatchConfig
+from visualslam_tpu_torch.utils.graphs import GraphProgram
 from visualslam_tpu_torch.utils.masked import top_k_select
 
 _BIG = 1e12
@@ -101,3 +107,25 @@ def match_features(fa: Features, fb: Features, cfg: MatchConfig,
                              torch.zeros((), device=best.device)),
         valid=mask,
     )
+
+
+def match_body(x: tuple, cfg: tuple) -> Matches:
+    """The matcher programs' function: x = (fa, fb), cfg = (MatchConfig,
+    Kernels)."""
+    fa, fb = x
+    mcfg, kernels = cfg
+    return match_features(fa, fb, mcfg, kernels)
+
+
+_MATCH = GraphProgram(match_body, seeded=False)
+
+
+def match_features_jit(fa: Features, fb: Features, cfg: MatchConfig,
+                       kernels: Kernels = KERNELS) -> Matches:
+    """match_features as one captured graph per shape key and (cfg,
+    kernels); the matches are the caller's (copies of the graph's
+    outputs)."""
+    return _MATCH((fa, fb), (cfg, kernels))
+
+
+match_features_jit.program = _MATCH

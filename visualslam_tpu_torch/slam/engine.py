@@ -65,11 +65,13 @@ from visualslam_tpu_torch.slam.track_step import (
     TrackLite,
     TrackState,
     build_local_map,
+    index_features,
     keyframe_step,
     track_step_lite,
 )
 from visualslam_tpu_torch.utils.config import SlamConfig
 from visualslam_tpu_torch.utils.graphs import (
+    GraphProgram,
     _assign,
     _Capture,
     _clone_all,
@@ -432,15 +434,8 @@ class StepOut(NamedTuple):
 
 def frame_features(feats_b: Features, i: torch.Tensor) -> Features:
     """Frame i of batched Features for a 0-d device index (a copy; indexing
-    by a tensor would read i to the host)."""
-
-    def take(x):
-        if x.dtype == torch.uint32:
-            return take(x.view(torch.int32)).view(torch.uint32)
-        return x.index_select(0, i.reshape(1).long())[0]
-
-    return Features(Keypoints(*(take(x) for x in feats_b.keypoints)),
-                    take(feats_b.descriptors))
+    by a tensor would read i to the host): track_step.index_features."""
+    return index_features(feats_b, i)
 
 
 def _set_row(stats: torch.Tensor, i: torch.Tensor,
@@ -1078,22 +1073,70 @@ def build_persist_from_host(slam_map, cfg: SlamConfig, R, t, vel,
     return persist, ids, db_n
 
 
-def db_append_host(persist: EnginePersist, n: int, g, desc, yx, lmw, haslm,
+def db_append_host(persist: EnginePersist, n, g, desc, yx, lmw, haslm,
                    R, t) -> EnginePersist:
     """Append one host-assembled entry at ring index n (keeps the device
     ring aligned with the host loop closer when a host-path keyframe lands
-    while a device database exists). n >= CAP drops the entry, as the
-    reference's mode="drop"."""
+    while a device database exists). n: an int or a 0-d device index; n >=
+    CAP drops the entry, as the reference's mode="drop" (a write to a
+    trash row: no Python-scalar assignment, no host read). The entry's
+    arrays may be numpy or tensors; each is cast to its field's type."""
     dev = persist.R.device
+    CAP = persist.db_g.shape[0]
+    n = _on_device(persist.db_n, n)
+    idx = n.clamp(max=CAP).reshape(1)
     out = {}
     for f, v in zip(_DB_FIELDS, (g, desc, yx, lmw, haslm, R, t)):
         x = getattr(persist, f)
-        if n < x.shape[0]:
-            x = x.clone()
-            x[n] = torch.as_tensor(np.asarray(v) if not torch.is_tensor(v)
-                                   else v, device=dev)
-        out[f] = x
-    return persist._replace(db_n=persist.db_n.clamp(min=n + 1), **out)
+        v = torch.as_tensor(v if torch.is_tensor(v) else np.asarray(v),
+                            device=dev).to(x.dtype)
+        out[f] = _set_drop(x, idx, v)
+    return persist._replace(db_n=torch.maximum(persist.db_n, n + 1), **out)
+
+
+def _upload(dev: torch.device, arrays) -> list:
+    """Host arrays as float32 tensors on dev in ONE copy (through pinned
+    memory on the card: no host sync), each in its own shape."""
+    flat = [np.asarray(a, np.float32) for a in arrays]
+    buf = torch.from_numpy(np.concatenate([a.reshape(-1) for a in flat]))
+    if dev.type == "cuda":
+        buf = buf.pin_memory()
+    buf = buf.to(dev, non_blocking=True)
+    out, o = [], 0
+    for a in flat:
+        out.append(buf[o:o + a.size].view(a.shape))
+        o += a.size
+    return out
+
+
+def _correct_body(x: tuple, cfg: tuple) -> EnginePersist:
+    return apply_correction(*x)
+
+
+def _append_body(x: tuple, cfg: tuple) -> EnginePersist:
+    return db_append_host(*x)
+
+
+class DatabaseProgram:
+    """`engine_programs(...)["db_correct"]` (apply_correction) and
+    `["db_append"]` (db_append_host): `fn`, called as fn is, with the
+    persist, an entry count or index n and host arrays, as a seedless
+    utils.graphs.GraphProgram: one captured graph per shape key on the
+    card, the function itself on the CPU. The host arrays are uploaded
+    outside the graph in one copy (`_upload`) and n becomes a 0-d device
+    index by a fill, so the body reads nothing from host memory; the
+    result is the caller's (copies of the graph's outputs)."""
+
+    def __init__(self, fn, body, n_at: int, cfg: SlamConfig):
+        self.fn, self.n_at, self.cfg = fn, n_at, cfg
+        self.program = GraphProgram(body, seeded=False)
+
+    def __call__(self, persist: EnginePersist, *args) -> EnginePersist:
+        args = list(args)
+        n = args.pop(self.n_at)
+        x = _upload(persist.R.device, args)
+        x.insert(self.n_at, _on_device(persist.db_n, int(n)))
+        return self.program((persist, *x), (self.cfg, KERNELS))
 
 
 # ---------------------------------------------------------------------
@@ -1329,14 +1372,15 @@ def engine_programs(cfg: SlamConfig, ok_min: int, max_depth: float) -> dict:
 
       "batch"       EngineProgram: run_engine_batch from captured graphs
       "relocalize"  RelocalizeProgram: engine_relocalize from one graph
-      "db_correct"  apply_correction, run eagerly
-      "db_append"   db_append_host, run eagerly
+      "db_correct"  DatabaseProgram: apply_correction from one graph
+      "db_append"   DatabaseProgram: db_append_host from one graph
 
-    The last two run once per loop closure or host-path keyframe, a few
-    dozen launches each, and take host arrays: they stay eager functions."""
+    The last two run once per loop closure or host-path keyframe and take
+    host arrays, which they upload outside their graphs."""
     return {
         "batch": EngineProgram(cfg, ok_min, max_depth),
         "relocalize": RelocalizeProgram(cfg),
-        "db_correct": apply_correction,
-        "db_append": db_append_host,
+        "db_correct": DatabaseProgram(apply_correction, _correct_body, 5,
+                                      cfg),
+        "db_append": DatabaseProgram(db_append_host, _append_body, 0, cfg),
     }

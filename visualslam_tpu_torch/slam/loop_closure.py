@@ -7,9 +7,9 @@
               exclusion window.
   verify      local-descriptor matching (ratio + mutual) + motion-only PnP
               of the candidate camera against the current keyframe's
-              landmark snapshot, in one call per candidate on the device
-              and one packed read-back per detection (`_verify`); metric
-              scale comes with it.
+              landmark snapshot (`_verify`): a detection verifies its
+              top-k candidates, padded to k, in one call and one packed
+              read-back; metric scale comes with it.
   correct     a pose graph over the full keyframe history (odometry edges
               + accepted loop edges, backend/pose_graph), SE(3) or Sim(3)
               (LoopConfig.sim3); the per-entry world-side corrections move
@@ -19,14 +19,19 @@ The database, the edges and the graph assembly are numpy on the host, as
 in the reference; the matcher, PnP and the graph solve run on `device`.
 The solve is the JAX package's program, `optimize_sim3_graph_jit` or
 `optimize_pose_graph_jit` (backend/pose_graph.py): captured CUDA graphs
-on the card, which `prepare` captures ahead of use. The verification runs
-eagerly, so the JAX package's verify-program caches and `warm_verify`
-have nothing to compile here: `warm_verify` is kept as a no-op the
-tracker may call.
+on the card, which `prepare` captures ahead of use. The verification is
+the JAX package's verify programs, shared per (MatchConfig, Kernels):
+`_shared_matcher`, `_shared_verifier` (one candidate: relocalize) and
+`_shared_verifier_batch` (the candidate axis in one graph: detect), each a
+utils.graphs.GraphProgram, one captured graph per shape key on the card
+and the function on the CPU; `warm_verify` captures the three at the
+database's shapes, as the reference compiles them at add_keyframe. The
+host arrays are uploaded outside the graphs.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import List, Optional
 
@@ -41,10 +46,11 @@ from visualslam_tpu_torch.backend.pose_graph import (
     optimize_sim3_graph_jit,
 )
 from visualslam_tpu_torch.geometry.camera import normalized
-from visualslam_tpu_torch.models.matching import match_features
+from visualslam_tpu_torch.models.matching import match_body, match_features
 from visualslam_tpu_torch.models.types import Features, Keypoints
 from visualslam_tpu_torch.ops.cuda import KERNELS, Kernels
 from visualslam_tpu_torch.utils.config import MatchConfig, PoseGraphConfig
+from visualslam_tpu_torch.utils.graphs import GraphProgram
 
 
 @dataclass
@@ -99,6 +105,52 @@ def _verify(desc_a, yx_a, has_lm_a, lm_world_a, desc_b, yx_b, R0, t0, intr,
                       pr.inliers.to(f32)])
 
 
+def _verify_body(x: tuple, cfg: tuple) -> torch.Tensor:
+    """_shared_verifier's function: x = (desc_a, yx_a, has_lm_a,
+    lm_world_a, desc_b, yx_b, R0, t0, intr), cfg = (MatchConfig,
+    Kernels)."""
+    return _verify(*x, *cfg)
+
+
+def _verify_batch_body(x: tuple, cfg: tuple) -> torch.Tensor:
+    """_shared_verifier_batch's function: `_verify` of entry a against
+    each candidate c of x = (desc_a, yx_a, has_lm_a, lm_world_a, descs_b
+    [C, k, D], yxs_b [C, k, 2], Rs_b [C, 3, 3], ts_b [C, 3], intr), stacked
+    [C, 13 + 4 M] (the JAX package's vmap over the candidate axis)."""
+    desc_a, yx_a, has_lm_a, lm_world_a, descs_b, yxs_b, Rs_b, ts_b, intr = x
+    return torch.stack([
+        _verify(desc_a, yx_a, has_lm_a, lm_world_a, descs_b[c], yxs_b[c],
+                Rs_b[c], ts_b[c], intr, *cfg)
+        for c in range(descs_b.shape[0])])
+
+
+@functools.lru_cache(maxsize=32)
+def _shared_matcher(match_cfg: MatchConfig, kernels: Kernels) -> GraphProgram:
+    """The matcher program of a loop-closer config, called as
+    program((fa, fb), (match_cfg, kernels)); shared by every LoopCloser
+    with an equal config, as the reference's."""
+    return GraphProgram(match_body, seeded=False)
+
+
+@functools.lru_cache(maxsize=32)
+def _shared_verifier(match_cfg: MatchConfig, kernels: Kernels) -> GraphProgram:
+    """The fused verification of one candidate (match + usability gate +
+    PnP, one packed buffer: `_verify`), called as program((desc_a, yx_a,
+    has_lm_a, lm_world_a, desc_b, yx_b, R0, t0, intr), (match_cfg,
+    kernels))."""
+    return GraphProgram(_verify_body, seeded=False)
+
+
+@functools.lru_cache(maxsize=32)
+def _shared_verifier_batch(match_cfg: MatchConfig,
+                           kernels: Kernels) -> GraphProgram:
+    """The verification of every candidate in one graph (the candidate
+    axis: descs_b, yxs_b, Rs_b, ts_b gain a leading [C]), called as
+    _shared_verifier's program; detect pads its candidates to top_k, so
+    one key serves any number of surviving candidates."""
+    return GraphProgram(_verify_batch_body, seeded=False)
+
+
 def _unpack_verify(packed: np.ndarray, M: int):
     a = np.asarray(packed)
     n_inl = int(a[0])
@@ -149,6 +201,11 @@ class LoopCloser:
         self.min_inliers = min_inliers
         self.exclude = exclude_recent
         self.use_sim3 = use_sim3
+        # the verify programs, shared per config (as the reference's)
+        self._match = _shared_matcher(self.match_cfg, kernels)
+        self._verifier = _shared_verifier(self.match_cfg, kernels)
+        self._verifier_batch = _shared_verifier_batch(self.match_cfg, kernels)
+        self._verify_warmed = False
         # the pose-graph program optimize() runs: the JAX package's
         # *_jit, replayed from captured CUDA graphs on the card
         self.program = (optimize_sim3_graph_jit if use_sim3
@@ -167,7 +224,31 @@ class LoopCloser:
         self.last_corrections: Optional[list] = None
 
     def warm_verify(self, desc_dim: int = 128) -> None:
-        """Nothing to compile ahead of time here (kept for the tracker)."""
+        """Capture the verify programs at the database shapes (sub_keypoints
+        x desc_dim, three candidates for detect's batch) ahead of the first
+        real candidate, as the reference compiles them at add_keyframe:
+        zero inputs, nothing runs (GraphProgram.prepare; nothing on the
+        CPU). Once per closer."""
+        if self._verify_warmed:
+            return
+        self._verify_warmed = True
+        k, dev = self.sub, self.device
+
+        def z(*shape):
+            return torch.zeros(shape, device=dev)
+
+        ones = torch.ones(k, dtype=torch.bool, device=dev)
+        f = Features(Keypoints.empty(k, dev)._replace(valid=ones),
+                     z(k, desc_dim))
+        cfg = (self.match_cfg, self.kernels)
+        self._match.prepare((f, f), cfg)
+        a = (z(k, desc_dim), z(k, 2), ones, z(k, 3))
+        eye = torch.eye(3, device=dev)
+        self._verifier.prepare(a + (z(k, desc_dim), z(k, 2), eye, z(3),
+                                    self._intr_dev), cfg)
+        self._verifier_batch.prepare(
+            a + (z(3, k, desc_dim), z(3, k, 2), eye.expand(3, 3, 3),
+                 z(3, 3), self._intr_dev), cfg)
 
     def _T(self, x, dtype=None) -> torch.Tensor:
         return torch.as_tensor(np.asarray(x, dtype), device=self.device)
@@ -203,6 +284,7 @@ class LoopCloser:
         if none); lm_positions: the global landmark array to snapshot from.
         Returns the database index."""
         desc, valid, resp, yx = self._prep_features(feats)
+        self.warm_verify(desc.shape[1])
         # landmark-bearing keypoints FIRST (then by response): verification
         # PnPs against the entry's landmarks
         score = np.where(valid, resp, -np.inf) + np.where(kp_lm >= 0, 1e6,
@@ -253,16 +335,27 @@ class LoopCloser:
 
     # ------------------------------------------------------------------
 
-    def _verify_entry(self, a: KeyframeEntry, desc_b, yx_b, R0, t0):
+    def _entry_side(self, a: KeyframeEntry) -> tuple:
+        """The landmark side of a verification on the device: (desc, yx,
+        has_lm, lm_world) of entry a."""
         T = self._T
-        return _verify(T(a.desc), T(a.yx, np.float32), T(a.has_lm),
-                       T(a.lm_world), desc_b, yx_b, T(R0), T(t0),
-                       self._intr_dev, self.match_cfg, self.kernels)
+        return (T(a.desc), T(a.yx, np.float32), T(a.has_lm), T(a.lm_world))
+
+    def _verify_entry(self, a: KeyframeEntry, desc_b, yx_b, R0, t0):
+        """The single verifier program: camera b (desc_b, yx_b on the
+        device) against entry a's landmarks, from (R0, t0)."""
+        T = self._T
+        return self._verifier(
+            self._entry_side(a) + (desc_b, yx_b, T(R0), T(t0),
+                                   self._intr_dev),
+            (self.match_cfg, self.kernels))
 
     def detect(self, j: int, top_k: int = 3) -> Optional[LoopEdge]:
         """Try to close a loop for keyframe j against the database: the
-        top-k retrieval candidates above the cosine gate are verified (one
-        device call each, one read-back for all) in retrieval order."""
+        top-k retrieval candidates above the cosine gate are verified in
+        one call of the batch verifier (padded to top_k by repeating the
+        first, so one graph serves any count) and one read-back, and
+        accepted in retrieval order."""
         n = len(self.entries)
         if j != n - 1 or n <= self.exclude + 1:
             return None
@@ -280,11 +373,15 @@ class LoopCloser:
         if not order:
             return None
         T = self._T
-        packed = torch.stack([
-            self._verify_entry(cur, T(self.entries[i].desc),
-                               T(self.entries[i].yx, np.float32),
-                               self.entries[i].R, self.entries[i].t)
-            for i in order]).cpu().numpy()
+        cands = [self.entries[i] for i in (order + [order[0]] * top_k)
+                 [:top_k]]
+        packed = _host(self._verifier_batch(
+            self._entry_side(cur) + (
+                T(np.stack([e.desc for e in cands])),
+                T(np.stack([e.yx for e in cands]), np.float32),
+                T(np.stack([e.R for e in cands])),
+                T(np.stack([e.t for e in cands])), self._intr_dev),
+            (self.match_cfg, self.kernels)))
         for k, i in enumerate(order):
             edge = self._edge_from_packed(i, j, packed[k])
             if edge is not None:

@@ -13,6 +13,11 @@ chain device to device; the per-match association arrays are packed into
 two buffers and read back only on keyframes. The matchers take `kernels`
 (ops.cuda.KERNELS by default, ops.cuda.PLAIN for the plain path); with
 `cfg.match.impl="pallas"` they run the streaming 2-NN kernel.
+`index_features` / `lite_at` take a frame index as a Python int (views) or
+a 0-d device tensor (copies with no host sync), so one captured graph
+serves every frame index. `track_step_jit` is the JAX package's jitted
+track_step: on the card one captured CUDA graph per shape key
+(`utils.graphs.GraphProgram`, seedless), on the CPU the function itself.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ from visualslam_tpu_torch.models.matching import match_features
 from visualslam_tpu_torch.models.types import Features, Keypoints
 from visualslam_tpu_torch.ops.cuda import KERNELS, Kernels
 from visualslam_tpu_torch.utils.config import SlamConfig
+from visualslam_tpu_torch.utils.graphs import GraphProgram
 from visualslam_tpu_torch.utils.precision import f32_matmul
 
 
@@ -133,21 +139,36 @@ class TrackLite(NamedTuple):
     ok: torch.Tensor         # [] bool tracking accepted
 
 
+def _take(x: torch.Tensor, i) -> torch.Tensor:
+    """x[i] along the first axis: a view for a Python int; for a 0-d
+    device index a copy through index_select (x[i] would read i to the
+    host, a sync a graph cannot hold). uint32 rows (ORB's bit-packed
+    descriptors) go through an int32 view: torch has no index_select for
+    uint32."""
+    if not torch.is_tensor(i):
+        return x[i]
+    if x.dtype == torch.uint32:
+        return _take(x.view(torch.int32), i).view(torch.uint32)
+    return x.index_select(0, i.reshape(1).long())[0]
+
+
 def _index(tree, i):
     """tree (nested NamedTuples of tensors) with every leaf indexed by i
     along its first axis."""
     if isinstance(tree, tuple):
         return type(tree)(*(_index(x, i) for x in tree))
-    return tree[i]
+    return _take(tree, i)
 
 
 def index_features(fb: Features, i) -> Features:
-    """Frame i of batched Features (views, no copy)."""
+    """Frame i of batched Features: views for a Python int i, copies for a
+    0-d device index (no host sync)."""
     return _index(fb, i)
 
 
 def lite_at(batch_lite: TrackLite, i) -> TrackLite:
-    """Frame i's TrackLite from a track_batch result."""
+    """Frame i's TrackLite from a track_batch result (i as in
+    index_features)."""
     return _index(batch_lite, i)
 
 
@@ -329,6 +350,30 @@ def track_step(kf: KeyframeRef, lmap: LocalMap, feats: Features,
     lite = track_step_lite(lmap, feats, state, intr, cfg, min_inliers,
                            kernels)
     return keyframe_step(kf, feats, lite, intr, cfg, max_depth, kernels)
+
+
+def _track_step(x: tuple, cfg: tuple) -> TrackOut:
+    """x = (kf, lmap, feats, state, intr); cfg = ((SlamConfig, min_inliers,
+    max_depth), Kernels)."""
+    (scfg, min_inliers, max_depth), kernels = cfg
+    return track_step(*x, scfg, min_inliers, max_depth, kernels)
+
+
+_TRACK_STEP = GraphProgram(_track_step, seeded=False)
+
+
+def track_step_jit(kf: KeyframeRef, lmap: LocalMap, feats: Features,
+                   state: TrackState, intr: torch.Tensor, cfg: SlamConfig,
+                   min_inliers: int, max_depth: float,
+                   kernels: Kernels = KERNELS) -> TrackOut:
+    """track_step as one captured graph per shape key and (cfg,
+    min_inliers, max_depth, kernels): the JAX package's `track_step_jit`.
+    The result is the caller's (copies of the graph's outputs)."""
+    return _TRACK_STEP((kf, lmap, feats, state, intr),
+                       ((cfg, min_inliers, max_depth), kernels))
+
+
+track_step_jit.program = _TRACK_STEP
 
 
 def build_local_map(slam_map, capacity: int, desc_dim: int, desc_dtype,

@@ -16,21 +16,24 @@ keyframe. Monocular scale is fixed at two-view init by normalizing the
 median scene depth to `init_depth`.
 
 The engine runs through `engine.engine_programs` (shared per config, as
-the JAX package's jitted programs): on the card every engine batch and
-database relocalization replays CUDA graphs captured once per shape, and
-the loop correction and host-path database append run eagerly; on the CPU
-the same entry points are the eager functions. Of the JAX package's other
-jitted programs (`_shared_programs`), "frontend" / "frontend_batched"
-and "ransac" are programs here too, shared per config: on the card every
-detection call replays one captured graph of the batched frontend (the
-upload stays outside it), and the two-view init's RANSAC, pose recovery
-and triangulation replay one captured graph, the init reading its results
-back as one packed buffer (one host sync per call); the others (match,
-track and keyframe steps) are the functions, called directly. The tracker
-hands out the eager frontend module (`Tracker.frontend`, the one
-`cfg.frontend` names) to callers that ask for it, and owns one
-`torch.Generator` as the RANSAC key chain, from which each two-view init
-draws the seed of its draws, as the reference splits its PRNG key.
+the JAX package's jitted programs): on the card every engine batch,
+database relocalization, loop correction and host-path database append
+replays CUDA graphs captured once per shape; on the CPU the same entry
+points are the eager functions. The JAX package's other jitted programs
+(`_shared_programs`: "frontend" / "frontend_batched", "match", "ransac",
+"track_lite", "track_batch", "kf_step", "stack_stats") are programs here
+too, shared per config: on the card every detection call replays one
+captured graph of the batched frontend (the upload stays outside it), the
+two-view init's match and its RANSAC, pose recovery and triangulation
+replay one graph each, the init reading its results back as one packed
+buffer (one host sync per call), and the host path (engine=False, and
+`process`'s single frame) tracks a batch, a frame and a promotion by one
+replay each, the frame index a device tensor, with the stats and the
+packed keyframe products read back outside the graphs. The tracker hands
+out the eager frontend module (`Tracker.frontend`, the one `cfg.frontend`
+names) to callers that ask for it, and owns one `torch.Generator` as the
+RANSAC key chain, from which each two-view init draws the seed of its
+draws, as the reference splits its PRNG key.
 Everything runs on `device` (the card unless the caller asks
 for the CPU); `kernels` picks the kernel
 path (ops.cuda.KERNELS) or the plain path (ops.cuda.PLAIN). The lag-1
@@ -57,7 +60,7 @@ from visualslam_tpu_torch.backend.ba import (
 from visualslam_tpu_torch.frontend import frontend_body, frontend_module
 from visualslam_tpu_torch.geometry import ransac
 from visualslam_tpu_torch.geometry.camera import normalized
-from visualslam_tpu_torch.models.matching import match_features
+from visualslam_tpu_torch.models.matching import match_body
 from visualslam_tpu_torch.models.types import Features, Keypoints
 from visualslam_tpu_torch.ops.cuda import KERNELS, Kernels
 from visualslam_tpu_torch.slam import engine
@@ -66,6 +69,7 @@ from visualslam_tpu_torch.slam.map_state import SlamMap
 from visualslam_tpu_torch.slam.track_step import (
     KeyframeRef,
     TrackAssoc,
+    TrackLite,
     TrackState,
     build_local_map,
     index_features,
@@ -92,6 +96,44 @@ def _host(x) -> np.ndarray:
     return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
 
 
+def _track_lite_body(x, cfg):
+    """The JAX tracker's "track_lite": track_step_lite of frame i of fb.
+    x = (lmap, fb, i, state, intr), i a 0-d device index; cfg =
+    ((SlamConfig, ok_min), Kernels)."""
+    lmap, fb, i, state, intr = x
+    (scfg, ok_min), kernels = cfg
+    return track_step_lite(lmap, index_features(fb, i), state, intr, scfg,
+                           ok_min, kernels)
+
+
+def _track_batch_body(x, cfg):
+    """The JAX tracker's "track_batch": track_batch of x = (lmap, fb,
+    start, state, intr), start a 0-d device index, so one graph serves
+    every restart index; cfg as "track_lite"'s."""
+    lmap, fb, start, state, intr = x
+    (scfg, ok_min), kernels = cfg
+    return track_batch(lmap, fb, start, state, intr, scfg, ok_min, kernels)
+
+
+def _kf_step_body(x, cfg):
+    """The JAX tracker's "kf_step": keyframe_step of frame i of x = (kf,
+    fb, i, bl, intr), i a 0-d device index; cfg = ((SlamConfig,
+    max_depth), Kernels). Returns (the packed products, the frame's
+    Features): the host reads both back."""
+    kf, fb, i, bl, intr = x
+    (scfg, max_depth), kernels = cfg
+    feats = index_features(fb, i)
+    full = keyframe_step(kf, feats, lite_at(bl, i), intr, scfg, max_depth,
+                         kernels)
+    return pack_keyframe_products(full, feats), feats
+
+
+def _stack_stats(x, cfg):
+    """The JAX tracker's "stack_stats": x, a tuple of stats rows, stacked
+    (defined there and never called; kept so that the keys match)."""
+    return torch.stack(x)
+
+
 def _ransac_body(x, cfg, gen):
     """The JAX tracker's "ransac" program: estimate_relative_pose of x =
     (x1, x2, valid) under cfg = (RansacConfig, Kernels), drawing from gen.
@@ -114,14 +156,35 @@ def _shared_programs(cfg: SlamConfig) -> dict:
                  program((imgs,), (cfg, kernels)) with imgs [B, H, W] on
                  the device: the JAX package's single-frame program is its
                  B = 1 key;
-      "ransac"   utils.graphs.GraphProgram of estimate_relative_pose, called
-                 as program((x1, x2, valid), (cfg.ransac, kernels), seed).
+      "match"    match_features, called as program((fa, fb), (cfg.match,
+                 kernels));
+      "ransac"   estimate_relative_pose, called as program((x1, x2, valid),
+                 (cfg.ransac, kernels), seed);
+      "track_lite"   track_step_lite of one frame of a batch, called as
+                 program((lmap, fb, i, state, intr), ((cfg, ok_min),
+                 kernels)), i a 0-d device index (`_track`: a batch of
+                 one, as the JAX package tracks a single frame);
+      "track_batch"  track_batch, program((lmap, fb, start, state, intr),
+                 ((cfg, ok_min), kernels)), start a 0-d device index;
+      "kf_step"  keyframe_step of frame i + the packed products,
+                 program((kf, fb, i, bl, intr), ((cfg, max_depth),
+                 kernels)) -> (packed, the frame's Features);
+      "stack_stats"  torch.stack of a tuple of stats rows (unused, as in
+                 the JAX package).
 
-    Each is one captured graph per shape key on the card (the plain kernel
-    set, which reads the host, runs eagerly) and the function on the CPU."""
+    All but "ransac" are seedless. Each is a utils.graphs.GraphProgram:
+    one captured graph per shape key on the card (the plain kernel set,
+    which reads the host, runs eagerly) and the function on the CPU.
+    "track_lite" (B = 1) and "track_batch" are separate programs, so
+    neither evicts the other's keys."""
     frontend = GraphProgram(frontend_body, seeded=False)
     return {"frontend": frontend, "frontend_batched": frontend,
-            "ransac": GraphProgram(_ransac_body)}
+            "match": GraphProgram(match_body, seeded=False),
+            "ransac": GraphProgram(_ransac_body),
+            "track_lite": GraphProgram(_track_lite_body, seeded=False),
+            "track_batch": GraphProgram(_track_batch_body, seeded=False),
+            "kf_step": GraphProgram(_kf_step_body, seeded=False),
+            "stack_stats": GraphProgram(_stack_stats, seeded=False)}
 
 
 class TwoViewHost(NamedTuple):
@@ -329,7 +392,13 @@ class Tracker:
         return frontend_module(self.cfg, self.kernels, self.device)
 
     def _match(self, fa: Features, fb: Features):
-        return match_features(fa, fb, self.cfg.match, self.kernels)
+        """The "match" program on two frames' Features."""
+        return self._progs["match"]((fa, fb), (self.cfg.match, self.kernels))
+
+    def _index(self, i: int) -> torch.Tensor:
+        """A frame index as a 0-d int32 tensor on the device (a fill: no
+        copy from the host), the tracking programs' index argument."""
+        return self.intr.new_full((), i, dtype=torch.int32)
 
     def _split_seed(self) -> int:
         """The next seed of the RANSAC key chain (a host generator)."""
@@ -344,10 +413,11 @@ class Tracker:
                                      self._split_seed())
 
     def _kf_step(self, kf: KeyframeRef, fb: Features, i: int, bl):
-        feats = index_features(fb, i)
-        full = keyframe_step(kf, feats, lite_at(bl, i), self.intr, self.cfg,
-                             self._max_depth, self.kernels)
-        return pack_keyframe_products(full, feats), feats
+        """The "kf_step" program on frame i of the batch: (packed products,
+        the frame's Features)."""
+        return self._progs["kf_step"](
+            (kf, fb, self._index(i), bl, self.intr),
+            ((self.cfg, self._max_depth), self.kernels))
 
     def _readback(self, x: torch.Tensor):
         """Start the device-to-host copy of x: a pinned buffer, a
@@ -425,11 +495,14 @@ class Tracker:
             if self._kf_ref is None:
                 self._refresh_device_cache()
             with self._stage("track_dispatch"):
-                st, bl = track_batch(self._lmap, feats_b, i, self._state,
-                                     self.intr, self.cfg, self._track_ok_min,
-                                     self.kernels)
+                # frames [i, B) active
+                st, bl = self._progs["track_batch"](
+                    (self._lmap, feats_b, self._index(i), self._state,
+                     self.intr), ((self.cfg, self._track_ok_min),
+                                  self.kernels))
             with self._stage("stats_readback"):
-                stats = _host(bl.stats)             # ONE [B, 22] read-back
+                # ONE [B, 22] read-back
+                stats = self._fetch(self._readback(bl.stats))
             self._state = st
             disp = "ok"
             j = i
@@ -460,6 +533,9 @@ class Tracker:
         out: list[FrameResult] = []
         if (not self.engine or not self.map.kf_order
                 or not self.map.lm_valid.any()):
+            if not self.engine:
+                # the host path's stream batch (prewarm_aux's keys)
+                self._stream_B = max(self._stream_B or 0, imgs.shape[0])
             out.extend(self.finish())
             out.extend(self.process_batch(imgs, first_frame_id))
             return out
@@ -500,27 +576,67 @@ class Tracker:
         """Capture the rare-event programs outside any timed loop, where
         the reference compiles them: the loop closer's pose-graph program
         (Sim(3) or SE(3) per cfg.loop.sim3, at the padded shapes its next
-        closure uses, on the tracker's device; LoopCloser.prepare), once
-        the tracker has streamed a batch the frontend program's key at the
-        stream's batch shape, and, once the engine has run (it reads the
-        persist's shapes), the database relocalization's graph
-        (engine_programs' "relocalize"). Unlike the reference's warm-up, it
-        runs no closure: the tracker's state is left as it was, so any
-        tracker may call it. The database correction and append run
-        eagerly: nothing to prepare. On the CPU there is nothing to
-        capture."""
-        if self.loop_closer is not None:
-            self.loop_closer.prepare()
+        closure uses, on the tracker's device; LoopCloser.prepare) and,
+        once it holds a host entry, its verify programs at the database's
+        shapes (LoopCloser.warm_verify); once the tracker has streamed a
+        batch the frontend program's key at the stream's batch shape; on
+        the host path (engine=False), once tracking has started, the keys
+        of "match", "track_lite" and "kf_step" at one frame and of
+        "track_batch" and "kf_step" at the stream's batch; and, once the
+        engine has run (it reads the persist's shapes), the database
+        relocalization's graph (engine_programs' "relocalize"). Unlike the
+        reference's warm-up, it runs no closure: the tracker's state is
+        left as it was, so any tracker may call it. The database
+        correction and append capture on their first call. On the CPU
+        there is nothing to capture."""
+        lc = self.loop_closer
+        if lc is not None:
+            lc.prepare()
+            host = [e for e in lc.entries if e.desc is not None]
+            if host:
+                lc.warm_verify(host[-1].desc.shape[1])
         if self._stream_B is not None and self._frame is not None:
             shape, dtype = self._frame
             self._progs["frontend_batched"].prepare(
                 (torch.zeros((self._stream_B,) + shape, dtype=dtype,
                              device=self.device),), (self.cfg, self.kernels))
+        if not self.engine:
+            self._prewarm_host_path()
         if self._eng_persist is None:
             return
         self._eng_progs["relocalize"].prepare(
             self._eng_persist, engine.empty_frame(self._eng_persist),
             self.intr)
+
+    def _prewarm_host_path(self) -> None:
+        """prewarm_aux's host-path keys, from the device caches' shapes
+        (zero frames; nothing runs)."""
+        one = self._prev_feats
+        if one is None or self._lmap is None or self._kf_ref is None:
+            return
+        progs, kern = self._progs, self.kernels
+        progs["match"].prepare((one, one), (self.cfg.match, kern))
+        for B in sorted({1, self._stream_B or 1}):
+            fb = _tree_map(lambda x: x.new_zeros((B,) + x.shape), one)
+            x = (self._lmap, fb, self._index(0), self._state, self.intr)
+            progs["track_lite" if B == 1 else "track_batch"].prepare(
+                x, ((self.cfg, self._track_ok_min), kern))
+            progs["kf_step"].prepare(
+                (self._kf_ref, fb, self._index(0), self._lite_template(B),
+                 self.intr), ((self.cfg, self._max_depth), kern))
+
+    def _lite_template(self, B: int) -> TrackLite:
+        """A zero TrackLite of B frames (the shapes track_batch returns)."""
+        M = self.cfg.match.max_matches
+
+        def z(*shape, dtype=torch.float32):
+            return torch.zeros((B,) + shape, dtype=dtype, device=self.device)
+
+        i32, b = torch.int32, torch.bool
+        return TrackLite(R=z(3, 3), t=z(3), vel=z(6), stats=z(22),
+                         ml_idx_a=z(M, dtype=i32), ml_idx_b=z(M, dtype=i32),
+                         ml_gated=z(M, dtype=b), ml_inlier=z(M, dtype=b),
+                         ml_x=z(M, 2), ok=z(dtype=b))
 
     def _harvest_inflight(self, inflight) -> list:
         """Harvest a dispatched batch. If the harvest aborts mid-batch
@@ -890,8 +1006,9 @@ class Tracker:
     # ------------------------------------------------------------------
 
     def _two_view_solve(self, prev: Features, feats: Features) -> TwoViewHost:
-        """Match, then the "ransac" program, then its results read back to
-        the host as one packed buffer: the init's one host sync."""
+        """The "match" program, then the "ransac" program, then their
+        results read back to the host as one packed buffer: the init's one
+        host sync."""
         m = self._match(prev, feats)
         x1 = normalized(prev.keypoints.yx[m.idx_a.long()].flip(-1), self.intr)
         x2 = normalized(feats.keypoints.yx[m.idx_b.long()].flip(-1),
@@ -991,12 +1108,14 @@ class Tracker:
     def _track(self, feats, frame_id) -> FrameResult:
         if self._kf_ref is None:
             self._refresh_device_cache()
-        out = track_step_lite(self._lmap, feats, self._state, self.intr,
-                              self.cfg, self._track_ok_min, self.kernels)
-        self._state = TrackState(R=out.R, t=out.t, vel=out.vel)
-        stats = _host(out.stats)                 # the one read-back a frame
-        # a batch of one: the keyframe path indexes batched values
+        # a batch of one: the programs index batched values
         fb = _tree_map(lambda x: x[None], feats)
+        out = self._progs["track_lite"](
+            (self._lmap, fb, self._index(0), self._state, self.intr),
+            ((self.cfg, self._track_ok_min), self.kernels))
+        self._state = TrackState(R=out.R, t=out.t, vel=out.vel)
+        # the one read-back a frame
+        stats = self._fetch(self._readback(out.stats))
         bl = _tree_map(lambda x: x[None], out)
         res, disp = self._commit_tracked_frame(frame_id, fb, bl, 0, stats)
         if disp == "kf":
@@ -1099,7 +1218,9 @@ class Tracker:
         with self._stage("kf_step_dispatch"):
             packed, feats = self._kf_step(self._kf_ref, fb, idx, bl)
         with self._stage("kf_readback"):
-            packed_np, desc_np = _host(packed), _host(feats.descriptors)
+            # copies: the map keeps these arrays, not the pinned buffers
+            rb = self._readback(packed), self._readback(feats.descriptors)
+            packed_np, desc_np = (self._fetch(r).copy() for r in rb)
         M = self.cfg.match.max_matches
         K = desc_np.shape[0]
         _, ai, af, kp_yx, kp_resp, kp_valid = unpack_keyframe_products(
