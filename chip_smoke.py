@@ -255,15 +255,23 @@ Phases, each printing its own lines:
                and the one-device run_ba schur_mf (costs, ms per solve, 0
                host syncs inside the solve); window-size sharded BA
                (landmark psum / ring, trajectory dense) against run_ba;
+               the sharded 2-NN of 2048 queries against 4 x 512 keys
+               against one dense distance matrix; on the virtual mesh
+               each of these sharded programs (and the dry run's,
+               track_step_jit included) replays captured graphs and is
+               held to its eager function bit for bit, with 0 host syncs
+               a replay, ms graph / eager, host launch calls, device
+               kernels, busy share, capture seconds and pool MiB;
                Tracker(FAST_CONFIG, mesh) over frames 0..55 for RANSAC
                seeds 0..7 against twice the JAX package's ATE median and
                maximum over the same seeds (PAR_SEQ_BOUNDS) and
                SEQ_BOUNDS' ok share, keyframes and inliers, seed 0 also
                against the one-device tracker with the same synchronous
-               window BA; global BA over the mesh on the KITTI-scale
-               tracker against the same solver on one shard (cost,
-               aligned centres) and the one-device solve (cost, ATE
-               against ground truth); pipelined_process
+               window BA and, bit for bit, against its twin with the
+               sharded solve run eagerly; global BA over the mesh on the
+               KITTI-scale tracker against the same solver on one shard
+               (cost, aligned centres) and the one-device solve (cost,
+               ATE against ground truth); pipelined_process
                against chunked detect_batch + process_features, bit for
                bit in the default mode, with frames/s of both
  15. result    one JSON line of per-kernel numbers (the extrema kernels'
@@ -4481,15 +4489,161 @@ def window_problem(dev, C: int = 10, C_pad: int = 12, L: int = 2048,
         lm_valid=T(np.ones(L, bool), torch.bool))
 
 
+def mesh_program_check(what: str, prog, x, cfg, ran=None,
+                       profile_eager: bool = False) -> dict:
+    """A sharded program (parallel/programs.py) on the virtual mesh
+    against its eager function on x: equal bit for bit (and `ran`, the
+    program's result in the run, likewise), ms per call graph (host clock
+    + synchronize, median of 3) / eager (the call compared), host syncs
+    inside a warm replay (0), host launch calls, device kernels, busy ms
+    and busy share of one replay (profiler; of one eager call too with
+    `profile_eager`: a profiled eager call of tens of thousands of
+    launches costs seconds of host time), and the key's capture seconds
+    and pool MiB. Returns the figures."""
+    got = prog(x, cfg)
+    key = prog.captured.get((_signature(x), cfg))
+    check(key is not None, f"{what}: the program replays captured graphs "
+          "on the virtual mesh")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eager = prog.fn(x, cfg)
+    torch.cuda.synchronize()
+    ms_e = 1e3 * (time.perf_counter() - t0)
+    same = _same(got, eager) and (ran is None or _same(ran, eager))
+    ms = wall_ms(lambda: prog(x, cfg), 3)
+    syncs = count_syncs(lambda: prog(x, cfg))
+    k, busy, wall, host = profile_launches(lambda: prog(x, cfg))
+    k_e = busy_e = wall_e = host_e = None
+    if profile_eager:
+        k_e, busy_e, wall_e, host_e = profile_launches(
+            lambda: prog.fn(x, cfg))
+
+    def share(b, w):
+        return None if b is None else round(b / w, 4)
+
+    fig = dict(program=what, name=prog.__name__, bits_equal=same,
+               host_syncs_per_replay=syncs, ms_graph=round(ms, 3),
+               ms_eager=round(ms_e, 3), host_launch_calls=[host, host_e],
+               device_kernels=[k, k_e],
+               busy_ms=[busy and round(busy, 3), busy_e and round(busy_e, 3)],
+               busy_share=[share(busy, wall), share(busy_e, wall_e)],
+               capture_s=round(key.capture_s, 3),
+               pool_mib=round(key.pool_bytes / 2 ** 20, 1))
+    print(f"parallel program {json.dumps(fig)} (pairs: graph, eager; None: "
+          "not profiled)")
+    check(same, f"{what}: the program equals its eager function bit for "
+          "bit")
+    check(syncs == 0, f"{what}: a replay makes no host sync")
+    return fig
+
+
+def par_dryrun(mesh, name: str, graphs: bool) -> list:
+    """parallel/dryrun.run_dryrun over the mesh (on the virtual mesh
+    every step replays graphs), then, where it does, each of its programs
+    on the dry run's own inputs against its eager function
+    (mesh_program_check): the data-parallel frontend, track_step_jit, the
+    landmark-sharded and the dense trajectory-sharded BA (the C = 1024
+    matrix-free solve is par_traj_mf's key)."""
+    from visualslam_tpu_torch.parallel import dist_ba, dryrun, traj_ba
+    from visualslam_tpu_torch.parallel.mesh import make_mesh
+    from visualslam_tpu_torch.slam.track_step import track_step_jit
+
+    devs = list(mesh.devices)
+    dryrun.run_dryrun(PAR_SHARDS, devices=devs)
+    if not graphs:
+        return []
+    dev, n = devs[0], PAR_SHARDS
+    fe = SiftFrontend(dryrun.DRYRUN_FRONTEND_CONFIG)
+    dmesh = make_mesh(n, "data", devs)
+    sp = dist_ba.shard_problem(dryrun.dryrun_ba_problem(n, dev), n)
+    tp = traj_ba.shard_problem_trajectory(
+        dryrun.dryrun_traj_problem(n, dev), n)
+    return [
+        mesh_program_check(
+            f"{name} dry run frontend", dryrun.data_parallel_frontend.program,
+            *dryrun.frontend_args(fe, dryrun.dryrun_frames(n), dmesh)),
+        mesh_program_check(
+            f"{name} dry run track step", track_step_jit.program,
+            dryrun.dryrun_track_inputs(dev),
+            ((dryrun.DRYRUN_TRACK_CONFIG, *dryrun.DRYRUN_TRACK_ARGS),
+             KERNELS)),
+        mesh_program_check(
+            f"{name} dry run landmark BA", dist_ba.run_ba_sharded.program,
+            *dist_ba.sharded_ba_args(sp, dryrun.DRYRUN_BA_CONFIG, mesh)),
+        mesh_program_check(
+            f"{name} dry run trajectory BA",
+            traj_ba.run_ba_traj_sharded.program,
+            *traj_ba.traj_ba_args(tp, dryrun.DRYRUN_TRAJ_CONFIG, mesh))]
+
+
+PAR_2NN = (2048, 512, 128)  # queries, keys a shard, descriptor width
+
+
+def par_2nn(mesh, dev, name: str) -> dict:
+    """sharded_2nn of 2048 queries against 4 x 512 keys of 128 floats
+    (random, 10% of the keys invalid): the program against its eager
+    function (mesh_program_check), and the result against one dense
+    [2048, 2048] distance matrix on the card: distances within
+    tests/test_dist_match.py's tolerance (the products round in another
+    order), indices equal off near-ties."""
+    from visualslam_tpu_torch.parallel.dist_match import (
+        shard_descriptors,
+        sharded_2nn,
+        sharded_2nn_args,
+    )
+
+    Ka, Kb_s, D = PAR_2NN
+    r = np.random.default_rng(7)
+    qa = torch.tensor(r.standard_normal((Ka, D)).astype(np.float32),
+                      device=dev)
+    kb = r.standard_normal((mesh.size * Kb_s, D)).astype(np.float32)
+    vb = r.random(len(kb)) > 0.1
+    kb_s, vb_s = shard_descriptors(kb, vb, mesh.size, device=dev)
+    best, second, idx = sharded_2nn(qa, kb_s, vb_s, mesh)
+    fig = mesh_program_check(f"{name} sharded 2-NN [{Ka}, {D}] x "
+                             f"{mesh.size} x [{Kb_s}, {D}]",
+                             sharded_2nn.program,
+                             *sharded_2nn_args(qa, kb_s, vb_s, mesh),
+                             ran=(best, second, idx))
+    kbt = torch.tensor(kb, device=dev)
+    d = ((qa * qa).sum(-1, keepdim=True) + (kbt * kbt).sum(-1)[None]
+         - 2.0 * (qa @ kbt.T)).clamp_min(0.0)
+    d = torch.where(torch.tensor(vb, device=dev)[None], d,
+                    torch.full_like(d, 1e30))
+    top, arg = torch.sort(d, dim=-1, stable=True)
+    wb, ws, wi = (v.cpu().numpy() for v in (top[:, 0], top[:, 1],
+                                            arg[:, 0]))
+    b, s2, i = (v.cpu().numpy() for v in (best, second, idx))
+    close = np.abs(ws - wb) < 1e-4
+    err = float(max(np.abs(b - wb).max(), np.abs(s2 - ws).max()))
+    agree = float(((i == wi) | close).mean())
+    print(f"parallel {name} sharded 2-NN against the dense matrix: max "
+          f"|distance - dense| {err:.3e}, indices equal off near-ties "
+          f"{agree:.4f}")
+    check(np.allclose(b, wb, rtol=2e-4, atol=1e-4)
+          and np.allclose(s2, ws, rtol=2e-4, atol=1e-4),
+          f"{name}: sharded 2-NN distances within tests/test_dist_match.py"
+          "'s tolerance of the dense matrix")
+    check(agree > 0.99, f"{name}: sharded 2-NN indices equal the dense "
+          "matrix's off near-ties")
+    return fig
+
+
 def par_frontend(mesh, frontend: SiftFrontend, frames_dev: torch.Tensor,
-                 name: str) -> dict:
+                 name: str, figs: list) -> dict:
     """The data-parallel frontend at full width (FAST_CONFIG, frames
     8..23, 4 a shard), launch counts reset just before it and read just
     after; each shard's features against the one-device frontend on the
     same 4-frame chunk (the banded blur's reduction order depends on the
-    batch width), the psum'd total against the one-device sum."""
-    from visualslam_tpu_torch.parallel.dryrun import data_parallel_frontend
+    batch width), the psum'd total against the one-device sum; on the
+    virtual mesh the program against its eager function (its figures
+    appended to `figs`)."""
+    from visualslam_tpu_torch.parallel.dryrun import (
+        data_parallel_frontend,
+        frontend_args,
+    )
     from visualslam_tpu_torch.parallel.mesh import make_mesh
+    from visualslam_tpu_torch.parallel.programs import on_one_card
 
     dmesh = make_mesh(mesh.size, "data", mesh.devices)
     batch = frames_dev[PAR_FRAMES[0]:PAR_FRAMES[1]]
@@ -4530,22 +4684,32 @@ def par_frontend(mesh, frontend: SiftFrontend, frames_dev: torch.Tensor,
           "count equals the one-device sum on every shard")
     check(all(v == 0.0 for v in worst.values()), f"{name}: each shard's "
           "features equal the one-device frontend's bit for bit")
+    if on_one_card(mesh.devices):
+        figs.append(mesh_program_check(
+            f"{name} data-parallel frontend",
+            data_parallel_frontend.program,
+            *frontend_args(frontend, batch, dmesh), ran=(feats, total)))
     return {n: counts[n] for n in FRONTEND_PATH}
 
 
-def par_traj_mf(mesh, dev, name: str) -> None:
+def par_traj_mf(mesh, dev, name: str, figs: list) -> None:
     """The dry run's sequence-scale problem (C = 1024, L = 4096, 16k
     observations; 2 LM iterations of 24 CG steps) through the matrix-free
     trajectory-sharded solver, against the same solver on a 1-shard mesh
-    and against the one-device run_ba schur_mf."""
+    and against the one-device run_ba schur_mf; on the virtual mesh the
+    program against its eager function (figures appended to `figs`; its
+    host syncs are the solve's), elsewhere the eager solve's host
+    syncs."""
     from visualslam_tpu_torch.parallel.dryrun import (
         TRAJ_MF_CONFIG,
         traj_mf_problem,
     )
     from visualslam_tpu_torch.parallel.mesh import make_mesh
+    from visualslam_tpu_torch.parallel.programs import on_one_card
     from visualslam_tpu_torch.parallel.traj_ba import (
         run_ba_traj_sharded,
         shard_problem_trajectory,
+        traj_ba_args,
     )
 
     p = traj_mf_problem(dev)
@@ -4558,13 +4722,19 @@ def par_traj_mf(mesh, dev, name: str) -> None:
     single = run_ba(p, cfg)
     c = {k: (float(r.initial_cost), float(r.cost)) for k, r in
          (("sharded", sharded), ("one_shard", shard1), ("run_ba", single))}
-    syncs = count_syncs(lambda: run_ba_traj_sharded(sp, cfg, mesh))
+    if on_one_card(mesh.devices):
+        fig = mesh_program_check(
+            f"{name} C = 1024 trajectory-sharded schur_mf",
+            run_ba_traj_sharded.program, *traj_ba_args(sp, cfg, mesh),
+            ran=sharded, profile_eager=True)
+        figs.append(fig)
+        syncs = fig["host_syncs_per_replay"]
+    else:
+        syncs = count_syncs(lambda: run_ba_traj_sharded(sp, cfg, mesh))
     ms_sh = wall_ms(lambda: float(run_ba_traj_sharded(sp, cfg, mesh).cost), 3)
     ms_one = wall_ms(lambda: float(run_ba_traj_sharded(sp1, cfg, one).cost),
                      3)
     ms_single = wall_ms(lambda: float(run_ba(p, cfg).cost), 3)
-    launches, busy, _ = profile_call(
-        lambda: run_ba_traj_sharded(sp, cfg, mesh))
     rel1 = abs(c["sharded"][1] - c["one_shard"][1]) / c["one_shard"][1]
     rels = abs(c["sharded"][1] - c["run_ba"][1]) / c["run_ba"][1]
     print(f"parallel {name} traj-sharded schur_mf C = {p.R.shape[0]}, L = "
@@ -4574,7 +4744,7 @@ def par_traj_mf(mesh, dev, name: str) -> None:
           f"run_ba {rels:.3e}; ms per solve (host clock + read-back, median "
           f"of 3): {mesh.size} shards {ms_sh:.3f}, 1 shard {ms_one:.3f}, "
           f"run_ba {ms_single:.3f}; {syncs} host syncs inside the sharded "
-          f"solve; {launches} device launches, device busy {busy} ms")
+          f"solve")
     for k in ("one_shard", "run_ba"):
         check(abs(c["sharded"][0] - c[k][0]) <= PAR_MF_INIT_RTOL * c[k][0],
               f"{name}: C = 1024 initial cost within {PAR_MF_INIT_RTOL} of "
@@ -4589,19 +4759,23 @@ def par_traj_mf(mesh, dev, name: str) -> None:
           "solve")
 
 
-def par_window(mesh, dev, name: str) -> None:
+def par_window(mesh, dev, name: str, figs: list) -> None:
     """Window-size sharded BA (FAST_CONFIG.ba on window_problem: C = 10 of
     12, L = 2048, O = 6144): run_ba_sharded under psum and ring and the
     dense run_ba_traj_sharded, each against the one-device run_ba with
-    tests/test_dist_ba.py's tolerances."""
+    tests/test_dist_ba.py's tolerances; on the virtual mesh each program
+    against its eager function (figures appended to `figs`)."""
     from visualslam_tpu_torch.parallel.dist_ba import (
         run_ba_sharded,
         shard_problem,
+        sharded_ba_args,
         unshard_points,
     )
+    from visualslam_tpu_torch.parallel.programs import on_one_card
     from visualslam_tpu_torch.parallel.traj_ba import (
         run_ba_traj_sharded,
         shard_problem_trajectory,
+        traj_ba_args,
         unshard_traj,
     )
 
@@ -4616,6 +4790,14 @@ def par_window(mesh, dev, name: str) -> None:
         "landmark psum": lambda: run_ba_sharded(sp, cfg, mesh, reduce="psum"),
         "landmark ring": lambda: run_ba_sharded(sp, cfg, mesh, reduce="ring"),
         "trajectory dense": lambda: run_ba_traj_sharded(tp, cfg, mesh),
+    }
+    programs = {
+        "landmark psum": (run_ba_sharded.program,
+                          sharded_ba_args(sp, cfg, mesh, reduce="psum")),
+        "landmark ring": (run_ba_sharded.program,
+                          sharded_ba_args(sp, cfg, mesh, reduce="ring")),
+        "trajectory dense": (run_ba_traj_sharded.program,
+                             traj_ba_args(tp, cfg, mesh)),
     }
     tol = PAR_WIN_TOL
     out = {"run_ba": dict(cost=[float(single.initial_cost),
@@ -4642,6 +4824,10 @@ def par_window(mesh, dev, name: str) -> None:
         for f in ("R", "t", "X"):
             check(err[f] <= tol[f], f"{name} {k}: |{f} - one-device| <= "
                   f"{tol[f]}")
+        if on_one_card(mesh.devices):
+            prog, args = programs[k]
+            figs.append(mesh_program_check(f"{name} window BA {k}", prog,
+                                           *args, ran=r))
     print(f"parallel {name} window BA (C = 10 of {p.R.shape[0]}, L = {L}, O "
           f"= {p.uv.shape[0]}, FAST_CONFIG.ba): {json.dumps(out)} (ms per "
           f"solve, host clock + read-back, median of 3)")
@@ -4657,15 +4843,34 @@ def par_tracker(mesh, frames: np.ndarray, seq, dev, name: str) -> None:
     PAR_SEQ_BOUNDS, twice the JAX package's over the same seeds with the
     same (synchronous) window BA. Seed 0's run is also held to the
     one-device tracker with that timing (async_ba=False): keyframes equal,
-    ATE and mean inliers within PAR_SEQ_ATE / PAR_SEQ_INLIERS."""
+    ATE and mean inliers within PAR_SEQ_ATE / PAR_SEQ_INLIERS; and, where
+    the sharded solve replays graphs (the virtual mesh), bit for bit to
+    the same tracker with the sharded solve run eagerly (the program's
+    eager function): frames, map and last window-BA cost. The sharded
+    solve's keys captured per run (one where a window's shard padding is
+    new) and their capture seconds are printed."""
     from visualslam_tpu_torch.parallel import traj_ba
+    from visualslam_tpu_torch.parallel.programs import on_one_card
 
     calls = []
     run = traj_ba.run_ba_traj_sharded
+    prog = run.program
 
     def counted(*a, **kw):
         calls.append(1)
         return run(*a, **kw)
+
+    def eager(*a, **kw):
+        calls.append(1)
+        return prog.fn(*traj_ba.traj_ba_args(*a, **kw))
+
+    captures = []
+    key_graphs = prog._key_graphs
+
+    def captured(x, cfg):
+        graphs = key_graphs(x, cfg)
+        captures.append(graphs.capture_s)
+        return graphs
 
     def stream(tracker):
         t0 = time.perf_counter()
@@ -4677,20 +4882,31 @@ def par_tracker(mesh, frames: np.ndarray, seq, dev, name: str) -> None:
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
-    gt = seq.gt_poses[:, :, 3]
-    runs = []
-    for seed in range(PAR_SEQ_SEEDS):
-        cfg = FAST_CONFIG.replace(
-            ransac=FAST_CONFIG.ransac.replace(seed=seed))
+    def mesh_run(cfg, solve):
         calls.clear()
-        traj_ba.run_ba_traj_sharded = counted
+        captures.clear()
+        traj_ba.run_ba_traj_sharded = solve
+        prog._key_graphs = captured
         try:
             tracker = Tracker(cfg, seq.intrinsics, device=dev, mesh=mesh)
             wall = stream(tracker)
         finally:
             traj_ba.run_ba_traj_sharded = run
+            del prog._key_graphs
+        return tracker, wall
+
+    gt = seq.gt_poses[:, :, 3]
+    runs = []
+    for seed in range(PAR_SEQ_SEEDS):
+        cfg = FAST_CONFIG.replace(
+            ransac=FAST_CONFIG.ransac.replace(seed=seed))
+        tracker, wall = mesh_run(cfg, counted)
+        if seed == 0:
+            first = tracker
         stats = sequence_stats(tracker, gt, PAR_SEQ_FRAMES)
         runs.append(dict(seed=seed, s=round(wall, 3), sharded=len(calls),
+                         captured_keys=len(captures),
+                         capture_s=round(sum(captures), 3),
                          last_cost=tracker.last_ba_cost, **stats))
         check(len(calls) > 0 and tracker.last_ba_cost >= 0,
               f"{name} seed {seed}: the tracker's window BA ran sharded")
@@ -4729,6 +4945,19 @@ def par_tracker(mesh, frames: np.ndarray, seq, dev, name: str) -> None:
           <= PAR_SEQ_INLIERS * ref["mean_inliers"],
           f"{name}: mean inliers within {PAR_SEQ_INLIERS} of the "
           "one-device tracker's")
+    if not on_one_card(mesh.devices):
+        return
+    twin, wall_e = mesh_run(FAST_CONFIG.replace(
+        ransac=FAST_CONFIG.ransac.replace(seed=0)), eager)
+    diffs = state_diffs(first, twin)
+    print(f"parallel {name} Tracker(FAST_CONFIG, mesh) seed 0 with the "
+          f"sharded solve eager: {len(calls)} solves in {wall_e:.3f} s "
+          f"(graphs: {r0['s']:.3f} s), last cost {twin.last_ba_cost:.9e} "
+          f"(graphs {first.last_ba_cost:.9e}); state apart: {diffs}")
+    check(not diffs and twin.last_ba_cost == first.last_ba_cost
+          and len(calls) == r0["sharded"],
+          f"{name}: the mesh tracker with the sharded solve's graphs equals "
+          "its eager twin bit for bit (frames, map, last window-BA cost)")
 
 
 def par_global_ba(mesh, ks_tracker, dev, name: str) -> None:
@@ -4851,11 +5080,14 @@ def phase_parallel(frames: np.ndarray, frontend: SiftFrontend, card: str,
     over cuda:0..3 where four cards are visible): the dry run, the
     data-parallel frontend at full width, the C = 1024 matrix-free
     trajectory-sharded BA, window-size sharded BA (landmark psum / ring,
-    trajectory dense), Tracker(mesh) over frames 0..55, global BA over the
-    mesh on the KITTI-scale tracker, and the stage-overlapped pipeline.
+    trajectory dense), the sharded 2-NN, Tracker(mesh) over frames 0..55,
+    global BA over the mesh on the KITTI-scale tracker, and the
+    stage-overlapped pipeline. On the virtual mesh the five sharded
+    programs replay captured graphs, and each is held to its eager
+    function (mesh_program_check; one JSON line of their figures).
     Returns the frontend kernels' launches on the data-parallel path."""
-    from visualslam_tpu_torch.parallel.dryrun import run_dryrun
     from visualslam_tpu_torch.parallel.mesh import make_mesh
+    from visualslam_tpu_torch.parallel.programs import on_one_card
 
     t_phase = time.perf_counter()
     print(f"parallel: {card}")
@@ -4875,15 +5107,21 @@ def phase_parallel(frames: np.ndarray, frontend: SiftFrontend, card: str,
           f"after another on one card: its times are no multi-GPU scaling "
           f"figure)")
     counts = dict.fromkeys(FRONTEND_PATH, 0)
+    figs: list = []
     for name, mesh in meshes:
-        run_dryrun(PAR_SHARDS, devices=list(mesh.devices))
-        for k, v in par_frontend(mesh, frontend, frames_dev, name).items():
+        graphs = on_one_card(mesh.devices)
+        figs += par_dryrun(mesh, name, graphs)
+        for k, v in par_frontend(mesh, frontend, frames_dev, name,
+                                 figs).items():
             counts[k] += v
-        par_traj_mf(mesh, dev, name)
-        par_window(mesh, dev, name)
+        par_traj_mf(mesh, dev, name, figs)
+        par_window(mesh, dev, name, figs)
+        if graphs:
+            figs.append(par_2nn(mesh, dev, name))
         par_tracker(mesh, frames, seq, dev, name)
         par_global_ba(mesh, ks_tracker, dev, name)
     par_pipeline(frames, seq, dev, "virtual")
+    print(json.dumps({"parallel_programs": figs}))
     print(f"parallel phase wall time: {time.perf_counter() - t_phase:.1f} s")
     return counts
 

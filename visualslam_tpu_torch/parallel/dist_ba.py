@@ -14,7 +14,8 @@ Parallel decomposition:
 
 LM accept / reject uses the psum'd global cost, so every shard takes the
 same decision. The shards run one after another in one Python loop
-(parallel/mesh.py); nothing is read on the host inside the LM loop.
+(parallel/mesh.py); nothing is read on the host inside the LM loop, which
+on one card replays captured graphs (parallel/programs.py).
 """
 
 from __future__ import annotations
@@ -37,6 +38,11 @@ from visualslam_tpu_torch.backend.ba import (
 )
 from visualslam_tpu_torch.parallel import collectives as col
 from visualslam_tpu_torch.parallel.mesh import Mesh, axis_devices
+from visualslam_tpu_torch.parallel.programs import (
+    MeshKey,
+    MeshLoopProgram,
+    mesh_input,
+)
 from visualslam_tpu_torch.utils.config import BAConfig
 from visualslam_tpu_torch.utils.precision import f32_matmul
 
@@ -174,23 +180,17 @@ def unshard_points(X_sharded: torch.Tensor,
     return X[torch.as_tensor(inv, device=X.device)]
 
 
-def run_ba_sharded(sp: ShardedBAProblem, cfg: BAConfig, mesh: Mesh,
-                   axis: str = "shard", reduce: str = "psum") -> BAResult:
-    """Distributed LM loop over the mesh's shards. Returns BAResult with X
-    stacked [n, L_s, 3] (use unshard_points) and the replicated values, all
-    on the first shard's device.
+def _sharded_enter(x: tuple, key: MeshKey):
+    """(aux, carry) of the sharded LM loop: each shard's problem views,
+    segment-sum plans and the psum'd initial cost; the per-shard state,
+    damping and cost, a tuple of per-shard tuples each. On a virtual mesh
+    `Tensor.to` hands every shard the same replicated tensor: only reads
+    share it, and the steps write fresh tensors."""
+    sp = ShardedBAProblem(*x, lm_order=None)
+    cfg, devs = key.cfg, key.devices
 
-    reduce: "psum" (shards summed in index order) or "ring" (the explicit
-    reduce-scatter ring + all-gather, parallel/collectives.py)."""
-    if reduce not in ("psum", "ring"):
-        raise ValueError(f"unknown reduce {reduce!r}")
-    allreduce = col.ring_allreduce if reduce == "ring" else col.psum
-    f32_matmul()
-    devs = axis_devices(mesh, axis)
-    n = len(devs)
-
-    def rep(x):
-        return [x.to(d) for d in devs]
+    def rep(v):
+        return [v.to(d) for d in devs]
 
     cv = rep(sp.cam_valid)
     shards = [BAProblem(
@@ -204,45 +204,104 @@ def run_ba_sharded(sp: ShardedBAProblem, cfg: BAConfig, mesh: Mesh,
     # one set of segment-sum plans per shard, built once
     plans = [ba_plans(p.cam_idx, p.lm_idx, R[s].shape[0], X[s].shape[0])
              for s, p in enumerate(shards)]
-    lam = [torch.full((), cfg.damping_init, dtype=x.dtype, device=x.device)
-           for x in X]
+    lam = [torch.full((), cfg.damping_init, dtype=v.dtype, device=v.device)
+           for v in X]
     cost = col.psum([robust_cost(p, R[s], t[s], X[s], cfg.huber_delta)
                      for s, p in enumerate(shards)])
-    init_cost = cost[0]
+    return (shards, plans, cost[0]), tuple(
+        tuple(v) for v in (R, t, X, lam, cost))
 
-    for _ in range(cfg.iters):
-        S, b, V_inv, bl, Wd = [], [], [], [], []
-        for s, p in enumerate(shards):
-            U, V, bc, bl_s, Wd_s = normal_equations(p, R[s], t[s], X[s], cfg,
-                                                    plans[s])
-            S_s, b_s, Vi = schur_camera_system(U, V, bc, bl_s, Wd_s, lam[s])
-            S.append(S_s)
-            b.append(b_s)
-            V_inv.append(Vi)
-            bl.append(bl_s)
-            Wd.append(Wd_s)
-        S = allreduce(S)                    # the one collective per iter
-        b = allreduce(b)
-        prop = []
-        for s, p in enumerate(shards):
-            dc = solve_cameras(S[s], b[s], p.cam_valid, lam[s], cfg)
-            dl = backsub_landmarks(V_inv[s], bl[s], Wd[s], dc, p.lm_valid)
-            prop.append(apply_increments(R[s], t[s], X[s], dc, dl))
-        new_cost = col.psum([robust_cost(p, *prop[s], cfg.huber_delta)
-                             for s, p in enumerate(shards)])
-        for s in range(n):
-            (R[s], t[s], X[s]), cost[s], lam[s] = lm_update(
-                cfg, new_cost[s], cost[s], lam[s], prop[s],
-                (R[s], t[s], X[s]))
-    if reduce == "ring":
+
+def _sharded_step(x: tuple, key: MeshKey, aux, carry) -> tuple:
+    """One LM iteration over every shard: the partial Schur systems, their
+    all-reduce (the one collective per iteration), the replicated camera
+    solve, each shard's back-substitution and the psum'd accept."""
+    shards, plans, _ = aux
+    cfg = key.cfg
+    allreduce = col.ring_allreduce if key.reduce == "ring" else col.psum
+    R, t, X, lam, cost = (list(v) for v in carry)
+    S, b, V_inv, bl, Wd = [], [], [], [], []
+    for s, p in enumerate(shards):
+        U, V, bc, bl_s, Wd_s = normal_equations(p, R[s], t[s], X[s], cfg,
+                                                plans[s])
+        S_s, b_s, Vi = schur_camera_system(U, V, bc, bl_s, Wd_s, lam[s])
+        S.append(S_s)
+        b.append(b_s)
+        V_inv.append(Vi)
+        bl.append(bl_s)
+        Wd.append(Wd_s)
+    S = allreduce(S)
+    b = allreduce(b)
+    prop = []
+    for s, p in enumerate(shards):
+        dc = solve_cameras(S[s], b[s], p.cam_valid, lam[s], cfg)
+        dl = backsub_landmarks(V_inv[s], bl[s], Wd[s], dc, p.lm_valid)
+        prop.append(apply_increments(R[s], t[s], X[s], dc, dl))
+    new_cost = col.psum([robust_cost(p, *prop[s], cfg.huber_delta)
+                         for s, p in enumerate(shards)])
+    for s in range(len(shards)):
+        (R[s], t[s], X[s]), cost[s], lam[s] = lm_update(
+            cfg, new_cost[s], cost[s], lam[s], prop[s], (R[s], t[s], X[s]))
+    return tuple(tuple(v) for v in (R, t, X, lam, cost))
+
+
+def _sharded_result(x: tuple, key: MeshKey, aux, carry) -> BAResult:
+    """The replicated values of the first shard and the stacked points,
+    on the first shard's device."""
+    R, t, X, lam, cost = carry
+    if key.reduce == "ring":
         # the JAX ring path closes with the mean of the replicated values
         # (there a type-system necessity); kept for equal results
-        inv = 1.0 / n
+        inv = 1.0 / len(key.devices)
         R = [r * inv for r in col.psum(R)]
         t = [v * inv for v in col.psum(t)]
         cost = [c * inv for c in col.psum(cost)]
         lam = [v * inv for v in col.psum(lam)]
-    d0 = devs[0]
-    return BAResult(R=R[0], t=t[0], X=torch.stack([x.to(d0) for x in X]),
-                    cost=cost[0], initial_cost=init_cost,
-                    lm_lambda=lam[0])
+    d0 = key.devices[0]
+    return BAResult(R=R[0], t=t[0], X=torch.stack([v.to(d0) for v in X]),
+                    cost=cost[0], initial_cost=aux[2], lm_lambda=lam[0])
+
+
+def _run_ba_sharded(x: tuple, key: MeshKey) -> BAResult:
+    """The eager sharded LM loop: enter, key.cfg.iters steps, result (what
+    the graphs replay)."""
+    f32_matmul()
+    aux, carry = _sharded_enter(x, key)
+    for _ in range(key.cfg.iters):
+        carry = _sharded_step(x, key, aux, carry)
+    return _sharded_result(x, key, aux, carry)
+
+
+_RUN_BA_SHARDED = MeshLoopProgram(_run_ba_sharded, _sharded_enter,
+                                  _sharded_step, _sharded_result)
+
+
+def sharded_ba_args(sp: ShardedBAProblem, cfg: BAConfig, mesh: Mesh,
+                    axis: str = "shard", reduce: str = "psum") -> tuple:
+    """run_ba_sharded's program arguments (x, MeshKey): the problem's
+    tensors (lm_order, host-side, stays out) and the static key."""
+    if reduce not in ("psum", "ring"):
+        raise ValueError(f"unknown reduce {reduce!r}")
+    devs = axis_devices(mesh, axis)
+    return (mesh_input(tuple(sp)[:-1], devs),
+            MeshKey(cfg, devs, axis, reduce))
+
+
+def run_ba_sharded(sp: ShardedBAProblem, cfg: BAConfig, mesh: Mesh,
+                   axis: str = "shard", reduce: str = "psum") -> BAResult:
+    """Distributed LM loop over the mesh's shards. Returns BAResult with X
+    stacked [n, L_s, 3] (use unshard_points) and the replicated values, all
+    on the first shard's device.
+
+    reduce: "psum" (shards summed in index order) or "ring" (the explicit
+    reduce-scatter ring + all-gather, parallel/collectives.py).
+
+    On a mesh whose shards are all one CUDA device the loop replays
+    captured graphs per shape key and (cfg, devices, axis, reduce)
+    (parallel/programs.MeshLoopProgram; the JAX package's jitted
+    shard_map); on the CPU and over several devices it runs eagerly.
+    The results are the caller's."""
+    return _RUN_BA_SHARDED(*sharded_ba_args(sp, cfg, mesh, axis, reduce))
+
+
+run_ba_sharded.program = _RUN_BA_SHARDED

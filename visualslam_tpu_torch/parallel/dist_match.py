@@ -10,7 +10,8 @@ its shard with one float32 product, and a min tournament combines them:
 Communication: pmins / pmaxes / one psum of [Ka] vectors, independent of
 Kb; the full [Ka, Kb] distance matrix never exists on any device. Ties go
 to the lowest index within a shard (`utils/masked.top_k`, jax.lax.top_k's
-order) and to the lowest shard across shards.
+order) and to the lowest shard across shards. On one card the whole of it
+replays one captured graph (parallel/programs.py).
 """
 
 from __future__ import annotations
@@ -20,6 +21,11 @@ import torch
 
 from visualslam_tpu_torch.parallel import collectives as col
 from visualslam_tpu_torch.parallel.mesh import Mesh, axis_devices
+from visualslam_tpu_torch.parallel.programs import (
+    MeshGraphProgram,
+    MeshKey,
+    mesh_input,
+)
 from visualslam_tpu_torch.utils.masked import top_k
 from visualslam_tpu_torch.utils.precision import f32_matmul
 
@@ -38,14 +44,12 @@ def _local_2nn(qa: torch.Tensor, kb: torch.Tensor, vb: torch.Tensor):
     return -neg2[:, 0], -neg2[:, 1], idx2[:, 0]
 
 
-def sharded_2nn(qa: torch.Tensor, kb_sharded: torch.Tensor,
-                vb_sharded: torch.Tensor, mesh: Mesh, axis: str = "shard"):
-    """Global 2-NN over a B side sharded as [n, Kb_s, D] (+ validity
-    [n, Kb_s]). Returns (best [Ka], second [Ka], global_idx [Ka] int32) on
-    the first shard's device, with global_idx = shard * Kb_s + local
-    index."""
+def _sharded_2nn(x: tuple, cfg: tuple) -> tuple:
+    """The sharded 2-NN over the mesh: x = (qa, kb_sharded, vb_sharded),
+    cfg = (MeshKey, None)."""
+    qa, kb_sharded, vb_sharded = x
+    devs = cfg[0].devices
     f32_matmul()
-    devs = axis_devices(mesh, axis)
     n = len(devs)
     Kb_s = kb_sharded.shape[1]
     best, second, gidx = [], [], []
@@ -75,6 +79,37 @@ def sharded_2nn(qa: torch.Tensor, kb_sharded: torch.Tensor,
     gidx_out = col.psum([torch.where(k, i, torch.zeros_like(i))
                          for k, i in zip(keep, gidx)])
     return gbest[0], gsecond[0], gidx_out[0]
+
+
+_SHARDED_2NN = MeshGraphProgram(_sharded_2nn)
+
+
+def sharded_2nn_args(qa: torch.Tensor, kb_sharded: torch.Tensor,
+                     vb_sharded: torch.Tensor, mesh: Mesh,
+                     axis: str = "shard") -> tuple:
+    """sharded_2nn's program arguments (x, (MeshKey, None))."""
+    devs = axis_devices(mesh, axis)
+    return (mesh_input((qa, kb_sharded, vb_sharded), devs),
+            (MeshKey(None, devs, axis), None))
+
+
+def sharded_2nn(qa: torch.Tensor, kb_sharded: torch.Tensor,
+                vb_sharded: torch.Tensor, mesh: Mesh, axis: str = "shard"):
+    """Global 2-NN over a B side sharded as [n, Kb_s, D] (+ validity
+    [n, Kb_s]). Returns (best [Ka], second [Ka], global_idx [Ka] int32) on
+    the first shard's device, with global_idx = shard * Kb_s + local
+    index.
+
+    On a mesh whose shards are all one CUDA device the shards' products
+    and the tournament replay one captured graph per shape key and
+    (devices, axis) (parallel/programs.MeshGraphProgram; the JAX package's
+    jitted shard_map); on the CPU and over several devices they run
+    eagerly. The results are the caller's."""
+    return _SHARDED_2NN(*sharded_2nn_args(qa, kb_sharded, vb_sharded, mesh,
+                                          axis))
+
+
+sharded_2nn.program = _SHARDED_2NN
 
 
 def shard_descriptors(desc: np.ndarray, valid: np.ndarray, n: int,

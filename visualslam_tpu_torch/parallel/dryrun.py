@@ -4,63 +4,101 @@ which is sequence-scale:
 
   1. the data-parallel SIFT frontend (each 'data' shard detects its frames,
      then a psum of the detection count),
-  2. the fused per-frame tracking program (slam/track_step.track_step),
+  2. the fused per-frame tracking program (slam/track_step.track_step_jit),
   3. the landmark-sharded Schur BA (all-reduced reduced camera system),
   4. the trajectory-sharded BA over a multi-keyframe window (camera blocks
      per shard, ring Schur reduce-scatter, distributed CG), and
   5. the matrix-free trajectory-sharded BA at C = 1024, L = 4096.
 
 `run_dryrun(n, devices=[torch.device("cpu")] * n)` runs it on a virtual
-CPU mesh; without `devices` the mesh is the first n CUDA devices.
+CPU mesh, eagerly; without `devices` the mesh is the first n CUDA devices.
+On a virtual mesh of one card (`devices=[cuda] * n`) every step replays
+captured CUDA graphs, as the JAX package jits each
+(parallel/programs.py); the `dryrun_*` functions give each step's inputs.
 """
 
 from __future__ import annotations
-
-import copy
 
 import numpy as np
 import torch
 
 from visualslam_tpu_torch.backend.ba import BAProblem
+from visualslam_tpu_torch.frontend import SiftFrontend, frontend_module
 from visualslam_tpu_torch.parallel import collectives as col
 from visualslam_tpu_torch.parallel.mesh import Mesh, axis_devices, make_mesh
+from visualslam_tpu_torch.parallel.programs import MeshGraphProgram, MeshKey
 from visualslam_tpu_torch.utils.config import DEFAULT_CONFIG, BAConfig
 
 
-def data_parallel_frontend(frontend, frames, mesh: Mesh, axis: str = "data"):
-    """Each shard of `axis` runs `frontend` (an nn.Module, e.g.
-    frontend.SiftFrontend) on its contiguous block of `frames` [N, H, W]
-    (numpy or tensor, N a multiple of the shard count), then the detection
-    counts are psum'd. Returns (one batched Features per shard, on its
-    device; the total detection count, one 0-d tensor per shard). A shard
-    on another device than the first gets its own copy of the module."""
+def _dp_frontend(x: tuple, cfg: tuple) -> tuple:
+    """The data-parallel frontend over the mesh: x = one [per, H, W]
+    chunk of frames per shard, on its device; cfg = (MeshKey(SlamConfig,
+    ...), Kernels). Each chunk goes through the process's frontend module
+    of (config, kernels) on its device (frontend.frontend_module), then
+    the detection counts are psum'd. Returns (Features per shard, the
+    total per shard)."""
+    key, kernels = cfg
+    feats = tuple(frontend_module(key.cfg, kernels, c.device)(c) for c in x)
+    total = col.psum([f.keypoints.valid.sum() for f in feats])
+    return feats, tuple(total)
+
+
+_DP_FRONTEND = MeshGraphProgram(_dp_frontend)
+
+
+def frontend_args(frontend, frames, mesh: Mesh, axis: str = "data") -> tuple:
+    """data_parallel_frontend's program arguments (x, (MeshKey, kernels)):
+    each shard's contiguous block of `frames` on its device (numpy frames
+    are uploaded here, outside any capture) and the static key of the
+    module's config and kernel set."""
     devs = axis_devices(mesh, axis)
     n = len(devs)
     N = frames.shape[0]
     if N % n:
         raise ValueError(f"{N} frames do not split over {n} shards")
+    if isinstance(frames, np.ndarray):
+        frames = torch.from_numpy(np.ascontiguousarray(frames))
     per = N // n
-    modules = {}
-    feats = []
-    for s, dev in enumerate(devs):
-        if dev not in modules:
-            modules[dev] = frontend if not modules else copy.deepcopy(frontend)
-        chunk = frames[s * per:(s + 1) * per]
-        if isinstance(chunk, np.ndarray):
-            chunk = torch.from_numpy(np.ascontiguousarray(chunk))
-        feats.append(modules[dev](chunk.to(dev)))
-    total = col.psum([f.keypoints.valid.sum() for f in feats])
-    return feats, total
+    x = tuple(frames[s * per:(s + 1) * per].to(d) for s, d in enumerate(devs))
+    return x, (MeshKey(frontend.cfg, devs, axis), frontend.kernels)
+
+
+def data_parallel_frontend(frontend, frames, mesh: Mesh, axis: str = "data"):
+    """Each shard of `axis` runs the frontend of `frontend`'s config and
+    kernel set (an nn.Module of frontend.py, e.g. SiftFrontend; the
+    process's module of that config on each shard's device,
+    `frontend.frontend_module`) on its contiguous block of `frames`
+    [N, H, W] (numpy or tensor, N a multiple of the shard count), then the
+    detection counts are psum'd. Returns (one batched Features per shard,
+    on its device; the total detection count, one 0-d tensor per shard).
+
+    On a mesh whose shards are all one CUDA device every shard's frontend
+    and the psum replay one captured graph per shape key and (config,
+    kernels, devices, axis) (parallel/programs.MeshGraphProgram; the JAX
+    package's jitted shard_map); on the CPU, over several devices and for
+    the plain kernel set they run eagerly. The results are the
+    caller's."""
+    feats, total = _DP_FRONTEND(*frontend_args(frontend, frames, mesh, axis))
+    return list(feats), list(total)
+
+
+data_parallel_frontend.program = _DP_FRONTEND
+
+
+DRYRUN_FRONTEND_CONFIG = DEFAULT_CONFIG.replace(image_height=64,
+                                                image_width=96)
+
+
+def dryrun_frames(n_devices: int) -> np.ndarray:
+    """The frontend dry run's frames: one 64x96 float frame a shard."""
+    rng = np.random.default_rng(0)
+    return rng.random((n_devices, 64, 96), dtype=np.float32)
 
 
 def _dryrun_frontend(n_devices: int, devices=None) -> None:
-    from visualslam_tpu_torch.frontend import SiftFrontend
-
     mesh = make_mesh(n_devices, axis="data", devices=devices)
-    cfg = DEFAULT_CONFIG.replace(image_height=64, image_width=96)
-    rng = np.random.default_rng(0)
-    imgs = rng.random((n_devices, 64, 96), dtype=np.float32)
-    feats, total = data_parallel_frontend(SiftFrontend(cfg), imgs, mesh)
+    feats, total = data_parallel_frontend(
+        SiftFrontend(DRYRUN_FRONTEND_CONFIG), dryrun_frames(n_devices), mesh)
     assert len(feats) == n_devices
     print(f"[dryrun] frontend mesh={dict(mesh.shape)} "
           f"total_detections={int(total[0])}")
@@ -83,13 +121,10 @@ def _rot_y(a: float) -> np.ndarray:
     return np.array([[c, 0.0, s], [0.0, 1.0, 0.0], [-s, 0.0, c]])
 
 
-def _dryrun_ba(n_devices: int, devices=None) -> None:
-    from visualslam_tpu_torch.parallel.dist_ba import (
-        run_ba_sharded,
-        shard_problem,
-    )
-
-    mesh = make_mesh(n_devices, axis="shard", devices=devices)
+def dryrun_ba_problem(n_devices: int, device) -> BAProblem:
+    """The landmark-sharded dry run's problem: C = 4 cameras, 16
+    landmarks a shard, each seen by every camera, landmarks perturbed by
+    0.05."""
     rng = np.random.default_rng(1)
     C, L = 4, 16 * n_devices
     X = rng.uniform([-2, -2, 5], [2, 2, 9], (L, 3))
@@ -99,31 +134,45 @@ def _dryrun_ba(n_devices: int, devices=None) -> None:
     lm_idx = np.repeat(np.arange(L), C)
     Xc = np.einsum("oij,oj->oi", R[cam_idx], X[lm_idx]) + t[cam_idx]
     uv = Xc[:, :2] / Xc[:, 2:]
-    p = _problem(R, t, X + rng.normal(0, 0.05, X.shape), cam_idx, lm_idx,
-                 uv, np.ones(len(cam_idx), bool), mesh.devices[0])
-    res = run_ba_sharded(shard_problem(p, n_devices), BAConfig(iters=3),
-                         mesh)
+    return _problem(R, t, X + rng.normal(0, 0.05, X.shape), cam_idx, lm_idx,
+                    uv, np.ones(len(cam_idx), bool), device)
+
+
+DRYRUN_BA_CONFIG = BAConfig(iters=3)
+
+
+def _dryrun_ba(n_devices: int, devices=None) -> None:
+    from visualslam_tpu_torch.parallel.dist_ba import (
+        run_ba_sharded,
+        shard_problem,
+    )
+
+    mesh = make_mesh(n_devices, axis="shard", devices=devices)
+    p = dryrun_ba_problem(n_devices, mesh.devices[0])
+    res = run_ba_sharded(shard_problem(p, n_devices), DRYRUN_BA_CONFIG, mesh)
     print(f"[dryrun] sharded BA mesh={dict(mesh.shape)} "
           f"cost {float(res.initial_cost):.3e} -> {float(res.cost):.3e}")
     assert float(res.cost) < float(res.initial_cost)
 
 
-def _dryrun_track_step(n_devices: int, devices=None) -> None:
-    """The fused per-frame tracking program at small shapes (the sequence
-    step between frontend and backend), on the mesh's first device."""
+DRYRUN_TRACK_CONFIG = DEFAULT_CONFIG.replace(
+    sift=DEFAULT_CONFIG.sift.replace(max_keypoints=64),
+    match=DEFAULT_CONFIG.match.replace(max_matches=32),
+    local_map_size=64)
+
+
+def dryrun_track_inputs(device) -> tuple:
+    """The track-step dry run's (kf, lmap, feats, state, intr) on
+    `device`: 64 random keypoints and descriptors per frame, a 64-point
+    local map."""
     from visualslam_tpu_torch.models.types import Features, Keypoints
     from visualslam_tpu_torch.slam.track_step import (
         KeyframeRef,
         LocalMap,
         TrackState,
-        track_step,
     )
 
-    dev = make_mesh(n_devices, axis="shard", devices=devices).devices[0]
-    cfg = DEFAULT_CONFIG.replace(
-        sift=DEFAULT_CONFIG.sift.replace(max_keypoints=64),
-        match=DEFAULT_CONFIG.match.replace(max_matches=32),
-        local_map_size=64)
+    dev = device
     rng = np.random.default_rng(2)
     K, D, Kl = 64, 128, 64
 
@@ -150,9 +199,42 @@ def _dryrun_track_step(n_devices: int, devices=None) -> None:
                        t=torch.zeros(3, device=dev),
                        vel=torch.zeros(6, device=dev))
     intr = torch.tensor([60.0, 60.0, 30.0, 30.0], device=dev)
-    out = track_step(kf, lmap, feats(2), state, intr, cfg, 10, 100.0)
+    return kf, lmap, feats(2), state, intr
+
+
+DRYRUN_TRACK_ARGS = (10, 100.0)     # min_inliers, max_depth
+
+
+def _dryrun_track_step(n_devices: int, devices=None) -> None:
+    """The fused per-frame tracking program at small shapes (the sequence
+    step between frontend and backend), on the mesh's first device,
+    through track_step_jit (the JAX package's jitted track_step)."""
+    from visualslam_tpu_torch.slam.track_step import track_step_jit
+
+    dev = make_mesh(n_devices, axis="shard", devices=devices).devices[0]
+    out = track_step_jit(*dryrun_track_inputs(dev), DRYRUN_TRACK_CONFIG,
+                         *DRYRUN_TRACK_ARGS)
     print(f"[dryrun] fused track_step OK (stats[:4]="
           f"{out.stats[:4].cpu().numpy().round(2).tolist()})")
+
+
+def dryrun_traj_problem(n_devices: int, device) -> BAProblem:
+    """The trajectory-sharded dry run's window: 2 cameras and 8 landmarks
+    a shard, each landmark seen by every camera, perturbed by 0.03."""
+    rng = np.random.default_rng(3)
+    C, L = 2 * n_devices, 8 * n_devices      # multi-keyframe window
+    X = rng.uniform([-2, -2, 5], [2, 2, 9], (L, 3))
+    R = np.stack([_rot_y(0.01 * c) for c in range(C)])
+    t = np.stack([np.array([-0.2 * c, 0.0, 0.0]) for c in range(C)])
+    cam_idx = np.tile(np.arange(C), L)
+    lm_idx = np.repeat(np.arange(L), C)
+    Xc = np.einsum("oij,oj->oi", R[cam_idx], X[lm_idx]) + t[cam_idx]
+    uv = Xc[:, :2] / Xc[:, 2:]
+    return _problem(R, t, X + rng.normal(0, 0.03, X.shape), cam_idx, lm_idx,
+                    uv, np.ones(len(cam_idx), bool), device)
+
+
+DRYRUN_TRAJ_CONFIG = BAConfig(iters=3, cg_iters=32)
 
 
 def _dryrun_traj_ba(n_devices: int, devices=None) -> None:
@@ -165,21 +247,11 @@ def _dryrun_traj_ba(n_devices: int, devices=None) -> None:
     )
 
     mesh = make_mesh(n_devices, axis="shard", devices=devices)
-    rng = np.random.default_rng(3)
-    C, L = 2 * n_devices, 8 * n_devices      # multi-keyframe window
-    X = rng.uniform([-2, -2, 5], [2, 2, 9], (L, 3))
-    R = np.stack([_rot_y(0.01 * c) for c in range(C)])
-    t = np.stack([np.array([-0.2 * c, 0.0, 0.0]) for c in range(C)])
-    cam_idx = np.tile(np.arange(C), L)
-    lm_idx = np.repeat(np.arange(L), C)
-    Xc = np.einsum("oij,oj->oi", R[cam_idx], X[lm_idx]) + t[cam_idx]
-    uv = Xc[:, :2] / Xc[:, 2:]
-    p = _problem(R, t, X + rng.normal(0, 0.03, X.shape), cam_idx, lm_idx,
-                 uv, np.ones(len(cam_idx), bool), mesh.devices[0])
+    p = dryrun_traj_problem(n_devices, mesh.devices[0])
     sp = shard_problem_trajectory(p, n_devices)
-    res = run_ba_traj_sharded(sp, BAConfig(iters=3, cg_iters=32), mesh)
+    res = run_ba_traj_sharded(sp, DRYRUN_TRAJ_CONFIG, mesh)
     print(f"[dryrun] traj-sharded BA mesh={dict(mesh.shape)} "
-          f"C={C} (x{n_devices} blocks) cost "
+          f"C={p.R.shape[0]} (x{n_devices} blocks) cost "
           f"{float(res.initial_cost):.3e} -> {float(res.cost):.3e}")
     assert float(res.cost) < float(res.initial_cost)
 

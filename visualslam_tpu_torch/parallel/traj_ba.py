@@ -22,7 +22,8 @@ Parallel decomposition (vs parallel/dist_ba.py, which replicates cameras):
 
 The shards run one after another in one Python loop (parallel/mesh.py).
 Every loop has a fixed trip count and freezes with `torch.where`, so
-nothing is read on the host inside the LM or CG loops.
+nothing is read on the host inside the LM or CG loops, and on one card
+the LM loop replays captured graphs (parallel/programs.py).
 """
 
 from __future__ import annotations
@@ -49,6 +50,11 @@ from visualslam_tpu_torch.ops.cuda.segment import segment_sum
 from visualslam_tpu_torch.parallel import collectives as col
 from visualslam_tpu_torch.parallel.dist_ba import _np, lm_update
 from visualslam_tpu_torch.parallel.mesh import Mesh, axis_devices
+from visualslam_tpu_torch.parallel.programs import (
+    MeshKey,
+    MeshLoopProgram,
+    mesh_input,
+)
 from visualslam_tpu_torch.utils.config import BAConfig
 from visualslam_tpu_torch.utils.precision import f32_matmul
 
@@ -359,17 +365,32 @@ def _step_dense(shards, R_all, t_all, X, lam, cv_blk, Cs: int,
             for s, p in enumerate(shards)]
 
 
-def run_ba_traj_sharded(sp: TrajShardedBAProblem, cfg: BAConfig,
-                        mesh: Mesh, axis: str = "shard") -> BAResult:
-    """Distributed LM loop over the trajectory-sharded problem, at float32
-    product precision (TF32 off). Returns BAResult with R/t/X still stacked
-    per shard (use unshard_traj), on the first shard's device."""
-    f32_matmul()
-    devs = axis_devices(mesh, axis)
-    n = len(devs)
-    Cs = sp.R.shape[1]
-    C = n * Cs
+def _gather_poses(R_blk, t_blk, C: int):
+    """Every shard's camera blocks ring all-gathered: [C, 3, 3] and
+    [C, 3] on every shard."""
+    R_all = [v.reshape(C, 3, 3) for v in col.ring_all_gather(R_blk)]
+    t_all = [v.reshape(C, 3) for v in col.ring_all_gather(t_blk)]
+    return R_all, t_all
 
+
+def _cost_of(shards, cfg: BAConfig, C: int, R_blk, t_blk, X) -> list:
+    """The psum'd robust cost of the sharded state, replicated."""
+    R_all, t_all = _gather_poses(R_blk, t_blk, C)
+    return col.psum([robust_cost(p, R_all[s], t_all[s], X[s],
+                                 cfg.huber_delta)
+                     for s, p in enumerate(shards)])
+
+
+def _traj_enter(x: tuple, key: MeshKey):
+    """(aux, carry) of the trajectory-sharded LM loop: each shard's
+    problem views (over the ring all-gathered camera validity), plans,
+    validity blocks and the psum'd initial cost; the per-shard camera
+    blocks, landmarks, damping and cost, a tuple of per-shard tuples
+    each."""
+    sp = TrajShardedBAProblem(*x, lm_order=None)
+    cfg, devs = key.cfg, key.devices
+    n = len(devs)
+    C = n * sp.R.shape[1]
     R_blk = [sp.R[s].to(d) for s, d in enumerate(devs)]
     t_blk = [sp.t[s].to(d) for s, d in enumerate(devs)]
     cv_blk = [sp.cam_valid[s].to(d) for s, d in enumerate(devs)]
@@ -384,46 +405,90 @@ def run_ba_traj_sharded(sp: TrajShardedBAProblem, cfg: BAConfig,
     plans = [ba_plans(p.cam_idx, p.lm_idx, C, X[s].shape[0],
                       cfg.solver != "schur_mf")
              for s, p in enumerate(shards)]
+    lam = [torch.full((), cfg.damping_init, dtype=v.dtype, device=v.device)
+           for v in X]
+    cost = _cost_of(shards, cfg, C, R_blk, t_blk, X)
+    return (shards, plans, cv_all, cv_blk, cost[0]), tuple(
+        tuple(v) for v in (R_blk, t_blk, X, lam, cost))
 
-    def gather_poses(R_blk, t_blk):
-        R_all = [v.reshape(C, 3, 3) for v in col.ring_all_gather(R_blk)]
-        t_all = [v.reshape(C, 3) for v in col.ring_all_gather(t_blk)]
-        return R_all, t_all
 
-    def cost_of(R_blk, t_blk, X):
-        R_all, t_all = gather_poses(R_blk, t_blk)
-        return col.psum([robust_cost(p, R_all[s], t_all[s], X[s],
-                                     cfg.huber_delta)
-                         for s, p in enumerate(shards)])
+def _traj_step(x: tuple, key: MeshKey, aux, carry) -> tuple:
+    """One LM iteration: the poses gathered, a matrix-free or dense
+    distributed step, the SE(3) update, the psum'd cost and each shard's
+    accept."""
+    shards, plans, cv_all, cv_blk, _ = aux
+    cfg = key.cfg
+    R_blk, t_blk, X, lam, cost = (list(v) for v in carry)
+    Cs = R_blk[0].shape[0]
+    C = len(shards) * Cs
+    R_all, t_all = _gather_poses(R_blk, t_blk, C)
+    if cfg.solver == "schur_mf":
+        steps = _step_mf(shards, R_all, t_all, X, lam, cv_all, Cs, cfg,
+                         plans)
+    else:
+        steps = _step_dense(shards, R_all, t_all, X, lam, cv_blk, Cs, cfg,
+                            plans)
+    Rn, tn, Xn = [], [], []
+    for s, (dc_blk, dl) in enumerate(steps):
+        dR, dt = se3.se3_exp(dc_blk)
+        Rn.append(dR @ R_blk[s])
+        tn.append((dR @ t_blk[s][..., None])[..., 0] + dt)
+        Xn.append(X[s] + dl)
+    new_cost = _cost_of(shards, cfg, C, Rn, tn, Xn)
+    for s in range(len(shards)):
+        (R_blk[s], t_blk[s], X[s]), cost[s], lam[s] = lm_update(
+            cfg, new_cost[s], cost[s], lam[s], (Rn[s], tn[s], Xn[s]),
+            (R_blk[s], t_blk[s], X[s]))
+    return tuple(tuple(v) for v in (R_blk, t_blk, X, lam, cost))
 
-    lam = [torch.full((), cfg.damping_init, dtype=x.dtype, device=x.device)
-           for x in X]
-    cost = cost_of(R_blk, t_blk, X)
-    init_cost = cost[0]
-    for _ in range(cfg.iters):
-        R_all, t_all = gather_poses(R_blk, t_blk)
-        if cfg.solver == "schur_mf":
-            steps = _step_mf(shards, R_all, t_all, X, lam, cv_all, Cs, cfg,
-                             plans)
-        else:
-            steps = _step_dense(shards, R_all, t_all, X, lam, cv_blk, Cs,
-                                cfg, plans)
-        Rn, tn, Xn = [], [], []
-        for s, (dc_blk, dl) in enumerate(steps):
-            dR, dt = se3.se3_exp(dc_blk)
-            Rn.append(dR @ R_blk[s])
-            tn.append((dR @ t_blk[s][..., None])[..., 0] + dt)
-            Xn.append(X[s] + dl)
-        new_cost = cost_of(Rn, tn, Xn)
-        for s in range(n):
-            (R_blk[s], t_blk[s], X[s]), cost[s], lam[s] = lm_update(
-                cfg, new_cost[s], cost[s], lam[s], (Rn[s], tn[s], Xn[s]),
-                (R_blk[s], t_blk[s], X[s]))
-    d0 = devs[0]
 
-    def stack(xs):
-        return torch.stack([x.to(d0) for x in xs])
+def _traj_result(x: tuple, key: MeshKey, aux, carry) -> BAResult:
+    """The per-shard stacks and the first shard's cost and damping, on
+    the first shard's device."""
+    R_blk, t_blk, X, lam, cost = carry
+    d0 = key.devices[0]
+
+    def stack(vs):
+        return torch.stack([v.to(d0) for v in vs])
 
     return BAResult(R=stack(R_blk), t=stack(t_blk), X=stack(X),
-                    cost=cost[0], initial_cost=init_cost,
-                    lm_lambda=lam[0])
+                    cost=cost[0], initial_cost=aux[4], lm_lambda=lam[0])
+
+
+def _run_ba_traj_sharded(x: tuple, key: MeshKey) -> BAResult:
+    """The eager trajectory-sharded LM loop: enter, key.cfg.iters steps,
+    result (what the graphs replay)."""
+    f32_matmul()
+    aux, carry = _traj_enter(x, key)
+    for _ in range(key.cfg.iters):
+        carry = _traj_step(x, key, aux, carry)
+    return _traj_result(x, key, aux, carry)
+
+
+_RUN_BA_TRAJ_SHARDED = MeshLoopProgram(_run_ba_traj_sharded, _traj_enter,
+                                       _traj_step, _traj_result)
+
+
+def traj_ba_args(sp: TrajShardedBAProblem, cfg: BAConfig, mesh: Mesh,
+                 axis: str = "shard") -> tuple:
+    """run_ba_traj_sharded's program arguments (x, MeshKey): the problem's
+    tensors (lm_order, host-side, stays out) and the static key."""
+    devs = axis_devices(mesh, axis)
+    return mesh_input(tuple(sp)[:-1], devs), MeshKey(cfg, devs, axis)
+
+
+def run_ba_traj_sharded(sp: TrajShardedBAProblem, cfg: BAConfig,
+                        mesh: Mesh, axis: str = "shard") -> BAResult:
+    """Distributed LM loop over the trajectory-sharded problem, at float32
+    product precision (TF32 off). Returns BAResult with R/t/X still stacked
+    per shard (use unshard_traj), on the first shard's device.
+
+    On a mesh whose shards are all one CUDA device the loop replays
+    captured graphs per shape key and (cfg, devices, axis)
+    (parallel/programs.MeshLoopProgram; the JAX package's jitted
+    shard_map); on the CPU and over several devices it runs eagerly.
+    The results are the caller's."""
+    return _RUN_BA_TRAJ_SHARDED(*traj_ba_args(sp, cfg, mesh, axis))
+
+
+run_ba_traj_sharded.program = _RUN_BA_TRAJ_SHARDED

@@ -26,7 +26,9 @@ program of the port shares:
     generator of its own for the random draws inside it, and (seeded=False)
     the frontends, which draw nothing.
 
-`slam/engine.py` builds its programs from the same pieces.
+`slam/engine.py` builds its programs from the same pieces, and
+`parallel/programs.py` keys both kinds on a mesh for the sharded
+programs.
 """
 
 from __future__ import annotations
@@ -237,9 +239,10 @@ class _Program:
     # The callers use one shape at a time: the loop closer one capacity (it
     # only grows, doubling past 256 nodes), the host-path window BA its
     # fixed padding, the global BA one problem (new shapes at every call)
-    # and its warm rerun, the tracker its match capacity. Four keys hold
-    # those and a prepared key with room to spare, and bound what a run
-    # whose shapes keep changing can hold on the card.
+    # and its warm rerun, the tracker its match capacity, the mesh
+    # tracker's sharded window BA its shards' observation padding.
+    # Four keys hold those and a prepared key with room to spare, and bound
+    # what a run whose shapes keep changing can hold on the card.
     KEYS = 4
 
     def __init__(self, fn):
