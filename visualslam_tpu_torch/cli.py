@@ -11,7 +11,9 @@
 (default `cuda`: the card; `cpu` runs the port's plain versions on the
 CPU). `detect` runs the DEFAULT (reference) profile with any of the three
 frontends; `run` takes `--profile fast|reference`, `--frontend` and
-`--pipeline` (stage-overlapped detection, parallel/pipeline.py).
+`--pipeline` (stage-overlapped detection, parallel/pipeline.py) and
+`--trace DIR` (the run's spans: DIR/trace.json, a torch.profiler trace,
+and DIR/stages.json, utils/profiling.StageTimer's totals).
 `benchmark` runs the per-stage harness (harness.py); `accuracy` appends
 the KITTI-scale row from KITTI_SCALE_TORCH.json when that file is present
 (`python -m visualslam_tpu_torch.kitti_scale` writes it).
@@ -20,6 +22,7 @@ the KITTI-scale row from KITTI_SCALE_TORCH.json when that file is present
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -186,34 +189,46 @@ def cmd_run(args) -> None:
                 else:
                     yield ids, [tracker.process(imgs[0], ids[0])]
 
-    try:
-        for ids, results in run_batches():
-            el = time.perf_counter() - t0
-            fps = (ids[-1] - start + 1) / el
-            if results:
-                res = results[-1]
-                print(f"frame {res.frame_id}/{len(seq)} "
-                      f"inliers={res.num_inliers} kf={res.is_keyframe} "
-                      f"loops={tracker.num_loop_closures} "
-                      f"{fps:.1f} fps", flush=True)
-            if (args.checkpoint_every
-                    and (ids[-1] + 1) % args.checkpoint_every < B):
-                tracker.finish()    # land in-flight batches before saving
-                save_checkpoint(ckpt_path, tracker)
-        tracker.finish()
-    except Exception as e:  # failure detection: save state, surface it
-        # as the reference, without finish() (reference defect 2,
-        # ROADMAP.md C): the in-flight batch is not in the checkpoint
-        save_checkpoint(ckpt_path, tracker)
-        print(f"run FAILED ({type(e).__name__}: {e}); emergency "
-              f"checkpoint -> {ckpt_path}", flush=True)
-        raise
-    wall = time.perf_counter() - t0
-    if args.global_ba:
-        res = tracker.global_ba()
-        print(f"global BA: {res.n_cameras} keyframes, {res.n_landmarks} "
-              f"landmarks, {res.n_observations} obs; cost "
-              f"{res.initial_cost:.3e} -> {res.cost:.3e}")
+    timer, traced = None, contextlib.nullcontext()
+    if args.trace:
+        # the run's spans (utils/profiling.span) in the tracker's timer and
+        # in a profiler trace of the loop and the global BA
+        from visualslam_tpu_torch.utils.profiling import StageTimer, trace
+
+        timer = tracker.timer = StageTimer()
+        traced = trace(args.trace)
+    with traced:
+        try:
+            for ids, results in run_batches():
+                el = time.perf_counter() - t0
+                fps = (ids[-1] - start + 1) / el
+                if results:
+                    res = results[-1]
+                    print(f"frame {res.frame_id}/{len(seq)} "
+                          f"inliers={res.num_inliers} kf={res.is_keyframe} "
+                          f"loops={tracker.num_loop_closures} "
+                          f"{fps:.1f} fps", flush=True)
+                if (args.checkpoint_every
+                        and (ids[-1] + 1) % args.checkpoint_every < B):
+                    tracker.finish()    # land in-flight batches before saving
+                    save_checkpoint(ckpt_path, tracker)
+            tracker.finish()
+        except Exception as e:  # failure detection: save state, surface it
+            # as the reference, without finish() (reference defect 2,
+            # ROADMAP.md C): the in-flight batch is not in the checkpoint
+            save_checkpoint(ckpt_path, tracker)
+            print(f"run FAILED ({type(e).__name__}: {e}); emergency "
+                  f"checkpoint -> {ckpt_path}", flush=True)
+            raise
+        wall = time.perf_counter() - t0
+        if args.global_ba:
+            res = tracker.global_ba()
+            print(f"global BA: {res.n_cameras} keyframes, {res.n_landmarks} "
+                  f"landmarks, {res.n_observations} obs; cost "
+                  f"{res.initial_cost:.3e} -> {res.cost:.3e}")
+    if timer is not None:
+        timer.dump(os.path.join(args.trace, "stages.json"))
+        print(f"wrote {args.trace}/trace.json and stages.json")
     est = tracker.trajectory()
     out = args.out or "poses_est.txt"
     save_kitti_poses(out, est)
@@ -524,6 +539,10 @@ def main(argv=None) -> None:
     r.add_argument("--global-ba", action="store_true",
                    help="full-sequence bundle adjustment over the entire "
                         "keyframe history after the run")
+    r.add_argument("--trace", default=None, metavar="DIR",
+                   help="time the run's spans and record a profiler trace: "
+                        "DIR/trace.json (Chrome trace) and DIR/stages.json "
+                        "(seconds and count by span)")
     device_arg(r)
     r.set_defaults(fn=cmd_run)
 

@@ -84,6 +84,7 @@ from visualslam_tpu_torch.utils.graphs import (
 )
 from visualslam_tpu_torch.utils.masked import top_k
 from visualslam_tpu_torch.utils.precision import f32_matmul
+from visualslam_tpu_torch.utils.profiling import span
 
 NC = 3          # loop retrieval candidates verified per promotion
 LOOP_REC = 22   # per-candidate verify record:
@@ -730,22 +731,29 @@ def run_engine_batch(persist: EnginePersist, dyn: EngineDyn,
     B = feats_b.keypoints.yx.shape[0]
     P = promotions_cap(B, cfg)
     dev = persist.R.device
-    # the loop database is copied once, the promotions append to the copy
-    persist = persist._replace(
-        **{f: getattr(persist, f).clone() for f in _DB_FIELDS})
-    c = engine_enter(persist, dyn.kill, dyn.kill_gen, B, P,
-                     cfg.match.max_matches)
-    base = torch.full((), dyn.frame_base, dtype=_I32, device=dev)
+    with span("engine_load"):
+        # the loop database is copied once, the promotions append to the
+        # copy
+        persist = persist._replace(
+            **{f: getattr(persist, f).clone() for f in _DB_FIELDS})
+        c = engine_enter(persist, dyn.kill, dyn.kill_gen, B, P,
+                         cfg.match.max_matches)
+        base = torch.full((), dyn.frame_base, dtype=_I32, device=dev)
     for i in range(dyn.start, dyn.stop):
-        idx = torch.full((), i, dtype=_I32, device=dev)
-        c, step = engine_step(c, feats_b, idx, base, intr, cfg, ok_min, P,
-                              kernels)
+        with span("engine_step"):
+            idx = torch.full((), i, dtype=_I32, device=dev)
+            c, step = engine_step(c, feats_b, idx, base, intr, cfg, ok_min,
+                                  P, kernels)
         # the one data-dependent branch: a host read per active frame
-        if bool(step.need.item()):
-            c = engine_promote(c, step, idx, base, intr, cfg, max_depth, P,
-                               ok_min, kernels)
-    packed = engine_pack(c, persist.R, persist.t, persist.vel, dyn.start,
-                         dyn.stop)
+        with span("sync_need"):
+            need = bool(step.need.item())
+        if need:
+            with span("engine_promote"):
+                c = engine_promote(c, step, idx, base, intr, cfg, max_depth,
+                                   P, ok_min, kernels)
+    with span("engine_pack"):
+        packed = engine_pack(c, persist.R, persist.t, persist.vel,
+                             dyn.start, dyn.stop)
     return packed, c.p
 
 
@@ -1224,15 +1232,21 @@ class _BatchGraphs:
         self.stop.fill_(dyn.stop)
 
     def run(self, persist, dyn, feats_b, intr):
-        self._load(persist, dyn, feats_b, intr)
-        self.g_enter.replay()
+        with span("engine_load"):
+            self._load(persist, dyn, feats_b, intr)
+            self.g_enter.replay()
         for _ in range(dyn.start, dyn.stop):
-            out = self.g_step.replay()
+            with span("engine_step"):
+                out = self.g_step.replay()
             # the one host read per active frame
-            if bool(out.need.item()):
-                self.g_promote.replay()
-        packed = self.g_pack.replay()
-        return packed.clone(), _clone_all(self.persist)
+            with span("sync_need"):
+                need = bool(out.need.item())
+            if need:
+                with span("engine_promote"):
+                    self.g_promote.replay()
+        with span("engine_pack"):
+            packed = self.g_pack.replay()
+            return packed.clone(), _clone_all(self.persist)
 
 
 class EngineProgram:

@@ -51,6 +51,7 @@ from visualslam_tpu_torch.models.types import Features, Keypoints
 from visualslam_tpu_torch.ops.cuda import KERNELS, Kernels
 from visualslam_tpu_torch.utils.config import MatchConfig, PoseGraphConfig
 from visualslam_tpu_torch.utils.graphs import GraphProgram
+from visualslam_tpu_torch.utils.profiling import span
 
 
 @dataclass
@@ -81,6 +82,13 @@ class KeyframeEntry:
 
 def _host(x) -> np.ndarray:
     return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+
+def _read(x: torch.Tensor) -> np.ndarray:
+    """The pose graph's result on the host (a read that waits for the
+    solve)."""
+    with span("sync_pose_graph_read"):
+        return x.cpu().numpy()
 
 
 def _verify(desc_a, yx_a, has_lm_a, lm_world_a, desc_b, yx_b, R0, t0, intr,
@@ -251,7 +259,9 @@ class LoopCloser:
                  z(3, 3), self._intr_dev), cfg)
 
     def _T(self, x, dtype=None) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(x, dtype), device=self.device)
+        # a pageable upload: on the card the host waits for the copy
+        with span("sync_loop_upload"):
+            return torch.as_tensor(np.asarray(x, dtype), device=self.device)
 
     # ------------------------------------------------------------------
 
@@ -559,11 +569,12 @@ class LoopCloser:
             info = min(4.0, (2.0 / max(e.rot_sigma_deg, 0.5)) ** 2)
             w.append(self.pg_cfg.loop_weight * info)
         g = self._graph(*self._capacity(n), R0, t0, ii, jj, Rm, tm, sm, w)
-        res = self.program(g, self.pg_cfg)
-        scales = (res.s[:n].cpu().numpy() if self.use_sim3
-                  else np.ones(n, np.float32))
-        Rn = res.R[:n].cpu().numpy()
-        tn = res.t[:n].cpu().numpy()
+        with span("loop_pose_graph"):
+            res = self.program(g, self.pg_cfg)
+            scales = (_read(res.s[:n]) if self.use_sim3
+                      else np.ones(n, np.float32))
+            Rn = _read(res.R[:n])
+            tn = _read(res.t[:n])
         # de-scaled SE(3): x_cam_metric = R X + t / s
         self.corrected = [(Rn[k], tn[k] / scales[k]) for k in range(n)]
         self.corrected_scale = list(scales)

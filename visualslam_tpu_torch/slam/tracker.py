@@ -44,7 +44,6 @@ reference's `copy_to_host_async`).
 
 from __future__ import annotations
 
-import contextlib
 import functools
 from dataclasses import dataclass
 from typing import NamedTuple, Optional
@@ -83,6 +82,20 @@ from visualslam_tpu_torch.slam.track_step import (
 from visualslam_tpu_torch.utils.card import require_device
 from visualslam_tpu_torch.utils.config import SlamConfig
 from visualslam_tpu_torch.utils.graphs import GraphProgram
+from visualslam_tpu_torch.utils.profiling import sink, span
+
+
+def _entry(method):
+    """A public entry of the Tracker: `self.timer` is the active
+    profiling sink while it runs, so every layer under it reports its
+    spans there (utils/profiling.span)."""
+
+    @functools.wraps(method)
+    def entry(self, *args, **kwargs):
+        with sink(self.timer):
+            return method(self, *args, **kwargs)
+
+    return entry
 
 
 def _tree_map(fn, tree):
@@ -367,17 +380,14 @@ class Tracker:
         # batch dispatched before a loop correction ran in the
         # pre-correction frame
         self._pending_world_G = None    # (Rg, tg, sg) or None
-        # optional utils.profiling.StageTimer: wall time by stage
+        # optional utils.profiling.StageTimer (or any object with a
+        # stage(name) context manager): the sink of every span reported
+        # while a public entry runs
         self.timer = None
 
     def _feat_capacity(self) -> int:
         return (self.cfg.sift.max_keypoints if self.cfg.frontend == "sift"
                 else self.cfg.orb.max_keypoints)
-
-    def _stage(self, name: str):
-        if self.timer is None:
-            return contextlib.nullcontext()
-        return self.timer.stage(name)
 
     # ------------------------------------------------------------------
     # the device functions the reference jits (_shared_programs)
@@ -434,11 +444,13 @@ class Tracker:
     def _fetch(readback) -> np.ndarray:
         host, ev = readback
         if ev is not None:
-            ev.synchronize()
+            with span("sync_readback"):
+                ev.synchronize()
         return host.numpy()
 
     # ------------------------------------------------------------------
 
+    @_entry
     def process(self, img, frame_id: int) -> FrameResult:
         feats = self.features_at(self.detect_batch(np.asarray(img)[None]), 0)
         return self.process_features(feats, frame_id)
@@ -470,13 +482,14 @@ class Tracker:
         """Frame i's Features from a batched Features."""
         return index_features(batched, i)
 
+    @_entry
     def process_batch(self, imgs, first_frame_id: int):
         """Detect a batch in one call, then track the WHOLE batch: the
         engine batch program, or (engine=False) track_batch with one
         stats read-back, re-entering after each keyframe promotion so that
         the frames after it see the new keyframe's landmarks."""
         B = imgs.shape[0]
-        with self._stage("frontend_dispatch"):
+        with span("frontend_dispatch"):
             feats_b = self.detect_batch(imgs)
         results: list[FrameResult] = []
         i = 0
@@ -494,13 +507,13 @@ class Tracker:
                 continue
             if self._kf_ref is None:
                 self._refresh_device_cache()
-            with self._stage("track_dispatch"):
+            with span("track_dispatch"):
                 # frames [i, B) active
                 st, bl = self._progs["track_batch"](
                     (self._lmap, feats_b, self._index(i), self._state,
                      self.intr), ((self.cfg, self._track_ok_min),
                                   self.kernels))
-            with self._stage("stats_readback"):
+            with span("stats_readback"):
                 # ONE [B, 22] read-back
                 stats = self._fetch(self._readback(bl.stats))
             self._state = st
@@ -515,7 +528,7 @@ class Tracker:
                     break
             i = j
             if disp == "kf":
-                with self._stage("refresh_cache"):
+                with span("refresh_cache"):
                     self._refresh_device_cache()
             # "restart": recovery reset the map/caches itself
         return results
@@ -524,6 +537,7 @@ class Tracker:
     # lag-1 pipelined streaming (the throughput path)
     # ------------------------------------------------------------------
 
+    @_entry
     def process_stream(self, imgs, first_frame_id: int):
         """Dispatch THIS batch's frontend + engine batch, then harvest the
         PREVIOUS batch's telemetry. Call `finish()` after the last batch.
@@ -552,7 +566,7 @@ class Tracker:
                 imgs = np.asarray(imgs)
                 imgs = np.concatenate(
                     [imgs, np.repeat(imgs[-1:], B - n, axis=0)])
-        with self._stage("frontend_dispatch"):
+        with span("frontend_dispatch"):
             feats_b = self.detect_batch(imgs)
         # this batch's engine call goes before the previous batch's
         # telemetry is consumed: nothing in EngineDyn depends on it (kill
@@ -564,6 +578,7 @@ class Tracker:
             out.extend(self._harvest_inflight(prev))
         return out
 
+    @_entry
     def finish(self) -> list:
         """Harvest any in-flight batch (after the last process_stream, and
         before reading trajectories/maps)."""
@@ -572,6 +587,7 @@ class Tracker:
             return []
         return self._harvest_inflight(inflight)
 
+    @_entry
     def prewarm_aux(self) -> None:
         """Capture the rare-event programs outside any timed loop, where
         the reference compiles them: the loop closer's pose-graph program
@@ -707,10 +723,14 @@ class Tracker:
         kill_gen = np.where(stale, self._eng_gen, -1).astype(np.int32)
         ids[stale] = -1
         self._eng_uids[stale] = -1
+        # two pageable uploads: the host waits for each copy
+        with span("sync_kill_upload"):
+            kill = torch.from_numpy(stale).to(self.device)
+        with span("sync_kill_upload"):
+            kill_gen = torch.from_numpy(kill_gen).to(self.device)
         return engine.EngineDyn(
             frame_base=int(first_fid), start=int(start_i), stop=int(stop_i),
-            kill=torch.from_numpy(stale).to(self.device),
-            kill_gen=torch.from_numpy(kill_gen).to(self.device))
+            kill=kill, kill_gen=kill_gen)
 
     def _engine_dispatch(self, feats_b, first_fid: int, i0: int, B: int,
                          stop: int | None = None):
@@ -721,9 +741,9 @@ class Tracker:
             stop = B
         if not self._eng_ready:
             self._engine_enter()
-        with self._stage("engine_dyn"):
+        with span("engine_dyn"):
             dyn = self._engine_dyn(i0, first_fid, stop)
-        with self._stage("engine_dispatch"):
+        with span("engine_dispatch"):
             packed_dev, persist = self._engine_batch(self._eng_persist, dyn,
                                                      feats_b)
         self._eng_persist = persist
@@ -744,13 +764,13 @@ class Tracker:
         recovery. Returns (FrameResults, next index): next < stop only
         when a sustained loss forced a mid-batch recovery."""
         readback, feats_b, first_fid, i0, B, stop = inflight
-        with self._stage("engine_readback"):
+        with span("engine_readback"):
             packed = self._fetch(readback)
         M = self.cfg.match.max_matches
         P = max(1, -(-B // max(1, self.cfg.keyframe_min_gap)))
         W = self.cfg.ba.max_cameras
         Kl = self.cfg.local_map_size
-        with self._stage("decode"):
+        with span("decode"):
             stats, recs, db_n_dev, tail = engine.decode_packed(
                 packed, B, M, P, W, Kl)
         pending, self._pending_world_G = self._pending_world_G, None
@@ -790,7 +810,7 @@ class Tracker:
                 self._lost_streak = 0
             if promoted:
                 rec = rec_by_frame[j]
-                with self._stage("kf_apply"):
+                with span("kf_apply"):
                     hit = self._engine_apply_prom(rec, fid, R, t)
                 n_applied += 1
                 self._frames_since_kf = 0
@@ -804,10 +824,10 @@ class Tracker:
                     fid, R, t, num_matches=n_match, num_inliers=n_inl,
                     is_keyframe=False, tracking_ok=ok))
         self._eng_db_n = db_n_dev
-        with self._stage("tail_apply"):
+        with span("tail_apply"):
             self._engine_apply_tail(tail)
         if loop_hits:
-            with self._stage("loop_optimize"):
+            with span("loop_optimize"):
                 self._engine_apply_loops()
         return results, stop
 
@@ -962,6 +982,7 @@ class Tracker:
             entry.R, entry.t)
         self._eng_db_n += 1
 
+    @_entry
     def process_features(self, feats: Features, frame_id: int) -> FrameResult:
         """Track precomputed Features (tests and other frontends bypass
         detection)."""
@@ -1215,9 +1236,9 @@ class Tracker:
         (bl, on the device): tracked-landmark observations from the
         local-map association, new landmarks from the triangulated + gated
         2D-2D matches; one packed read-back + the descriptors."""
-        with self._stage("kf_step_dispatch"):
+        with span("kf_step_dispatch"):
             packed, feats = self._kf_step(self._kf_ref, fb, idx, bl)
-        with self._stage("kf_readback"):
+        with span("kf_readback"):
             # copies: the map keeps these arrays, not the pinned buffers
             rb = self._readback(packed), self._readback(feats.descriptors)
             packed_np, desc_np = (self._fetch(r).copy() for r in rb)
@@ -1257,7 +1278,7 @@ class Tracker:
 
         # 3. windowed BA
         if self.run_ba:
-            with self._stage("window_ba"):
+            with span("window_ba"):
                 self._run_window_ba()
         # refresh the cached current pose from the (possibly) adjusted
         # keyframe
@@ -1266,7 +1287,7 @@ class Tracker:
 
         # 4. loop closure (with the already-fetched host copy of feats)
         if self.loop_closer is not None:
-            with self._stage("loop_closure"):
+            with span("loop_closure"):
                 idx = self.loop_closer.add_keyframe(
                     frame_id, self.map.kf_R[slot], self.map.kf_t[slot],
                     feats_np, self.map.kf_kp_lm[slot], self.map.X)
@@ -1434,6 +1455,7 @@ class Tracker:
 
     # ------------------------------------------------------------------
 
+    @_entry
     def global_ba(self, mesh=None):
         """Full-sequence bundle adjustment over the ENTIRE keyframe history
         (slam/global_ba.py). Keyframe FrameResults adopt their optimized

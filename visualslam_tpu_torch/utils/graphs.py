@@ -47,6 +47,7 @@ from visualslam_tpu_torch.ops.cuda import (
     set_launch_counts,
 )
 from visualslam_tpu_torch.utils.precision import f32_matmul
+from visualslam_tpu_torch.utils.profiling import span
 
 
 def _leaves(tree) -> list:
@@ -141,11 +142,14 @@ class _Capture:
     saw), so the program must hold `scratch` as long as its graphs.
     `done` gives the seconds since the start and the device memory the
     program now holds (a capture empties the allocator's cache; so do the
-    start and the end here, so the difference counts what stays)."""
+    start and the end here, so the difference counts what stays). From
+    construction to `done` the capture is the span `capture`."""
 
     def __init__(self, dev: torch.device):
         self.dev = dev
         self.scratch: dict = {}
+        self._span = span("capture")
+        self._span.__enter__()
         torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()
         self._t0 = time.perf_counter()
@@ -167,6 +171,7 @@ class _Capture:
     def done(self) -> tuple[float, int]:
         torch.cuda.synchronize(self.dev)
         torch.cuda.empty_cache()
+        self._span.__exit__(None, None, None)
         return (time.perf_counter() - self._t0,
                 torch.cuda.memory_reserved(self.dev) - self._reserved)
 

@@ -1,14 +1,26 @@
-"""Tracing and stage timing (visualslam_tpu/utils/profiling.py).
+"""Tracing and stage timing (visualslam_tpu/utils/profiling.py), the
+port's one tracing module:
 
-  - `annotate(name)`: a named range in torch.profiler traces
-    (`torch.profiler.record_function`);
+  - `span(name)`: a named stage of the program, reported into the active
+    sink; with none, one shared no-op context (one global read). Every
+    layer reports through it: the tracker's stages, the engine batch's
+    parts, the host syncs by site, the pose graph and the CUDA-graph
+    captures;
+  - `sink(timer)`: makes `timer` (any object with a `stage(name)` context
+    manager, such as `StageTimer`) the active sink for a block; the
+    Tracker does so with `Tracker.timer` for the length of each public
+    entry;
   - `trace(dir)`: a context that records a torch.profiler trace of the CPU
     and, where there is one, the CUDA device, written to `dir` as a Chrome
     trace (`trace.json`);
-  - `StageTimer`: wall-clock time by stage, which the tracker's stages
-    report into when `Tracker.timer` is set. A stage that reads back from
-    the device absorbs the device time before it; a stage that only queues
-    work measures the host's launch cost.
+  - `StageTimer`: wall-clock time by stage, each stage also a
+    `stage:`-prefixed range in torch.profiler's timeline. A stage that
+    reads back from the device absorbs the device time before it; a stage
+    that only queues work measures the host's launch cost.
+
+No other module of the port opens a profiler range: a range without the
+`stage:` prefix is mirrored onto the device's timeline, where it would
+read as device activity.
 """
 
 from __future__ import annotations
@@ -21,24 +33,47 @@ from collections import defaultdict
 
 import torch
 
+STAGE = "stage:"
 
-def annotate(name: str):
-    """Named range in torch.profiler traces."""
-    return torch.profiler.record_function(name)
+_NULL = contextlib.nullcontext()
+_sink = None
+
+
+def span(name: str):
+    """The stage `name` in the active sink, else a shared no-op context."""
+    s = _sink
+    return _NULL if s is None else s.stage(name)
+
+
+@contextlib.contextmanager
+def sink(timer):
+    """`timer` as the active sink inside the block (None: no sink); the
+    previous one comes back after it."""
+    global _sink
+    prev, _sink = _sink, timer
+    try:
+        yield
+    finally:
+        _sink = prev
 
 
 @contextlib.contextmanager
 def trace(log_dir: str):
-    """Record a torch.profiler trace into log_dir/trace.json."""
+    """Record a torch.profiler trace into log_dir/trace.json (also when the
+    block raises)."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=acts) as prof:
+    prof = profile(activities=acts)
+    prof.start()
+    try:
         yield prof
-    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+    finally:
+        prof.stop()
+        prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
 class StageTimer:
@@ -49,11 +84,14 @@ class StageTimer:
         self.counts = defaultdict(int)
 
     @contextlib.contextmanager
-    def stage(self, name: str, result=None):
-        t0 = time.perf_counter()
-        yield
-        self.totals[name] += time.perf_counter() - t0
-        self.counts[name] += 1
+    def stage(self, name: str):
+        with torch.profiler.record_function(STAGE + name):
+            t0 = time.perf_counter()
+            try:
+                yield
+            finally:
+                self.totals[name] += time.perf_counter() - t0
+                self.counts[name] += 1
 
     def summary(self) -> dict:
         return {k: {"total_s": round(v, 4),
